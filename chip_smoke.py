@@ -1,0 +1,618 @@
+#!/usr/bin/env python3
+"""Smoke run of the PyTorch/CUDA port (``yoloret_tpu_torch``) on one GPU.
+
+    python3 chip_smoke.py [--seed 0]
+
+Phases (any failure exits non-zero and prints no result):
+
+1. The card's name and power limit (``nvidia-smi``); build both CUDA
+   kernels from ``yoloret_tpu_torch/csrc/`` (one ``nvcc`` each, in parallel).
+2. Each kernel against its plain PyTorch version on the card, at the
+   serving path's shapes: the fused MBConv at all 16 backbone blocks of
+   MobileNetV2 x0.75 @ 320 (float32 with TF32 off, and bfloat16); the
+   suppression kernel on the shared pool at B=128, C=20, M=64 and 512,
+   and on per-class pools.
+3. The serving slice through its entry points, with seeded weights
+   (BatchNorm calibrated on seeded images, so scores are not all ties): ``Predictor.detect_arrays``
+   on 1, 8 and 130 images, the HTTP ``DetectionServer`` on 4 JPEGs, and
+   a MAP-grade request. The launch counters must show 16 MBConv launches
+   and 1 NMS launch per forward. The float32 Predictor on the card must
+   agree with the same Predictor on the CPU (plain versions) on 2 images.
+4. Times: serving (t=0.3, M=64) and MAP grade (t=0, M=512) img/s at
+   batch 128 with CUDA events; each kernel beside its plain version, a
+   library yardstick and its bound (bytes at 3.35 TB/s, operations at the
+   peak rate of their type).
+
+The line before the last is the kernel table as JSON; the last line is
+``{"ok": true, "device": {...}}``. Details go to chiprun_out/chip_smoke.json.
+"""
+
+from __future__ import annotations
+
+import argparse
+import io
+import json
+import os
+import subprocess
+import sys
+import threading
+import time
+import urllib.request
+
+HERE = os.path.dirname(os.path.abspath(__file__))
+
+# NVIDIA H100 SXM data sheet, dense: bytes/s of HBM3, FLOP/s by type.
+HBM_BYTES_PER_S = 3.35e12
+PEAK_OPS = {"bf16": 989e12, "f32": 67e12}
+ANCHORS = [[10, 13], [16, 30], [33, 23], [30, 61], [62, 45],
+           [59, 119], [116, 90], [156, 198], [373, 326]]
+NUM_CLASSES = 20
+DEVICE = "cuda"  # the card; nothing in this script falls back to the CPU
+SIZE = 320
+BATCH = 128
+MBCONV_TOL = {"float32": 1e-4, "bfloat16": 2e-2}  # atol = rtol
+# IoU + argmax scan + kill, per candidate per round (see nms_bound_ms)
+NMS_OPS_PER_PAIR = 16
+
+
+def log(*a):
+    print(*a, flush=True)
+
+
+def nvidia_smi_line() -> str:
+    out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True, text=True,
+                         timeout=60, check=True)
+    return out.stdout.strip().splitlines()[0]
+
+
+def cuda_time_ms(fn, iters=10, warmup=2, flush=None):
+    """Mean device ms of ``fn`` over ``iters`` calls, each between CUDA
+    events; ``flush`` (outside the timed window) evicts L2 first."""
+    import torch
+
+    for _ in range(warmup):
+        fn()
+    total = 0.0
+    for _ in range(iters):
+        if flush is not None:
+            flush()
+        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        a.record()
+        fn()
+        b.record()
+        b.synchronize()
+        total += a.elapsed_time(b)
+    return total / iters
+
+
+# -- phase 2/4 helpers ---------------------------------------------------
+
+
+def block_inputs(pred, batch, seed):
+    """Input of each of the 16 blocks for ``batch`` seeded images, run
+    through the kernel path itself (real activation statistics)."""
+    import torch
+
+    from yoloret_tpu_torch.nn.layers import conv2d_same, relu6
+    from yoloret_tpu_torch.ops.mbconv import fused_mbconv
+
+    g = torch.Generator(device=DEVICE).manual_seed(seed)
+    x = torch.rand((batch, SIZE, SIZE, 3), generator=g, device=DEVICE).to(pred.model.dtype)
+    ks, bs = pred._fused.stem
+    x = relu6(conv2d_same(x, ks, bs, stride=2)).contiguous()
+    ins = []
+    for meta in pred._fused.blocks:
+        ins.append(x)
+        x = fused_mbconv(x, *meta.args, stride=meta.stride, residual=meta.residual)
+    return ins
+
+
+def library_mbconv(x, we, be, wd, bd, wp, bp, stride, residual):
+    """cuDNN yardstick: the block as three ``F.conv2d`` calls (channels-last),
+    bias and clamp fused by nothing. Timed only, never used by the port."""
+    import torch.nn.functional as F
+
+    xc = x.permute(0, 3, 1, 2)
+    y = xc
+    if we is not None:
+        y = F.conv2d(y, we.t()[:, :, None, None], be.to(x.dtype)).clamp_(0, 6)
+    pad = (1, 1, 1, 1) if stride == 1 else (0, 1, 0, 1)
+    y = F.conv2d(F.pad(y, pad), wd.permute(2, 0, 1)[:, None], bd.to(x.dtype), stride,
+                 groups=wd.shape[-1]).clamp_(0, 6)
+    y = F.conv2d(y, wp.t()[:, :, None, None], bp.to(x.dtype))
+    return (y + xc) if residual else y
+
+
+def mbconv_bound(x, meta, elem):
+    b, h, w, cin = x.shape
+    we, _, wd, _, wp, _ = meta.args
+    ce, cout = wd.shape[-1], wp.shape[-1]
+    ho, wo = h // meta.stride, w // meta.stride
+    weight_bytes = sum(t.numel() * t.element_size() for t in meta.args if t is not None)
+    nbytes = (b * h * w * cin + b * ho * wo * cout) * elem + weight_bytes
+    flops = 2 * b * ((h * w * cin * ce if we is not None else 0) + ho * wo * ce * 9
+                     + ho * wo * ce * cout)
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / PEAK_OPS["bf16"]
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations"), nbytes, flops
+
+
+def nms_bound_ms(boxes, scores, out_scores, max_det):
+    """Bytes: scores, boxes and outputs once. Operations: what this run's
+    data needs, (picks + a final empty round, capped at max_det) rounds
+    per (image, class), each over all M candidates at
+    NMS_OPS_PER_PAIR float32 operations."""
+    picks = (out_scores > 0).sum(-1)
+    rounds = (picks + (picks < max_det).long()).sum().item()
+    m = scores.shape[-1]
+    ops = rounds * m * NMS_OPS_PER_PAIR
+    nbytes = (scores.numel() + boxes.numel() + out_scores.numel() * 5) * 4
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / PEAK_OPS["f32"]
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def max_err(a, b):
+    return (a.float() - b.float()).abs().max().item() if a.numel() else 0.0
+
+
+# -- phases ----------------------------------------------------------------
+
+
+def calibrate_bn(model, images):
+    """Set every BatchNorm's running statistics to those of its conv's
+    output on ``images``, in one forward pass in layer order. The seeded
+    fan-out init alone shrinks activations some 50x per backbone block
+    (to ~1e-11 by block 15), which would leave the kernel checks
+    comparing zeros; calibrated, every layer carries unit-scale
+    activations."""
+    import torch
+
+    from yoloret_tpu_torch.nn.layers import ConvBN, DepthwiseConvBN
+
+    def hook(mod, inp):
+        conv = mod.conv if isinstance(mod, ConvBN) else mod.dwconv
+        y = conv(inp[0]).float()
+        mod.bn.running_mean.copy_(y.mean(dim=(0, 1, 2)))
+        mod.bn.running_var.copy_(y.var(dim=(0, 1, 2), unbiased=False))
+
+    handles = [m.register_forward_pre_hook(hook) for m in model.modules()
+               if isinstance(m, (ConvBN, DepthwiseConvBN))]
+    try:
+        with torch.no_grad():
+            model(images)
+    finally:
+        for h in handles:
+            h.remove()
+
+
+def make_predictor(seed, weights=None, **kw):
+    """Serving Predictor on the card. Without ``weights``: seeded init,
+    then BatchNorm calibrated on 8 seeded images. Calibration does what
+    the x4 head-kernel amplification of tests/test_export.py does for
+    uncalibrated weights -- input-dependent, distinct scores instead of
+    ties at 0.25 -- and the x4 on top of it would saturate the logits
+    (std ~6, 0.3% of scores exactly 1.0, i.e. ties again)."""
+    import torch
+
+    from yoloret_tpu_torch.infer import Predictor
+
+    pred = Predictor(class_names=[f"class_{i}" for i in range(NUM_CLASSES)], anchors=ANCHORS,
+                     input_hw=(SIZE, SIZE), seed=seed, weights=weights, device=DEVICE, **kw)
+    if weights is None:
+        g = torch.Generator(device=DEVICE).manual_seed(seed)
+        calibrate_bn(pred.model, torch.rand((8, SIZE, SIZE, 3), generator=g, device=DEVICE))
+        pred.refresh()
+    return pred
+
+
+def check_mbconv(pred, report):
+    import torch
+
+    from yoloret_tpu_torch.nn.fused_infer import _block_meta
+    from yoloret_tpu_torch.ops.mbconv import fused_mbconv, reference_mbconv
+
+    rows = []
+    for dtype in (torch.float32, torch.bfloat16):
+        metas = _block_meta(pred.model.body, dtype)
+        ins = block_inputs(pred, 2, seed=11)
+        for meta, x in zip(metas, ins):
+            x = x.to(dtype)
+            got = fused_mbconv(x, *meta.args, stride=meta.stride, residual=meta.residual)
+            want = reference_mbconv(x, *meta.args, stride=meta.stride, residual=meta.residual)
+            torch.cuda.synchronize()
+            tol = MBCONV_TOL[str(dtype).split(".")[-1]]
+            err = max_err(got, want)
+            ok = torch.allclose(got.float(), want.float(), atol=tol, rtol=tol)
+            rows.append(dict(block=meta.block_id, dtype=str(dtype), shape=list(x.shape),
+                             stride=meta.stride, max_abs_err=err, tol=tol, ok=ok,
+                             max_abs_ref=want.float().abs().max().item()))
+            if not ok:
+                raise AssertionError(f"mbconv block {meta.block_id} {dtype}: max err {err}")
+    report["mbconv_check"] = rows
+    worst = {d: max(r["max_abs_err"] for r in rows if r["dtype"] == d)
+             for d in ("torch.float32", "torch.bfloat16")}
+    scale = min(r["max_abs_ref"] for r in rows)
+    log(f"mbconv kernel vs plain, 16 blocks x (float32, bfloat16): max abs err {worst} "
+        f"(tolerance atol=rtol {MBCONV_TOL}; smallest block max |out| {scale:.3g})")
+    if scale < 0.1:
+        raise AssertionError(f"block outputs too small ({scale}) for the check to mean much")
+    return max(worst.values())
+
+
+def candidates_at_b128(pred, m, seed):
+    import torch
+
+    from yoloret_tpu_torch.nn.fused_infer import fused_detector_apply
+    from yoloret_tpu_torch.ops.postprocess import shared_pool_candidates
+
+    g = torch.Generator(device=DEVICE).manual_seed(seed)
+    images = torch.randint(0, 256, (BATCH, SIZE, SIZE, 3), generator=g, device=DEVICE,
+                           dtype=torch.uint8)
+    hw = torch.full((BATCH, 2), float(SIZE), device=DEVICE)
+    with torch.inference_mode():
+        outs = fused_detector_apply(pred.model, images.float() / 255.0, pred._fused)
+        return shared_pool_candidates(outs, pred._anchors_t, NUM_CLASSES, hw, num_candidates=m)
+
+
+def check_nms(pred, report):
+    import numpy as np
+    import torch
+
+    from yoloret_tpu_torch.ops.nms_kernel import suppress, suppress_plain
+
+    rows, worst = [], 0.0
+    cases = []
+    for m, thr in ((64, 0.3), (512, 0.0)):
+        boxes, scores = candidates_at_b128(pred, m, seed=m)
+        cases.append((f"shared M={m} t={thr} (model candidates)", boxes, scores, thr))
+    rs = np.random.RandomState(5)
+    k = 512
+    b = rs.rand(BATCH, NUM_CLASSES, k, 4).astype(np.float32) * SIZE
+    b[..., 2:] = b[..., :2] + rs.rand(BATCH, NUM_CLASSES, k, 2).astype(np.float32) * 80
+    s = rs.permutation(BATCH * NUM_CLASSES * k).reshape(BATCH, NUM_CLASSES, k)
+    s = (s / s.size).astype(np.float32)
+    cases.append((f"per-class K={k} t=0.3 (random)", torch.from_numpy(b).to(DEVICE),
+                  torch.from_numpy(s).to(DEVICE), 0.3))
+    for name, boxes, scores, thr in cases:
+        got = suppress(boxes, scores, max_det=20, iou_threshold=0.5, score_threshold=thr)
+        want = suppress_plain(boxes, scores, max_det=20, iou_threshold=0.5,
+                              score_threshold=thr)
+        torch.cuda.synchronize()
+        err = max(max_err(got[0], want[0]), max_err(got[1], want[1]))
+        dets = int((got[1] > 0).sum())
+        rows.append(dict(case=name, max_abs_err=err, detections=dets))
+        log(f"nms kernel vs plain, {name}: max abs err {err} (tolerance 0: exact), "
+            f"{dets} detections")
+        if err != 0.0:
+            raise AssertionError(f"nms {name}: kernel differs from plain by {err}")
+        worst = max(worst, err)
+    report["nms_check"] = rows
+    return worst
+
+
+def drive_main_path(pred, map_pred, seed, report):
+    """The serving slice through its entry points, with the launch counts
+    set to 0 just before and read just after."""
+    import numpy as np
+    from PIL import Image
+
+    from yoloret_tpu_torch.ops.mbconv import fused_mbconv
+    from yoloret_tpu_torch.ops.nms_kernel import suppress
+    from yoloret_tpu_torch.serve import DetectionServer
+
+    rs = np.random.RandomState(seed)
+
+    def images(n):
+        return [rs.randint(0, 256, (int(rs.randint(200, 500)), int(rs.randint(200, 500)), 3),
+                           dtype=np.uint8) for _ in range(n)]
+
+    requests = [images(n) for n in (1, 8, 130)]
+    jpegs = []
+    for im in images(4):
+        buf = io.BytesIO()
+        Image.fromarray(im).save(buf, format="JPEG")
+        jpegs.append(buf.getvalue())
+    map_request = images(8)
+
+    fused_mbconv.launches = suppress.launches = 0
+    pred.forwards = map_pred.forwards = 0
+    t0 = time.perf_counter()
+    counts = []
+    for req in requests:
+        dets = pred.detect_arrays(req)
+        assert len(dets) == len(req), (len(dets), len(req))
+        for im, d in zip(req, dets):
+            for det in d:
+                x1, y1, x2, y2 = det.box
+                assert all(np.isfinite(det.box)) and 0 < det.score <= 1
+                assert 0 <= x1 <= x2 <= im.shape[1] and 0 <= y1 <= y2 <= im.shape[0], det
+        counts.append(sum(len(d) for d in dets))
+
+    server = DetectionServer(pred, host="127.0.0.1", port=0, max_batch=8)
+    server.start(block=False)
+    replies = [None] * len(jpegs)
+
+    def post(i):
+        req = urllib.request.Request(f"http://127.0.0.1:{server.port}/detect", data=jpegs[i],
+                                     headers={"Content-Type": "image/jpeg"}, method="POST")
+        with urllib.request.urlopen(req, timeout=120) as r:
+            replies[i] = (r.status, json.loads(r.read()))
+
+    try:
+        threads = [threading.Thread(target=post, args=(i,)) for i in range(len(jpegs))]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=180)
+        assert not any(t.is_alive() for t in threads), "an HTTP request hung"
+    finally:
+        server.stop()
+    for status, body in replies:
+        assert status == 200, status
+        assert isinstance(body["detections"], list) and isinstance(body["latency_ms"], float)
+        for d in body["detections"]:
+            assert len(d["box"]) == 4 and 0 < d["score"] <= 1
+            assert 0 <= d["class_id"] < NUM_CLASSES and d["class_name"].startswith("class_")
+    map_dets = map_pred.detect_arrays(map_request)
+    seconds = time.perf_counter() - t0
+    forwards = pred.forwards + map_pred.forwards
+    launches = {"mbconv": fused_mbconv.launches, "nms": suppress.launches}
+    log(f"main path: detect_arrays 1/8/130 images -> {counts} detections, "
+        f"4 HTTP POSTs -> 200 with {[len(b['detections']) for _, b in replies]} detections, "
+        f"MAP-grade request of 8 -> {sum(len(d) for d in map_dets)} detections; "
+        f"{forwards} forwards, launches {launches}, {seconds:.2f} s")
+    assert pred.forwards >= 5 and map_pred.forwards == 1, (pred.forwards, map_pred.forwards)
+    assert launches["mbconv"] == 16 * forwards, (launches, forwards)
+    assert launches["nms"] == forwards, (launches, forwards)
+    report["main_path"] = dict(detections=counts, http=[len(b["detections"]) for _, b in replies],
+                               forwards=forwards, launches=launches, seconds=seconds)
+    return launches
+
+
+def check_against_cpu(pred, seed, report):
+    """float32 Predictor on the card (TF32 off) vs the same weights on the
+    CPU (every kernel's plain version) on 2 images at 320."""
+    import numpy as np
+
+    from yoloret_tpu_torch.infer import Predictor
+
+    kw = dict(class_names=pred.class_names, anchors=pred.anchors, input_hw=pred.input_hw,
+              score_threshold=0.3, num_candidates=64, bf16=False, batch_buckets=(2,))
+    state = {k: v.cpu() for k, v in pred.model.state_dict().items()}
+    gpu = Predictor(weights=state, device=DEVICE, **kw)
+    cpu = Predictor(weights=state, device="cpu", **kw)
+    rs = np.random.RandomState(seed + 1)
+    ims = [rs.randint(0, 256, (240, 320, 3), dtype=np.uint8),
+           rs.randint(0, 256, (320, 320, 3), dtype=np.uint8)]
+    got, want = gpu.detect_arrays(ims), cpu.detect_arrays(ims)
+
+    def same(g, w):
+        return (g.class_id == w.class_id and abs(g.score - w.score) <= 1e-4 * abs(w.score)
+                and max(abs(a - b) for a, b in zip(g.box, w.box)) <= 0.05)
+
+    n = 0
+    for g_img, w_img in zip(got, want):
+        assert len(g_img) == len(w_img), (len(g_img), len(w_img))
+        free = list(w_img)  # matched, not zipped: scores 1e-6 apart may swap order
+        for g in g_img:
+            hit = next((w for w in free if same(g, w)), None)
+            assert hit is not None, f"no CPU detection matches {g}"
+            free.remove(hit)
+            n += 1
+    assert n > 0, "no detections to compare"
+    log(f"float32 Predictor on the card vs on the CPU: {n} detections agree "
+        "(class, score rtol 1e-4, box atol 0.05 px)")
+    report["cpu_agreement"] = n
+
+
+def time_paths(pred, map_pred, report):
+    import torch
+
+    g = torch.Generator(device=DEVICE).manual_seed(0)
+    images = torch.randint(0, 256, (BATCH, SIZE, SIZE, 3), generator=g, device=DEVICE,
+                           dtype=torch.uint8)
+    hw = torch.full((BATCH, 2), float(SIZE), device=DEVICE)
+    out = {}
+    for name, p in (("serving", pred), ("map_grade", map_pred)):
+        ms = cuda_time_ms(lambda: p.infer(images, hw), iters=20, warmup=3)
+        out[name] = dict(ms_per_batch=ms, img_per_s=BATCH * 1e3 / ms,
+                         score_threshold=p.score_threshold, num_candidates=p.num_candidates)
+        log(f"{name} (t={p.score_threshold}, M={p.num_candidates}) at b{BATCH}@{SIZE} bf16: "
+            f"{ms:.3f} ms/batch = {BATCH * 1e3 / ms:.1f} img/s (CUDA events, after warm-up)")
+    report["end_to_end"] = out
+    return out
+
+
+def profile_serving(pred, report, batches=3):
+    """Where a serving batch's device time goes: torch.profiler kernel
+    times over ``batches`` b128 batches, grouped into the two hand kernels
+    and the rest, and the device's busy share of the window."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    g = torch.Generator(device=DEVICE).manual_seed(1)
+    images = torch.randint(0, 256, (BATCH, SIZE, SIZE, 3), generator=g, device=DEVICE,
+                           dtype=torch.uint8)
+    hw = torch.full((BATCH, 2), float(SIZE), device=DEVICE)
+    pred.infer(images, hw)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(batches):
+            pred.infer(images, hw)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    groups, others = {"mbconv_kernel": 0.0, "nms_kernel": 0.0, "other": 0.0}, {}
+    for e in prof.key_averages():
+        us = getattr(e, "self_device_time_total", None)
+        if us is None:
+            us = getattr(e, "self_cuda_time_total", 0.0)
+        if not us:
+            continue
+        if e.device_type != DeviceType.CUDA:  # CPU ops repeat their kernels' time
+            continue
+        key = next((k for k in groups if k in e.key), "other")
+        groups[key] += us / 1e3 / batches
+        if key == "other":
+            others[e.key] = others.get(e.key, 0.0) + us / 1e3 / batches
+    busy = sum(groups.values())
+    if busy == 0.0:
+        log("profile: the profiler recorded no device time (not measured)")
+        report["profile"] = None
+        return
+    top = sorted(others.items(), key=lambda kv: -kv[1])[:8]
+    report["profile"] = dict(ms_per_batch=groups, wall_ms_per_batch=wall_ms / batches,
+                             busy_share=busy * batches / wall_ms, top_other=top)
+    rounded = {k: round(v, 3) for k, v in groups.items()}
+    log(f"profile, serving b{BATCH}: device ms/batch {rounded} of {wall_ms / batches:.3f} ms "
+        f"wall, device busy {busy * batches / wall_ms:.1%}")
+    for name, ms in top:
+        log(f"  other: {ms:.4f} ms  {name[:90]}")
+
+
+def time_kernels(pred, launches, errs, report):
+    import torch
+
+    from yoloret_tpu_torch.ops.mbconv import fused_mbconv, reference_mbconv, tile_shape
+    from yoloret_tpu_torch.ops.nms_kernel import suppress, suppress_plain
+
+    scratch = torch.empty(128 * 2**20, dtype=torch.uint8, device=DEVICE)  # > 50 MB L2
+
+    def flush():
+        scratch.zero_()
+
+    rows, tot = [], dict(ms=0.0, plain_ms=0.0, library_ms=0.0, bound_ms=0.0)
+    with torch.inference_mode():
+        ins = block_inputs(pred, BATCH, seed=12)
+        for meta, x in zip(pred._fused.blocks, ins):
+            a = dict(stride=meta.stride, residual=meta.residual)
+            ms = cuda_time_ms(lambda: fused_mbconv(x, *meta.args, **a), 5, 1, flush)
+            plain = cuda_time_ms(lambda: reference_mbconv(x, *meta.args, **a), 3, 1, flush)
+            lib = cuda_time_ms(lambda: library_mbconv(x, *meta.args, **a), 5, 1, flush)
+            bound, by, nbytes, flops = mbconv_bound(x, meta, 2)
+            cout = meta.args[4].shape[-1]
+            tile = tile_shape(x.shape[1] // meta.stride, x.shape[2] // meta.stride,
+                              meta.stride, x.shape[3], cout, x.dtype)
+            rows.append(dict(block=meta.block_id, shape=list(x.shape), stride=meta.stride,
+                             ce=meta.args[2].shape[-1], cout=cout, tile=tile, ms=ms,
+                             plain_ms=plain, library_ms=lib, bound_ms=bound, bound_by=by,
+                             bytes=nbytes, flops=flops))
+            for k, v in (("ms", ms), ("plain_ms", plain), ("library_ms", lib),
+                         ("bound_ms", bound)):
+                tot[k] += v
+            log(f"  mbconv block {meta.block_id:2d} {tuple(x.shape)} s{meta.stride} tile {tile}: "
+                f"kernel {ms:.4f} ms, plain {plain:.4f}, cuDNN {lib:.4f}, "
+                f"bound {bound:.4f} ({by})")
+    report["mbconv_timing"] = rows
+    for stride in (1, 2):
+        sel = [r for r in rows if r["stride"] == stride]
+        sums = {k: sum(r[k] for r in sel) for k in ("ms", "plain_ms", "library_ms", "bound_ms")}
+        log(f"  mbconv stride-{stride} blocks ({len(sel)} launches per forward), summed: kernel "
+            f"{sums['ms']:.4f} ms, plain {sums['plain_ms']:.4f}, cuDNN {sums['library_ms']:.4f}, "
+            f"bound {sums['bound_ms']:.4f}")
+    kernels = [dict(
+        name="mbconv", route="cuda", source="yoloret_tpu_torch/csrc/mbconv.cu",
+        replaces="yoloret_tpu/ops/mbconv_pallas.py:76",
+        also_replaces=["yoloret_tpu/ops/mbconv_pallas.py:109",
+                       "yoloret_tpu/ops/mbconv_pallas2.py:86"],
+        shapes=f"the 16 blocks of one forward at b{BATCH}@{SIZE} bf16 (times summed)",
+        launches=launches["mbconv"], max_abs_err=errs["mbconv"], ms=tot["ms"],
+        plain_ms=tot["plain_ms"], bound_ms=tot["bound_ms"],
+        bound_by=max(("bytes", "operations"),
+                     key=lambda by: sum(r["bound_ms"] for r in rows if r["bound_by"] == by)),
+        library_ms=tot["library_ms"])]
+
+    nms_rows = []
+    for m, thr in ((64, 0.3), (512, 0.0)):
+        boxes, scores = candidates_at_b128(pred, m, seed=100 + m)
+        kw = dict(max_det=20, iou_threshold=0.5, score_threshold=thr)
+        ms = cuda_time_ms(lambda: suppress(boxes, scores, **kw), 10, 2, flush)
+        plain = cuda_time_ms(lambda: suppress_plain(boxes, scores, **kw), 3, 1, flush)
+        _, out_s = suppress(boxes, scores, **kw)
+        bound, by = nms_bound_ms(boxes, scores, out_s, 20)
+        nms_rows.append(dict(m=m, score_threshold=thr, ms=ms, plain_ms=plain, bound_ms=bound,
+                             bound_by=by, detections=int((out_s > 0).sum())))
+        log(f"  nms shared b{BATCH} C={NUM_CLASSES} M={m} t={thr}: kernel {ms:.4f} ms, "
+            f"plain {plain:.4f}, bound {bound:.5f} ({by})")
+    report["nms_timing"] = nms_rows
+    serving = nms_rows[0]
+    kernels.append(dict(
+        name="nms", route="cuda", source="yoloret_tpu_torch/csrc/nms.cu",
+        replaces="yoloret_tpu/ops/nms_pallas.py:36",
+        also_replaces=["yoloret_tpu/ops/postprocess.py:361"],
+        shapes=f"shared pool b{BATCH} C={NUM_CLASSES} M=64 t=0.3 (serving)",
+        launches=launches["nms"], max_abs_err=errs["nms"], ms=serving["ms"],
+        plain_ms=serving["plain_ms"], bound_ms=serving["bound_ms"],
+        bound_by=serving["bound_by"], library_ms=None))
+    return kernels
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--seed", type=int, default=0)
+    args = ap.parse_args(argv)
+
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch.cuda.is_available() is False; this run needs a CUDA GPU",
+              file=sys.stderr)
+        return 2
+    sys.path.insert(0, HERE)
+    try:
+        import yoloret_tpu_torch
+        from yoloret_tpu_torch.ops import _build
+    except ImportError as e:
+        print(f"chip_smoke: the port is not beside this script: {e}", file=sys.stderr)
+        return 2
+    pkg = os.path.dirname(os.path.abspath(yoloret_tpu_torch.__file__))
+    if os.path.dirname(pkg) != HERE:
+        print(f"chip_smoke: imported the port from {pkg}, not from {HERE}", file=sys.stderr)
+        return 2
+
+    t_start = time.perf_counter()
+    smi = nvidia_smi_line()
+    log(smi)
+    report = dict(nvidia_smi=smi, torch=torch.__version__, cuda=torch.version.cuda,
+                  device=torch.cuda.get_device_name(0))
+    build_s = _build.build_all()
+    report["build_seconds"] = build_s
+    log(f"built csrc/mbconv.cu and csrc/nms.cu for sm_90a in {build_s:.1f} s")
+    for name in ("mbconv", "nms"):
+        for line in _build.ptxas_log(name).splitlines():
+            if "registers" in line or "spill" in line:
+                log(f"  ptxas {name}: {line.strip()}")
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+
+    pred = make_predictor(args.seed, score_threshold=0.3, num_candidates=64)
+    state = {k: v.detach().cpu() for k, v in pred.model.state_dict().items()}
+    map_pred = make_predictor(args.seed, weights=state, score_threshold=0.0, num_candidates=512)
+
+    with torch.no_grad():
+        errs = {"mbconv": check_mbconv(pred, report), "nms": check_nms(pred, report)}
+    launches = drive_main_path(pred, map_pred, args.seed, report)
+    check_against_cpu(pred, args.seed, report)
+    e2e = time_paths(pred, map_pred, report)
+    profile_serving(pred, report)
+    kernels = time_kernels(pred, launches, errs, report)
+
+    report["kernels"] = kernels
+    report["seconds"] = time.perf_counter() - t_start
+    out = os.path.join(HERE, "chiprun_out", "chip_smoke.json")
+    os.makedirs(os.path.dirname(out), exist_ok=True)
+    with open(out, "w") as f:
+        json.dump(report, f, indent=1)
+    log(json.dumps({"end_to_end_img_per_s": {k: v["img_per_s"] for k, v in e2e.items()},
+                    "card": smi}))
+    log(json.dumps({"kernels": kernels}))
+    log(json.dumps({"ok": True, "device": {"platform": "gpu",
+                                           "kind": torch.cuda.get_device_name(0),
+                                           "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

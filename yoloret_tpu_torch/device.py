@@ -1,0 +1,24 @@
+"""Device selection for the port's entry points: the card by default,
+the CPU only when the caller asks for it, never a quiet fallback."""
+
+from __future__ import annotations
+
+from typing import Union
+
+import torch
+
+DeviceLike = Union[str, torch.device, None]
+
+
+def resolve_device(device: DeviceLike = "cuda") -> torch.device:
+    """``torch.device`` for ``device`` (``None`` means ``"cuda"``).
+
+    Raises ``RuntimeError`` when a CUDA device is asked for (the
+    default) and none is available: a caller who wants the CPU passes
+    ``device="cpu"``."""
+    dev = torch.device("cuda" if device is None else device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "no CUDA device is available; pass device='cpu' to run the "
+            "plain PyTorch path on the CPU")
+    return dev

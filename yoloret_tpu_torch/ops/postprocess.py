@@ -1,0 +1,120 @@
+"""Shared-pool detection postprocess: raw multi-scale heads -> per-class
+detections in original-image pixels. Port of the shared-pool path of
+``yoloret_tpu/ops/postprocess.py``.
+
+1. ``shared_pool_candidates``: ONE exact top-M over all head positions,
+   ranked by their best class score (max_c sigmoid(obj) * sigmoid(l_c) =
+   sigmoid(obj) * sigmoid(max_c l_c), so no [B, N, C] score tensor is
+   built before the gather), then box decode and letterbox inversion for
+   the M candidates only.
+2. ``shared_pool_suppress``: greedy per-class NMS over that shared pool,
+   through the suppression kernel (``ops/nms_kernel.py``).
+"""
+
+from __future__ import annotations
+
+from typing import Sequence, Tuple
+
+import torch
+
+from yoloret_tpu_torch.ops.decode import anchor_masks_for, correct_boxes, make_grid, pair
+from yoloret_tpu_torch.ops.nms import NMSResult, fused_result
+from yoloret_tpu_torch.ops.nms_kernel import suppress
+
+
+def _position_constants(outputs: Sequence[torch.Tensor], anchors: torch.Tensor):
+    """Per flattened head position: (grid_xy [N, 2], grid_wh [N, 2],
+    anchor_wh [N, 2]), in the order of the concatenated heads. ``anchors``
+    [9, 2] must be on the heads' device: everything here is built by
+    kernels, with no host-to-device copy that would stall the stream."""
+    dev = outputs[0].device
+    masks = anchor_masks_for(len(outputs))
+    gxs, gws, aws = [], [], []
+    for level, o in enumerate(outputs):
+        gh, gw, a = o.shape[-4], o.shape[-3], o.shape[-2]
+        grid = make_grid(gh, gw, dev).expand(gh, gw, a, 2).reshape(-1, 2)
+        gxs.append(grid)
+        gws.append(pair(gw, gh, dev).expand(grid.shape))
+        lo = masks[level][0]  # each mask is a run of consecutive anchors
+        anc = anchors[lo:lo + a].float().reshape(1, 1, a, 2).expand(gh, gw, a, 2)
+        aws.append(anc.reshape(-1, 2))
+    return torch.cat(gxs), torch.cat(gws), torch.cat(aws)
+
+
+def shared_pool_candidates(
+    outputs: Sequence[torch.Tensor],
+    anchors: torch.Tensor,
+    num_classes: int,
+    image_hw: torch.Tensor,
+    *,
+    num_candidates: int,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Heads [B, gh, gw, A, 5+C] per scale (coarsest first), image_hw
+    [B, 2] -> (boxes [B, M, 4] in image pixels, cls_scores [B, C, M]).
+
+    The concat keeps the head dtype; the cast to float32 comes after the
+    M-row gather (exact: float32(bf16) is lossless and max commutes with
+    the cast). Ranking sigmoids run in float32."""
+    input_hw = (outputs[0].shape[-4] * 32, outputs[0].shape[-3] * 32)
+    b = outputs[0].shape[0]
+    dt = outputs[0].dtype
+    for o in outputs[1:]:
+        dt = torch.promote_types(dt, o.dtype)
+    raw_flat = torch.cat([o.to(dt).reshape(b, -1, o.shape[-1]) for o in outputs], dim=1)
+    n = raw_flat.shape[1]
+    m = min(num_candidates, n)
+
+    best_logit = raw_flat[..., 5:].amax(dim=-1).float()  # [B, N]
+    obj_logit = raw_flat[..., 4].float()
+    shared_score = torch.sigmoid(obj_logit) * torch.sigmoid(best_logit)
+    idx = torch.topk(shared_score, m, dim=1).indices  # [B, M], exact
+
+    cand_raw = torch.gather(raw_flat, 1, idx[..., None].expand(b, m, raw_flat.shape[-1]))
+    cand_raw = cand_raw.float()  # [B, M, 5+C]
+    cls_scores = (torch.sigmoid(cand_raw[..., 4:5]) * torch.sigmoid(cand_raw[..., 5:]))
+    cls_scores = cls_scores.transpose(1, 2).contiguous()  # [B, C, M]
+
+    grid_xy, grid_wh, anchor_wh = _position_constants(outputs, anchors)
+    wh_in = pair(input_hw[1], input_hw[0], idx.device)
+    xy = (torch.sigmoid(cand_raw[..., :2]) + grid_xy[idx]) / grid_wh[idx]
+    wh = torch.exp(cand_raw[..., 2:4]) * anchor_wh[idx] / wh_in
+    boxes = correct_boxes(xy, wh, input_hw, image_hw[:, None, :])  # [B, M, 4]
+    return boxes.contiguous(), cls_scores
+
+
+def shared_pool_suppress(
+    boxes: torch.Tensor,
+    cls_scores: torch.Tensor,
+    *,
+    max_det_per_class: int = 20,
+    score_threshold: float = 0.6,
+    iou_threshold: float = 0.5,
+) -> NMSResult:
+    """Per-class greedy NMS over the shared candidates (boxes [B, M, 4],
+    cls_scores [B, C, M])."""
+    out_boxes, out_scores = suppress(
+        boxes, cls_scores, max_det=max_det_per_class,
+        iou_threshold=iou_threshold, score_threshold=score_threshold)
+    return fused_result(out_boxes, out_scores)
+
+
+def detect_batch(
+    outputs: Sequence[torch.Tensor],
+    anchors: torch.Tensor,
+    num_classes: int,
+    image_hw: torch.Tensor,
+    *,
+    max_det_per_class: int = 20,
+    score_threshold: float = 0.6,
+    iou_threshold: float = 0.5,
+    num_candidates: int = 256,
+) -> NMSResult:
+    """Batched postprocess over the shared candidate pool (the JAX
+    package's ``detect_batch(pool="shared")``; the per-class pool is not
+    ported): heads [B, gh, gw, A, 5+C] per scale, image_hw [B, 2] ->
+    NMSResult with a leading batch dim."""
+    boxes, cls_scores = shared_pool_candidates(
+        outputs, anchors, num_classes, image_hw, num_candidates=num_candidates)
+    return shared_pool_suppress(
+        boxes, cls_scores, max_det_per_class=max_det_per_class,
+        score_threshold=score_threshold, iou_threshold=iou_threshold)
