@@ -6,12 +6,14 @@
 Phases (any failure exits non-zero and prints no result):
 
 1. The card's name and power limit (``nvidia-smi``); build both CUDA
-   kernels from ``yoloret_tpu_torch/csrc/`` (one ``nvcc`` each, in parallel).
+   kernels from ``yoloret_tpu_torch/csrc/`` (one ``nvcc`` each, in
+   parallel) and print each kernel's ``ptxas`` registers and spills.
 2. Each kernel against its plain PyTorch version on the card, at the
    serving path's shapes: the fused MBConv at all 16 backbone blocks of
-   MobileNetV2 x0.75 @ 320 (float32 with TF32 off, and bfloat16); the
-   suppression kernel on the shared pool at B=128, C=20, M=64 and 512,
-   and on per-class pools.
+   MobileNetV2 x0.75 @ 320 (float32 with TF32 off at b2; bfloat16, the
+   Hopper kernel on the packed weights, at b2 and at b128, where the
+   work items outnumber the persistent CTAs); the suppression kernel on
+   the shared pool at B=128, C=20, M=64 and 512, and on per-class pools.
 3. The serving slice through its entry points, with seeded weights
    (BatchNorm calibrated on seeded images, so scores are not all ties): ``Predictor.detect_arrays``
    on 1, 8 and 130 images, the HTTP ``DetectionServer`` on 4 JPEGs, and
@@ -19,9 +21,11 @@ Phases (any failure exits non-zero and prints no result):
    and 1 NMS launch per forward. The float32 Predictor on the card must
    agree with the same Predictor on the CPU (plain versions) on 2 images.
 4. Times: serving (t=0.3, M=64) and MAP grade (t=0, M=512) img/s at
-   batch 128 with CUDA events; each kernel beside its plain version, a
-   library yardstick and its bound (bytes at 3.35 TB/s, operations at the
-   peak rate of their type).
+   batch 128 with CUDA events; each kernel's device time (L2 flushed,
+   the device kept behind the host) beside its plain version, a library
+   yardstick and its bound (bytes at 3.35 TB/s, operations at the peak
+   rate of their type); per MBConv block also the tile plan (tile,
+   warpgroups, pipeline stages, persistent grid, shared memory).
 
 The line before the last is the kernel table as JSON; the last line is
 ``{"ok": true, "device": {...}}``. Details go to chiprun_out/chip_smoke.json.
@@ -33,6 +37,7 @@ import argparse
 import io
 import json
 import os
+import re
 import subprocess
 import sys
 import threading
@@ -53,6 +58,7 @@ BATCH = 128
 MBCONV_TOL = {"float32": 1e-4, "bfloat16": 2e-2}  # atol = rtol
 # IoU + argmax scan + kill, per candidate per round (see nms_bound_ms)
 NMS_OPS_PER_PAIR = 16
+SLEEP_CYCLES = 1_000_000  # ~0.5 ms of GPU spin before each timed window
 
 
 def log(*a):
@@ -66,9 +72,26 @@ def nvidia_smi_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
+def ptxas_lines(text):
+    """The registers and spill lines of a ``-Xptxas -v`` log, each with
+    its kernel (template arguments of the mbconv kernels spelled out)."""
+    out, fn = [], ""
+    for line in text.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            k = re.search(r"(mbconv_wgmma|mbconv_f32)I((?:Li\d+E)+)E", m.group(1))
+            fn = f"{k.group(1)}<{','.join(re.findall(r'Li(\d+)E', k.group(2)))}>" if k else ""
+        elif re.search(r"Used \d+ registers|spill stores", line):
+            out.append(f"{fn + ': ' if fn else ''}{line.split(':', 1)[-1].strip()}")
+    return out
+
+
 def cuda_time_ms(fn, iters=10, warmup=2, flush=None):
     """Mean device ms of ``fn`` over ``iters`` calls, each between CUDA
-    events; ``flush`` (outside the timed window) evicts L2 first."""
+    events. ``flush`` (kernel timings) evicts L2 first and then queues a
+    GPU sleep, so the device is still behind the host when the window
+    opens and it holds the kernel's device time, not the wrapper's host
+    path; end-to-end timings pass no flush and include the host."""
     import torch
 
     for _ in range(warmup):
@@ -77,6 +100,7 @@ def cuda_time_ms(fn, iters=10, warmup=2, flush=None):
     for _ in range(iters):
         if flush is not None:
             flush()
+            torch.cuda._sleep(SLEEP_CYCLES)
         a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
         a.record()
         fn()
@@ -104,7 +128,8 @@ def block_inputs(pred, batch, seed):
     ins = []
     for meta in pred._fused.blocks:
         ins.append(x)
-        x = fused_mbconv(x, *meta.args, stride=meta.stride, residual=meta.residual)
+        x = fused_mbconv(x, *meta.args, stride=meta.stride, residual=meta.residual,
+                         packed=meta.packed)
     return ins
 
 
@@ -212,28 +237,37 @@ def check_mbconv(pred, report):
     from yoloret_tpu_torch.ops.mbconv import fused_mbconv, reference_mbconv
 
     rows = []
-    for dtype in (torch.float32, torch.bfloat16):
+    # float32 (CUDA-core kernel) at b2; bfloat16 (Hopper kernel, on the
+    # packed weights of the main path) at b2 and at b128, where the work
+    # items outnumber the persistent CTAs
+    for dtype, batch in ((torch.float32, 2), (torch.bfloat16, 2), (torch.bfloat16, BATCH)):
         metas = _block_meta(pred.model.body, dtype)
-        ins = block_inputs(pred, 2, seed=11)
+        ins = block_inputs(pred, batch, seed=11)
         for meta, x in zip(metas, ins):
             x = x.to(dtype)
-            got = fused_mbconv(x, *meta.args, stride=meta.stride, residual=meta.residual)
-            want = reference_mbconv(x, *meta.args, stride=meta.stride, residual=meta.residual)
+            kw = dict(stride=meta.stride, residual=meta.residual)
+            got = fused_mbconv(x, *meta.args, packed=meta.packed, **kw)
+            want = reference_mbconv(x, *meta.args, **kw)
             torch.cuda.synchronize()
             tol = MBCONV_TOL[str(dtype).split(".")[-1]]
             err = max_err(got, want)
             ok = torch.allclose(got.float(), want.float(), atol=tol, rtol=tol)
-            rows.append(dict(block=meta.block_id, dtype=str(dtype), shape=list(x.shape),
-                             stride=meta.stride, max_abs_err=err, tol=tol, ok=ok,
-                             max_abs_ref=want.float().abs().max().item()))
+            rows.append(dict(block=meta.block_id, dtype=str(dtype), batch=batch,
+                             shape=list(x.shape), stride=meta.stride, max_abs_err=err, tol=tol,
+                             ok=ok, max_abs_ref=want.float().abs().max().item()))
             if not ok:
-                raise AssertionError(f"mbconv block {meta.block_id} {dtype}: max err {err}")
+                raise AssertionError(f"mbconv block {meta.block_id} {dtype} b{batch}: "
+                                     f"max err {err}")
+        del ins
     report["mbconv_check"] = rows
-    worst = {d: max(r["max_abs_err"] for r in rows if r["dtype"] == d)
-             for d in ("torch.float32", "torch.bfloat16")}
+    worst = {f"{d} b{n}": max(r["max_abs_err"] for r in rows
+                              if r["dtype"] == d and r["batch"] == n)
+             for d, n in (("torch.float32", 2), ("torch.bfloat16", 2),
+                          ("torch.bfloat16", BATCH))}
     scale = min(r["max_abs_ref"] for r in rows)
-    log(f"mbconv kernel vs plain, 16 blocks x (float32, bfloat16): max abs err {worst} "
-        f"(tolerance atol=rtol {MBCONV_TOL}; smallest block max |out| {scale:.3g})")
+    log(f"mbconv kernel vs plain, 16 blocks x (float32 b2, bfloat16 b2, bfloat16 b{BATCH}): "
+        f"max abs err {worst} (tolerance atol=rtol {MBCONV_TOL}; smallest block max |out| "
+        f"{scale:.3g})")
     if scale < 0.1:
         raise AssertionError(f"block outputs too small ({scale}) for the check to mean much")
     return max(worst.values())
@@ -419,6 +453,11 @@ def time_paths(pred, map_pred, report):
                          score_threshold=p.score_threshold, num_candidates=p.num_candidates)
         log(f"{name} (t={p.score_threshold}, M={p.num_candidates}) at b{BATCH}@{SIZE} bf16: "
             f"{ms:.3f} ms/batch = {BATCH * 1e3 / ms:.1f} img/s (CUDA events, after warm-up)")
+    clocks = subprocess.run(["nvidia-smi", "--query-gpu=clocks.sm,clocks.max.sm,power.draw,"
+                             "temperature.gpu", "--format=csv,noheader"], capture_output=True,
+                            text=True, timeout=60).stdout.strip()
+    log(f"after the end-to-end timing: SM clock, max SM clock, power, temperature = {clocks}")
+    out["clocks_after"] = clocks
     report["end_to_end"] = out
     return out
 
@@ -443,7 +482,7 @@ def profile_serving(pred, report, batches=3):
             pred.infer(images, hw)
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    groups, others = {"mbconv_kernel": 0.0, "nms_kernel": 0.0, "other": 0.0}, {}
+    groups, others = {"mbconv": 0.0, "nms_kernel": 0.0, "other": 0.0}, {}
     for e in prof.key_averages():
         us = getattr(e, "self_device_time_total", None)
         if us is None:
@@ -474,7 +513,7 @@ def profile_serving(pred, report, batches=3):
 def time_kernels(pred, launches, errs, report):
     import torch
 
-    from yoloret_tpu_torch.ops.mbconv import fused_mbconv, reference_mbconv, tile_shape
+    from yoloret_tpu_torch.ops.mbconv import fused_mbconv, plan_tile, reference_mbconv
     from yoloret_tpu_torch.ops.nms_kernel import suppress, suppress_plain
 
     scratch = torch.empty(128 * 2**20, dtype=torch.uint8, device=DEVICE)  # > 50 MB L2
@@ -487,22 +526,27 @@ def time_kernels(pred, launches, errs, report):
         ins = block_inputs(pred, BATCH, seed=12)
         for meta, x in zip(pred._fused.blocks, ins):
             a = dict(stride=meta.stride, residual=meta.residual)
-            ms = cuda_time_ms(lambda: fused_mbconv(x, *meta.args, **a), 5, 1, flush)
+            ms = cuda_time_ms(lambda: fused_mbconv(x, *meta.args, packed=meta.packed, **a),
+                              5, 1, flush)
             plain = cuda_time_ms(lambda: reference_mbconv(x, *meta.args, **a), 3, 1, flush)
             lib = cuda_time_ms(lambda: library_mbconv(x, *meta.args, **a), 5, 1, flush)
             bound, by, nbytes, flops = mbconv_bound(x, meta, 2)
-            cout = meta.args[4].shape[-1]
-            tile = tile_shape(x.shape[1] // meta.stride, x.shape[2] // meta.stride,
-                              meta.stride, x.shape[3], cout, x.dtype)
+            ce, cout = meta.args[2].shape[-1], meta.args[4].shape[-1]
+            plan = plan_tile(x.shape[1] // meta.stride, x.shape[2] // meta.stride, meta.stride,
+                             x.shape[3], ce, cout, meta.args[0] is not None, x.shape[0],
+                             torch.cuda.get_device_properties(0).multi_processor_count)
+            tile = plan._asdict()
             rows.append(dict(block=meta.block_id, shape=list(x.shape), stride=meta.stride,
-                             ce=meta.args[2].shape[-1], cout=cout, tile=tile, ms=ms,
+                             ce=ce, cout=cout, tile=tile, ms=ms,
                              plain_ms=plain, library_ms=lib, bound_ms=bound, bound_by=by,
                              bytes=nbytes, flops=flops))
             for k, v in (("ms", ms), ("plain_ms", plain), ("library_ms", lib),
                          ("bound_ms", bound)):
                 tot[k] += v
-            log(f"  mbconv block {meta.block_id:2d} {tuple(x.shape)} s{meta.stride} tile {tile}: "
-                f"kernel {ms:.4f} ms, plain {plain:.4f}, cuDNN {lib:.4f}, "
+            log(f"  mbconv block {meta.block_id:2d} {tuple(x.shape)} s{meta.stride} tile "
+                f"{plan.th}x{plan.tw} ({plan.nc} warpgroups), stages {plan.xst} input / "
+                f"{plan.wst} weights, grid {plan.grid} for {plan.items} items, smem "
+                f"{plan.smem}: kernel {ms:.4f} ms, plain {plain:.4f}, cuDNN {lib:.4f}, "
                 f"bound {bound:.4f} ({by})")
     report["mbconv_timing"] = rows
     for stride in (1, 2):
@@ -580,9 +624,8 @@ def main(argv=None) -> int:
     report["build_seconds"] = build_s
     log(f"built csrc/mbconv.cu and csrc/nms.cu for sm_90a in {build_s:.1f} s")
     for name in ("mbconv", "nms"):
-        for line in _build.ptxas_log(name).splitlines():
-            if "registers" in line or "spill" in line:
-                log(f"  ptxas {name}: {line.strip()}")
+        for line in ptxas_lines(_build.ptxas_log(name)):
+            log(f"  ptxas {name}: {line}")
 
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -605,7 +648,8 @@ def main(argv=None) -> int:
     os.makedirs(os.path.dirname(out), exist_ok=True)
     with open(out, "w") as f:
         json.dump(report, f, indent=1)
-    log(json.dumps({"end_to_end_img_per_s": {k: v["img_per_s"] for k, v in e2e.items()},
+    log(json.dumps({"end_to_end_img_per_s": {k: v["img_per_s"] for k, v in e2e.items()
+                                             if isinstance(v, dict)},
                     "card": smi}))
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu",

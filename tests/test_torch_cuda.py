@@ -4,7 +4,9 @@ Marked ``cuda``: the kernels have no CPU mode, so without a GPU these
 tests skip. This file imports no JAX, so it runs on a machine that has
 only PyTorch: ``python -m pytest tests/test_torch_cuda.py -m cuda``.
 Float32 with TF32 off (tolerance 1e-4: summation order over at most
-720 terms); NMS must agree exactly (the kernel is built without FMA
+720 terms); bfloat16 atol = rtol = 2e-2, one bf16 step at values in
+[2, 4) (the kernel rounds where the plain version rounds, so summation
+order is the only difference); NMS must agree exactly (the kernel is built without FMA
 contraction and copies the picked values).
 """
 
@@ -25,6 +27,30 @@ MBCONV_CASES = [
     (10, 10, 72, 432, 120, 2, True, False),
     (10, 10, 120, 720, 120, 1, True, True),
 ]
+# The 16 blocks of MobileNetV2 x0.75 @320 (11 distinct shapes), at batch
+# 1 and 3; odd maps (416 gives 13x13 maps), a 7x7 map, a block without
+# expand, and a batch of 128 whose items outnumber the persistent CTAs.
+BLOCK_SHAPES = [
+    (160, 160, 24, 24, 16, 1, False, False),
+    (160, 160, 16, 96, 24, 2, True, False),
+    (80, 80, 24, 144, 24, 1, True, True),
+    (80, 80, 24, 144, 24, 2, True, False),
+    (40, 40, 24, 144, 24, 1, True, True),
+    (40, 40, 24, 144, 48, 2, True, False),
+    (20, 20, 48, 288, 48, 1, True, True),
+    (20, 20, 48, 288, 72, 1, True, False),
+    (20, 20, 72, 432, 72, 1, True, True),
+    (20, 20, 72, 432, 120, 2, True, False),
+    (10, 10, 120, 720, 120, 1, True, True),
+]
+MBCONV_CASES += [s + (n,) for n in (1, 3) for s in BLOCK_SHAPES] + [
+    (13, 13, 120, 720, 120, 1, True, True, 3),
+    (26, 26, 72, 432, 120, 2, True, False, 3),
+    (7, 7, 120, 720, 120, 1, True, True, 3),
+    (14, 14, 72, 432, 120, 2, True, False, 3),
+    (9, 11, 24, 24, 16, 1, False, False, 3),
+    (10, 10, 120, 720, 120, 1, True, True, 128),
+]
 
 
 @pytest.fixture
@@ -36,13 +62,13 @@ def cuda():
     return torch.device("cuda")
 
 
-def _mbconv_inputs(seed, h, w, cin, ce, cout, expand, dev):
+def _mbconv_inputs(seed, h, w, cin, ce, cout, expand, dev, batch=3):
     rs = np.random.RandomState(seed)
 
     def r(*shape):
         return torch.from_numpy((rs.randn(*shape) * 0.2).astype(np.float32)).to(dev)
 
-    x = torch.from_numpy(rs.rand(3, h, w, cin).astype(np.float32) - 0.5).to(dev)
+    x = torch.from_numpy(rs.rand(batch, h, w, cin).astype(np.float32) - 0.5).to(dev)
     return (x, r(cin, ce) if expand else None, r(ce) if expand else None, r(3, 3, ce), r(ce),
             r(ce, cout), r(cout))
 
@@ -50,8 +76,8 @@ def _mbconv_inputs(seed, h, w, cin, ce, cout, expand, dev):
 @pytest.mark.cuda
 @pytest.mark.parametrize("case", MBCONV_CASES)
 def test_mbconv_kernel_matches_plain(cuda, case):
-    h, w, cin, ce, cout, stride, expand, residual = case
-    args = _mbconv_inputs(0, h, w, cin, ce, cout, expand, cuda)
+    h, w, cin, ce, cout, stride, expand, residual = case[:8]
+    args = _mbconv_inputs(0, h, w, cin, ce, cout, expand, cuda, *case[8:])
     before = fused_mbconv.launches
     got = fused_mbconv(*args, stride=stride, residual=residual)
     assert fused_mbconv.launches == before + 1

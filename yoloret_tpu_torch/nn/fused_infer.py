@@ -11,7 +11,8 @@ module weights:
   * the stem is one ``F.conv2d`` with the folded BN;
   * all 16 inverted-residual blocks (block_0..block_15, the stride-2
     blocks 1/3/6/13 included) run as one kernel launch each
-    (``ops/mbconv.py``);
+    (``ops/mbconv.py``), on weights packed once here into the bf16
+    kernel's shared-memory layout (``pack_mbconv``);
   * RFCR, neck and the head split stay the stock modules.
 
 This is the forward the Predictor runs.
@@ -26,7 +27,7 @@ import torch
 from yoloret_tpu_torch.nn.detector import YoloReT
 from yoloret_tpu_torch.nn.layers import conv2d_same, fold_bn, relu6
 from yoloret_tpu_torch.nn.mobilenetv2 import _TAP_BLOCKS, InvertedResidual, MobileNetV2
-from yoloret_tpu_torch.ops.mbconv import fused_mbconv
+from yoloret_tpu_torch.ops.mbconv import PackedMBConv, fused_mbconv, pack_mbconv
 
 
 class BlockMeta(NamedTuple):
@@ -34,6 +35,7 @@ class BlockMeta(NamedTuple):
     stride: int
     residual: bool
     args: Tuple  # (we, be, wd, bd, wp, bp) in the kernel's layouts
+    packed: Optional[PackedMBConv]  # the bf16 kernel's packed weights (bf16 models)
 
 
 class FusedParams(NamedTuple):
@@ -58,17 +60,21 @@ def _block_args(block: InvertedResidual, dtype: torch.dtype):
 
 
 def _block_meta(body: MobileNetV2, dtype: torch.dtype) -> List[BlockMeta]:
-    """One entry per block, 0..last tap, BN folded."""
+    """One entry per block, 0..last tap, BN folded; bf16 weights are also
+    packed for the Hopper kernel, once."""
     meta = []
     for block_id, name in enumerate(body.block_names):
         block = getattr(body, name)
-        meta.append(BlockMeta(block_id, block.stride, block.residual, _block_args(block, dtype)))
+        args = _block_args(block, dtype)
+        packed = pack_mbconv(*args[:5]) if dtype == torch.bfloat16 else None
+        meta.append(BlockMeta(block_id, block.stride, block.residual, args, packed))
     return meta
 
 
 @torch.no_grad()
 def fused_params(model: YoloReT) -> FusedParams:
-    """The folded stem and block weights, computed once per model."""
+    """The folded stem and block weights (and the packed bf16 weights),
+    computed once per model."""
     body = model.body
     ks, bs = fold_bn(body.stem.conv.weight, body.stem.bn)
     return FusedParams((ks.to(model.dtype), bs.float()), _block_meta(body, model.dtype))
@@ -80,8 +86,8 @@ def mobilenetv2_fused_features(x: torch.Tensor, params: FusedParams) -> Dict[str
     ks, bs = params.stem
     x = relu6(conv2d_same(x, ks, bs, stride=2)).contiguous()
     feats: Dict[str, torch.Tensor] = {}
-    for block_id, stride, residual, args in params.blocks:
-        x = fused_mbconv(x, *args, stride=stride, residual=residual)
+    for block_id, stride, residual, args, packed in params.blocks:
+        x = fused_mbconv(x, *args, stride=stride, residual=residual, packed=packed)
         if block_id in _TAP_BLOCKS:
             feats[_TAP_BLOCKS[block_id]] = x
     return feats
