@@ -12,8 +12,10 @@ Phases (any failure exits non-zero and prints no result):
    serving path's shapes: the fused MBConv at all 16 backbone blocks of
    MobileNetV2 x0.75 @ 320 (float32 with TF32 off at b2; bfloat16, the
    Hopper kernel on the packed weights, at b2 and at b128, where the
-   work items outnumber the persistent CTAs); the suppression kernel on
-   the shared pool at B=128, C=20, M=64 and 512, and on per-class pools.
+   work items outnumber the persistent CTAs); the suppression kernels,
+   exactly: the shared-pool kernel on model candidates at C=20, M=64
+   (t=0.3) and M=512 (t=0) for B=128, 8 and 1, on tied scores and on
+   pairs at IoU 0.5; the per-class kernel on per-class pools.
 3. The serving slice through its entry points, with seeded weights
    (BatchNorm calibrated on seeded images, so scores are not all ties): ``Predictor.detect_arrays``
    on 1, 8 and 130 images, the HTTP ``DetectionServer`` on 4 JPEGs, and
@@ -25,7 +27,8 @@ Phases (any failure exits non-zero and prints no result):
    the device kept behind the host) beside its plain version, a library
    yardstick and its bound (bytes at 3.35 TB/s, operations at the peak
    rate of their type); per MBConv block also the tile plan (tile,
-   warpgroups, pipeline stages, persistent grid, shared memory).
+   warpgroups, pipeline stages, persistent grid, shared memory); NMS at
+   the serving and the MAP-grade shape, each with its launch plan.
 
 The line before the last is the kernel table as JSON; the last line is
 ``{"ok": true, "device": {...}}``. Details go to chiprun_out/chip_smoke.json.
@@ -56,8 +59,14 @@ DEVICE = "cuda"  # the card; nothing in this script falls back to the CPU
 SIZE = 320
 BATCH = 128
 MBCONV_TOL = {"float32": 1e-4, "bfloat16": 2e-2}  # atol = rtol
-# IoU + argmax scan + kill, per candidate per round (see nms_bound_ms)
-NMS_OPS_PER_PAIR = 16
+# float32 operations of one IoU and its threshold test (2 min, 2 max,
+# 2 subtractions, 2 clamps, a product, the union's add and subtract, a
+# compare), and of one argmax step per candidate per round (nms_bound_ms)
+NMS_IOU_OPS = 12
+NMS_ARGMAX_OPS = 1
+# the per-class count, for comparison with earlier records: every class's
+# IoUs in every round, 16 operations per candidate per round
+NMS_OPS_PER_CLASS_PAIR = 16
 SLEEP_CYCLES = 1_000_000  # ~0.5 ms of GPU spin before each timed window
 
 
@@ -73,13 +82,15 @@ def nvidia_smi_line() -> str:
 
 
 def ptxas_lines(text):
-    """The registers and spill lines of a ``-Xptxas -v`` log, each with
-    its kernel (template arguments of the mbconv kernels spelled out)."""
+    """The registers, shared memory and spill lines of a ``-Xptxas -v``
+    log, each with its kernel (template arguments spelled out). Dynamic
+    shared memory is not in the log: the plans print it."""
     out, fn = [], ""
     for line in text.splitlines():
         m = re.search(r"Compiling entry function '(\S+)'", line)
         if m:
-            k = re.search(r"(mbconv_wgmma|mbconv_f32)I((?:Li\d+E)+)E", m.group(1))
+            k = re.search(r"(mbconv_wgmma|mbconv_f32|nms_kernel|nms_shared)I((?:Li\d+E)+)E",
+                          m.group(1))
             fn = f"{k.group(1)}<{','.join(re.findall(r'Li(\d+)E', k.group(2)))}>" if k else ""
         elif re.search(r"Used \d+ registers|spill stores", line):
             out.append(f"{fn + ': ' if fn else ''}{line.split(':', 1)[-1].strip()}")
@@ -162,18 +173,33 @@ def mbconv_bound(x, meta, elem):
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations"), nbytes, flops
 
 
-def nms_bound_ms(boxes, scores, out_scores, max_det):
-    """Bytes: scores, boxes and outputs once. Operations: what this run's
-    data needs, (picks + a final empty round, capped at max_det) rounds
-    per (image, class), each over all M candidates at
-    NMS_OPS_PER_PAIR float32 operations."""
-    picks = (out_scores > 0).sum(-1)
+def nms_bound_ms(boxes, scores, out_boxes, out_scores, max_det):
+    """Least time of the function on this run's data. Bytes: scores, boxes
+    and outputs once. Operations: one IoU (NMS_IOU_OPS) per (image,
+    distinct picked box, candidate) -- greedy NMS needs no other IoU, and a
+    shared pool's classes share them -- plus NMS_ARGMAX_OPS per candidate
+    for each round, (picks + a final empty round, capped at max_det) per
+    (image, class); float32 peak. Also returns the bound by the per-class
+    count (every class's IoUs, NMS_OPS_PER_CLASS_PAIR per candidate per
+    round)."""
+    import torch
+
+    picked = out_scores > 0
+    picks = picked.sum(-1)
     rounds = (picks + (picks < max_det).long()).sum().item()
     m = scores.shape[-1]
-    ops = rounds * m * NMS_OPS_PER_PAIR
+    if boxes.dim() == 3:  # shared pool: a box picked by several classes counts once
+        distinct = sum(int(torch.unique(out_boxes[i][picked[i]], dim=0).shape[0])
+                       for i in range(len(boxes)) if picked[i].any())
+    else:
+        distinct = int(picks.sum())
+    ops = distinct * m * NMS_IOU_OPS + rounds * m * NMS_ARGMAX_OPS
     nbytes = (scores.numel() + boxes.numel() + out_scores.numel() * 5) * 4
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / PEAK_OPS["f32"]
-    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
+    per_class = max(t_bytes, rounds * m * NMS_OPS_PER_CLASS_PAIR / PEAK_OPS["f32"]) * 1e3
+    return (max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations"),
+            dict(distinct_picks=distinct, rounds=rounds, ops=ops, bytes=nbytes,
+                 bound_ms_per_class_count=per_class))
 
 
 def max_err(a, b):
@@ -288,34 +314,64 @@ def candidates_at_b128(pred, m, seed):
         return shared_pool_candidates(outs, pred._anchors_t, NUM_CLASSES, hw, num_candidates=m)
 
 
-def check_nms(pred, report):
+def nms_cases(pred):
+    """(name, boxes, scores, score threshold) of every NMS check: model
+    candidates of the serving and the MAP-grade shape at B=128, 8 and 1;
+    tied scores; pairs at IoU 0.5, exactly and within rounding; per-class
+    pools."""
     import numpy as np
     import torch
 
-    from yoloret_tpu_torch.ops.nms_kernel import suppress, suppress_plain
+    def dev(a):
+        return torch.from_numpy(np.ascontiguousarray(a, np.float32)).to(DEVICE)
 
-    rows, worst = [], 0.0
     cases = []
     for m, thr in ((64, 0.3), (512, 0.0)):
         boxes, scores = candidates_at_b128(pred, m, seed=m)
-        cases.append((f"shared M={m} t={thr} (model candidates)", boxes, scores, thr))
+        for b in (BATCH, 8, 1):
+            cases.append((f"shared b{b} M={m} t={thr} (model candidates)",
+                          boxes[:b].contiguous(), scores[:b].contiguous(), thr))
     rs = np.random.RandomState(5)
     k = 512
+    yx = rs.randint(0, SIZE, (BATCH, k, 2))
+    boxes = np.concatenate([yx, yx + rs.randint(8, 80, (BATCH, k, 2))], -1)
+    cases.append((f"shared b{BATCH} M={k} t=0.25 (tied scores in eighths, integer boxes)",
+                  dev(boxes), dev(rs.randint(0, 9, (BATCH, NUM_CLASSES, k)) / 8), 0.25))
+    p = np.arange(32)
+    y0, x0 = 40.0 * (p // 8), 40.0 * (p % 8)
+    side = np.where(p < 16, 1 + p % 5, 0.1 * (p + 1))  # exact 0.5, then 0.5 by rounding
+    big = np.stack([y0, x0, y0 + side, x0 + 2 * side], -1)
+    small = np.stack([y0, x0, y0 + side, x0 + side], -1)
+    pairs = np.stack([big, small], 1).reshape(64, 4).astype(np.float32)
+    scores = rs.permutation(BATCH * NUM_CLASSES * 64).reshape(BATCH, NUM_CLASSES, 64)
+    cases.append((f"shared b{BATCH} M=64 t=0 (32 pairs at IoU 0.5)",
+                  dev(np.repeat(pairs[None], BATCH, 0)), dev(scores / scores.size), 0.0))
     b = rs.rand(BATCH, NUM_CLASSES, k, 4).astype(np.float32) * SIZE
     b[..., 2:] = b[..., :2] + rs.rand(BATCH, NUM_CLASSES, k, 2).astype(np.float32) * 80
     s = rs.permutation(BATCH * NUM_CLASSES * k).reshape(BATCH, NUM_CLASSES, k)
-    s = (s / s.size).astype(np.float32)
-    cases.append((f"per-class K={k} t=0.3 (random)", torch.from_numpy(b).to(DEVICE),
-                  torch.from_numpy(s).to(DEVICE), 0.3))
-    for name, boxes, scores, thr in cases:
+    cases.append((f"per-class b{BATCH} K={k} t=0.3 (random)", dev(b), dev(s / s.size), 0.3))
+    return cases
+
+
+def check_nms(pred, report):
+    import torch
+
+    from yoloret_tpu_torch.ops.nms_kernel import plan_nms, suppress, suppress_plain
+
+    rows, worst = [], 0.0
+    for name, boxes, scores, thr in nms_cases(pred):
+        plan = plan_nms(scores.shape[1], scores.shape[2], 20, boxes.dim() == 3)
         got = suppress(boxes, scores, max_det=20, iou_threshold=0.5, score_threshold=thr)
         want = suppress_plain(boxes, scores, max_det=20, iou_threshold=0.5,
                               score_threshold=thr)
         torch.cuda.synchronize()
         err = max(max_err(got[0], want[0]), max_err(got[1], want[1]))
         dets = int((got[1] > 0).sum())
-        rows.append(dict(case=name, max_abs_err=err, detections=dets))
-        log(f"nms kernel vs plain, {name}: max abs err {err} (tolerance 0: exact), "
+        rows.append(dict(case=name, plan=plan._asdict(), max_abs_err=err, detections=dets))
+        how = (f"shared-pool kernel ({plan.warps} warps, {plan.classes_per_pass} classes per "
+               f"pass, {plan.smem} B shared memory)" if plan.variant == "shared"
+               else "per-class kernel (a warp per image and class)")
+        log(f"nms kernel vs plain, {name}: {how}: max abs err {err} (tolerance 0: exact), "
             f"{dets} detections")
         if err != 0.0:
             raise AssertionError(f"nms {name}: kernel differs from plain by {err}")
@@ -331,7 +387,7 @@ def drive_main_path(pred, map_pred, seed, report):
     from PIL import Image
 
     from yoloret_tpu_torch.ops.mbconv import fused_mbconv
-    from yoloret_tpu_torch.ops.nms_kernel import suppress
+    from yoloret_tpu_torch.ops.nms_kernel import plan_nms, suppress
     from yoloret_tpu_torch.serve import DetectionServer
 
     rs = np.random.RandomState(seed)
@@ -398,8 +454,14 @@ def drive_main_path(pred, map_pred, seed, report):
     assert pred.forwards >= 5 and map_pred.forwards == 1, (pred.forwards, map_pred.forwards)
     assert launches["mbconv"] == 16 * forwards, (launches, forwards)
     assert launches["nms"] == forwards, (launches, forwards)
+    # the shared pool (class stride 0) of both Predictors runs the shared-pool kernel
+    variants = {p.num_candidates: plan_nms(NUM_CLASSES, p.num_candidates, 20, True).variant
+                for p in (pred, map_pred)}
+    log(f"main path: NMS kernel variant by pool size {variants}")
+    assert set(variants.values()) == {"shared"}, variants
     report["main_path"] = dict(detections=counts, http=[len(b["detections"]) for _, b in replies],
-                               forwards=forwards, launches=launches, seconds=seconds)
+                               forwards=forwards, launches=launches, seconds=seconds,
+                               nms_variants=variants)
     return launches
 
 
@@ -482,7 +544,7 @@ def profile_serving(pred, report, batches=3):
             pred.infer(images, hw)
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    groups, others = {"mbconv": 0.0, "nms_kernel": 0.0, "other": 0.0}, {}
+    groups, others = {"mbconv": 0.0, "nms": 0.0, "other": 0.0}, {}
     for e in prof.key_averages():
         us = getattr(e, "self_device_time_total", None)
         if us is None:
@@ -514,13 +576,18 @@ def time_kernels(pred, launches, errs, report):
     import torch
 
     from yoloret_tpu_torch.ops.mbconv import fused_mbconv, plan_tile, reference_mbconv
-    from yoloret_tpu_torch.ops.nms_kernel import suppress, suppress_plain
+    from yoloret_tpu_torch.ops.nms_kernel import plan_nms, suppress, suppress_plain
 
     scratch = torch.empty(128 * 2**20, dtype=torch.uint8, device=DEVICE)  # > 50 MB L2
 
     def flush():
         scratch.zero_()
 
+    # what the timer reads for a kernel that does nothing (a one-element
+    # fill): launch latency, the floor under every kernel time below
+    tiny = torch.zeros(1, device=DEVICE)
+    report["timer_floor_ms"] = cuda_time_ms(lambda: tiny.zero_(), 10, 2, flush)
+    log(f"  timer floor: an empty kernel reads {report['timer_floor_ms']:.4f} ms")
     rows, tot = [], dict(ms=0.0, plain_ms=0.0, library_ms=0.0, bound_ms=0.0)
     with torch.inference_mode():
         ins = block_inputs(pred, BATCH, seed=12)
@@ -571,24 +638,31 @@ def time_kernels(pred, launches, errs, report):
     for m, thr in ((64, 0.3), (512, 0.0)):
         boxes, scores = candidates_at_b128(pred, m, seed=100 + m)
         kw = dict(max_det=20, iou_threshold=0.5, score_threshold=thr)
+        plan = plan_nms(scores.shape[1], m, 20, shared=True)
         ms = cuda_time_ms(lambda: suppress(boxes, scores, **kw), 10, 2, flush)
         plain = cuda_time_ms(lambda: suppress_plain(boxes, scores, **kw), 3, 1, flush)
-        _, out_s = suppress(boxes, scores, **kw)
-        bound, by = nms_bound_ms(boxes, scores, out_s, 20)
-        nms_rows.append(dict(m=m, score_threshold=thr, ms=ms, plain_ms=plain, bound_ms=bound,
-                             bound_by=by, detections=int((out_s > 0).sum())))
-        log(f"  nms shared b{BATCH} C={NUM_CLASSES} M={m} t={thr}: kernel {ms:.4f} ms, "
-            f"plain {plain:.4f}, bound {bound:.5f} ({by})")
+        out_b, out_s = suppress(boxes, scores, **kw)
+        bound, by, work = nms_bound_ms(boxes, scores, out_b, out_s, 20)
+        nms_rows.append(dict(m=m, score_threshold=thr, plan=plan._asdict(), ms=ms,
+                             plain_ms=plain, bound_ms=bound, bound_by=by,
+                             detections=int((out_s > 0).sum()), **work))
+        log(f"  nms shared b{BATCH} C={NUM_CLASSES} M={m} t={thr} ({plan.variant} kernel, "
+            f"{plan.warps} warps, {plan.smem} B shared memory): kernel {ms:.4f} ms, plain "
+            f"{plain:.4f}, bound {bound:.5f} ({by}; {work['distinct_picks']} distinct picks, "
+            f"{work['rounds']} rounds; per-class count {work['bound_ms_per_class_count']:.5f})")
     report["nms_timing"] = nms_rows
-    serving = nms_rows[0]
+    serving, mapg = nms_rows
     kernels.append(dict(
         name="nms", route="cuda", source="yoloret_tpu_torch/csrc/nms.cu",
         replaces="yoloret_tpu/ops/nms_pallas.py:36",
         also_replaces=["yoloret_tpu/ops/postprocess.py:361"],
-        shapes=f"shared pool b{BATCH} C={NUM_CLASSES} M=64 t=0.3 (serving)",
+        shapes=f"shared pool b{BATCH} C={NUM_CLASSES} M=64 t=0.3 (serving); map_grade_*: "
+               f"M=512 t=0",
         launches=launches["nms"], max_abs_err=errs["nms"], ms=serving["ms"],
         plain_ms=serving["plain_ms"], bound_ms=serving["bound_ms"],
-        bound_by=serving["bound_by"], library_ms=None))
+        bound_by=serving["bound_by"], library_ms=None, map_grade_ms=mapg["ms"],
+        map_grade_plain_ms=mapg["plain_ms"], map_grade_bound_ms=mapg["bound_ms"],
+        map_grade_bound_by=mapg["bound_by"]))
     return kernels
 
 

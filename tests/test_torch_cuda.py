@@ -6,8 +6,10 @@ only PyTorch: ``python -m pytest tests/test_torch_cuda.py -m cuda``.
 Float32 with TF32 off (tolerance 1e-4: summation order over at most
 720 terms); bfloat16 atol = rtol = 2e-2, one bf16 step at values in
 [2, 4) (the kernel rounds where the plain version rounds, so summation
-order is the only difference); NMS must agree exactly (the kernel is built without FMA
-contraction and copies the picked values).
+order is the only difference); NMS must agree exactly (the kernels are built without FMA
+contraction and copy the picked values; the shared-pool kernel divides wherever its
+margin test cannot settle IoU > threshold). The NMS edge cases here are also held
+against the JAX package on the CPU by tests/test_torch_nms.py.
 """
 
 import numpy as np
@@ -15,7 +17,7 @@ import pytest
 import torch
 
 from yoloret_tpu_torch.ops.mbconv import fused_mbconv, reference_mbconv
-from yoloret_tpu_torch.ops.nms_kernel import suppress, suppress_plain
+from yoloret_tpu_torch.ops.nms_kernel import plan_nms, suppress, suppress_plain
 
 MBCONV_CASES = [
     # (h, w, cin, ce, cout, stride, expand, residual)
@@ -89,6 +91,124 @@ def test_mbconv_kernel_matches_plain(cuda, case):
     want = reference_mbconv(*bf, stride=stride, residual=residual)
     assert got.dtype == torch.bfloat16
     torch.testing.assert_close(got.float(), want.float(), atol=2e-2, rtol=2e-2)
+
+
+NMS_MAX_DET = 20
+# Shared-pool cases for the edges greedy NMS must get exactly right:
+# name -> (B, C, M, score threshold). tests/test_torch_nms.py holds the
+# plain version against the JAX package on the same cases.
+NMS_CASES = {
+    "ties_c3": (2, 3, 40, 0.0),  # scores in quarter steps, +0 and -0 tied
+    "ties_c20": (2, 20, 64, 0.25),
+    "iou_at_threshold": (1, 3, 18, 0.0),  # pairs at IoU 0.5 (exact and by rounding)
+    "identical_boxes": (2, 3, 48, 0.25),
+    "zero_area": (2, 3, 40, 0.1),  # flat and inverted boxes
+    "below_threshold": (2, 3, 32, 0.6),
+    "b1_c20": (1, 20, 64, 0.3),
+    "b1_c3_ragged": (1, 3, 33, 0.3),
+}
+# Pairs whose IoU is 0.5: exactly (integer sides), and within rounding.
+AT_THRESHOLD = [([0, 0, 1, 2], [0, 0, 1, 1]), ([5, 5, 7, 7], [5, 5, 6, 7]),
+                ([10, 10, 14, 12], [10, 10, 12, 12]), ([20, 20, 22, 21], [20, 20, 21, 21])]
+AT_THRESHOLD += [([30, 30, 30 + s, 30 + 2 * s], [30, 30, 30 + s, 30 + s])
+                 for s in (0.1, 0.3, 0.7, 1.1, 3.3)]
+
+
+def nms_case(name):
+    """(boxes [B, M, 4], scores [B, C, M], score threshold) of a named
+    case of ``NMS_CASES``, float32 numpy, made from a seed."""
+    b, c, m, thr = NMS_CASES[name]
+    rs = np.random.RandomState(sum(map(ord, name)))
+
+    def grid_boxes(n):  # small integer boxes on an 8 x 8 grid: many overlaps and ties
+        yx = rs.randint(0, 8, (b, n, 2)).astype(np.float32)
+        return np.concatenate([yx, yx + rs.randint(1, 5, (b, n, 2))], -1).astype(np.float32)
+
+    def tied_scores():
+        return (rs.randint(0, 5, (b, c, m)) / 4).astype(np.float32)
+
+    def distinct_scores():
+        return (rs.permutation(b * c * m).reshape(b, c, m) / (b * c * m)).astype(np.float32)
+
+    if name.startswith("ties"):
+        boxes, scores = grid_boxes(m), tied_scores()
+        scores[(scores == 0) & (rs.rand(b, c, m) < 0.5)] = -0.0
+    elif name == "iou_at_threshold":
+        boxes = np.array([q for pair in AT_THRESHOLD for q in pair], np.float32)
+        boxes, scores = np.repeat(boxes[None], b, 0), distinct_scores()
+    elif name == "identical_boxes":
+        boxes, scores = grid_boxes(6)[:, rs.randint(0, 6, m)], tied_scores()
+    elif name == "zero_area":
+        boxes, scores = grid_boxes(m), distinct_scores()
+        boxes[..., 2] = np.where(rs.rand(b, m) < 0.5, boxes[..., 0], boxes[..., 2])
+        boxes[..., 3] = np.where(rs.rand(b, m) < 0.25, boxes[..., 1] - 1, boxes[..., 3])
+    elif name == "below_threshold":
+        boxes, scores = grid_boxes(m), distinct_scores() * np.float32(0.5)
+    else:
+        boxes = rs.rand(b, m, 4).astype(np.float32) * 50
+        boxes[..., 2:] = boxes[..., :2] + rs.rand(b, m, 2).astype(np.float32) * 20
+        scores = distinct_scores()
+    return np.ascontiguousarray(boxes), np.ascontiguousarray(scores), thr
+
+
+def _nms_exact(bt, st, **kw):
+    before = suppress.launches
+    got = suppress(bt, st, **kw)
+    assert suppress.launches == before + 1
+    want = suppress_plain(bt, st, **kw)
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g, w, atol=0, rtol=0)
+    return got
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", sorted(NMS_CASES))
+def test_nms_kernel_edge_cases(cuda, name):
+    boxes, scores, thr = nms_case(name)
+    bt, st = torch.from_numpy(boxes).to(cuda), torch.from_numpy(scores).to(cuda)
+    assert plan_nms(st.shape[1], st.shape[2], NMS_MAX_DET, True).variant == "shared"
+    _nms_exact(bt, st, max_det=NMS_MAX_DET, iou_threshold=0.5, score_threshold=thr)
+    # the same pools as per-class pools: the per-class kernel stays exact too
+    cls = bt[:, None].expand(-1, st.shape[1], -1, -1).contiguous()
+    _nms_exact(cls, st, max_det=NMS_MAX_DET, iou_threshold=0.5, score_threshold=thr)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,c,m,max_det", [
+    (128, 20, 64, 20),  # serving
+    (128, 20, 512, 20),  # MAP grade
+    (8, 20, 512, 20),
+    (2, 200, 512, 20),  # scores in passes of classes
+    (2, 20, 512, 2000),  # pick buffers large: passes of fewer classes
+    (3, 5, 200, 7),  # tiles beyond the last candidate
+])
+def test_nms_shared_kernel_shapes(cuda, b, c, m, max_det):
+    plan = plan_nms(c, m, max_det, True)
+    assert plan.variant == "shared"
+    rs = np.random.RandomState(b + c + m)
+    boxes = rs.rand(b, m, 4).astype(np.float32) * 300
+    boxes[..., 2:] = boxes[..., :2] + rs.rand(b, m, 2).astype(np.float32) * 80
+    scores = rs.rand(b, c, m).astype(np.float32)
+    bt, st = torch.from_numpy(boxes).to(cuda), torch.from_numpy(scores).to(cuda)
+    for thr in (0.0, 0.3):
+        _nms_exact(bt, st, max_det=max_det, iou_threshold=0.5, score_threshold=thr)
+
+
+@pytest.mark.cuda
+def test_nms_shared_kernel_infinite_boxes(cuda):
+    """Boxes with infinite corners (an overflowed exp in decode): unions of
+    inf or NaN go to the division, as in the plain version; so do all pairs
+    of an image with tiny nonzero areas."""
+    rs = np.random.RandomState(3)
+    boxes = rs.rand(2, 64, 4).astype(np.float32) * 50
+    boxes[..., 2:] = boxes[..., :2] + rs.rand(2, 64, 2).astype(np.float32) * 20
+    boxes[:, ::7, 3] = np.inf
+    boxes[:, ::11, 2] = np.inf
+    boxes[1, :32] *= np.float32(1e-19)  # areas ~1e-38: every pair of image 1 divided
+    scores = rs.rand(2, 4, 64).astype(np.float32)
+    bt, st = torch.from_numpy(boxes).to(cuda), torch.from_numpy(scores).to(cuda)
+    for iou_thr in (0.5, 0.0, -1.0):  # 0 and below: every pair divided
+        _nms_exact(bt, st, max_det=20, iou_threshold=iou_thr, score_threshold=0.2)
 
 
 @pytest.mark.cuda

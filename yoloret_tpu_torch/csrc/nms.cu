@@ -1,36 +1,80 @@
-// Greedy class-aware NMS for Hopper: one warp per (image, class).
+// Greedy class-aware NMS for Hopper, in two variants.
 //
 // Replaces the TPU kernel yoloret_tpu/ops/nms_pallas.py::_nms_kernel
 // (nms_fused) and, on the serving path, the XLA loop
-// yoloret_tpu/ops/postprocess.py::_suppress_lax_shared. Python side:
-// ops/nms_kernel.py.
+// yoloret_tpu/ops/postprocess.py::_suppress_lax_shared. Python side, with
+// the launch plan: ops/nms_kernel.py.
 //
 // Per (image, class), max_det rounds: take the highest active score
 // (ties to the lowest candidate index), emit it with its box, deactivate
 // the pick and every candidate whose IoU with it is strictly above the
 // threshold. Scores below the score threshold start inactive; empty
-// slots are written as zeros.
+// slots are written as zeros. Built with -fmad=false, so every IoU rounds
+// exactly as the plain PyTorch version's does.
 //
-// What bounds it: the operations of the loop (rounds x candidates x one
-// IoU), not bytes -- its inputs are read once (at most 512 candidates
-// per warp). Design: the candidates are strided over the 32 lanes and
-// held in registers for all rounds (scores, the four coordinates and the
-// area), so a round is a lane-local scan, a 5-step shuffle argmax over
-// (score, -index), a shuffle broadcast of the pick's box from its owner
-// lane, and one IoU per candidate -- no shared memory, no barrier, no
-// device-memory traffic inside the loop. A warp stops at the first round
-// with nothing left to pick. Boxes come with a class stride: 0 for the
-// shared pool [B, M, 4] of the serving path, K*4 for per-class pools
-// [B, C, K, 4]. Built with -fmad=false so the IoU rounds exactly as the
-// plain PyTorch version's does.
+// nms_shared: the shared pool (boxes [B, M, 4], class stride 0), which is
+// the serving path. One CTA per image.
+//   What bounds it: the IoUs. Greedy NMS per class needs the IoU of each
+//   pick against every candidate, and with one box set per image the C
+//   classes ask for the same IoUs again and again. Built once per image,
+//   the mask's M^2 / 2 IoUs (min, max and compares, which run at half
+//   rate) set the time at M=512; at M=64 the rounds do, a chain of
+//   dependent steps whose latency, not throughput, counts. Bytes (the
+//   image's scores and boxes, read once) are a few microseconds for the
+//   whole batch.
+//   Design: the image's boxes and [C, M] scores come into shared memory
+//   by cp.async (the scores land while phase 1 runs). Phase 1: all warps
+//   build the suppression mask kill[i][j] = iou(i, j) > thr once per
+//   image, M x M bits, row i as M contiguous bits. A warp takes half of a
+//   32 x 32 tile (I <= J) of the upper triangle, 16 rows (half tiles
+//   spread the items evenly over the warps); lane l holds box 32J + l,
+//   the rows are broadcast from shared memory, and each pair is computed
+//   once: the lane's 16 bits are half of the word of row 32J + l in the
+//   mirror tile (the IoU is bitwise symmetric: min, max and area_i +
+//   area_j commute), and a bit transpose across the warp (5 shuffles)
+//   gives the words of the 16 rows. The division is skipped where inter
+//   against thr * (1 +- 2^-18) * uni settles the comparison beyond
+//   rounding; inside that margin (a warp-uniform branch, rarely taken)
+//   the IoU is divided exactly as the plain version does. The diagonal is
+//   set, so a pick also kills itself. Phase 2: one warp per class
+//   (classes looped when C exceeds the warps), candidates lane * NPL ..
+//   lane * NPL + NPL - 1 in registers as order-preserving integer keys.
+//   A round is an in-lane max tree, a warp reduction (__reduce_max_sync)
+//   and a ballot for the lowest lane holding the top key (ties to the
+//   lowest index), and the kill: one 32-bit shared load of the pick's
+//   mask row per lane and a bit test per candidate -- no IoU and no
+//   division inside a round. Picks are collected in shared memory and
+//   each class's outputs are written as contiguous runs at the end. When
+//   [C, M] scores do not fit beside the mask, they come in passes of
+//   `cs` classes.
+//
+// nms_kernel: per-class pools (boxes [B, C, K, 4], the TPU kernel's own
+// contract; not on the serving path; a mask per class would not fit in
+// shared memory). One warp per (image, class).
+//   What bounds it: the loop's operations (rounds x candidates x one
+//   IoU); its inputs are read once. Design: candidates strided over the
+//   32 lanes and held in registers for all rounds (scores, four
+//   coordinates, area); a round is a lane-local scan, a 5-step shuffle
+//   argmax over (score, -index), a shuffle broadcast of the pick's box and
+//   one IoU per candidate -- no shared memory, no barrier, no memory
+//   traffic inside the loop. A warp stops at the first round with nothing
+//   left to pick.
 
 #include <cuda_runtime.h>
 #include <math.h>
+#include <stdint.h>
 
 namespace {
 
-constexpr int WARPS = 4;  // warps per block
+constexpr int WARPS = 4;  // warps per block of the per-class kernel
+constexpr int MAX_NPL = 16;
+constexpr int MAX_SHARED_WARPS = 32;
+constexpr int SMEM_LIMIT = 232448;  // bytes of shared memory one block may use (sm_90)
 constexpr unsigned FULL = 0xffffffffu;
+// An image with an area in (0, MIN_AREA) has its every pair divided: with
+// areas of 0 or at least MIN_AREA, a union is 0 or above MIN_AREA / 2, and
+// the margin test's products stay in float32's normal range.
+constexpr float MIN_AREA = 0x1p-58f;
 
 template <int NPL>  // candidates per lane
 __global__ void __launch_bounds__(WARPS * 32)
@@ -123,51 +167,312 @@ __global__ void __launch_bounds__(WARPS * 32)
   }
 }
 
+// ---- shared-pool kernel ------------------------------------------------
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void cp_async4(void* dst, const void* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(smem_addr(dst)), "l"(src)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(smem_addr(dst)), "l"(src)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// n floats from global src to shared dst, spread over the block's threads:
+// 16-byte copies when both ends are 16-byte aligned, else 4-byte ones.
+__device__ __forceinline__ void copy_async(float* dst, const float* src, int n) {
+  int done = 0;
+  if (((reinterpret_cast<uintptr_t>(src) | reinterpret_cast<uintptr_t>(dst)) & 15) == 0) {
+    const int n4 = n >> 2;
+    for (int i = threadIdx.x; i < n4; i += blockDim.x) cp_async16(dst + 4 * i, src + 4 * i);
+    done = n4 << 2;
+  }
+  for (int i = done + threadIdx.x; i < n; i += blockDim.x) cp_async4(dst + i, src + i);
+}
+
+// inter and union of boxes p and q, rounded as the plain version rounds
+// them (boxes are (ymin, xmin, ymax, xmax) in x, y, z, w). Symmetric in
+// p and q: min, max and pa + qa commute.
+__device__ __forceinline__ void pair_terms(float4 p, float pa, float4 q, float qa, float& inter,
+                                           float& uni) {
+  const float iy = fmaxf(0.f, fminf(p.z, q.z) - fmaxf(p.x, q.x));
+  const float ix = fmaxf(0.f, fminf(p.w, q.w) - fmaxf(p.y, q.y));
+  inter = ix * iy;
+  uni = pa + qa - inter;
+}
+
+// Lane l's bit b goes to lane b's bit l (a 32 x 32 bit matrix across the
+// warp, transposed by swapping off-diagonal blocks of 16, 8, 4, 2, 1).
+__device__ __forceinline__ uint32_t transpose_bits(uint32_t v, int lane) {
+#pragma unroll
+  for (int s = 16; s > 0; s >>= 1) {
+    const uint32_t m = s == 16 ? 0x0000ffffu
+                       : s == 8 ? 0x00ff00ffu
+                       : s == 4 ? 0x0f0f0f0fu
+                       : s == 2 ? 0x33333333u
+                                : 0x55555555u;
+    const uint32_t x = __shfl_xor_sync(FULL, v, s);
+    v = (lane & s) ? ((v & ~m) | ((x >> s) & m)) : ((v & m) | ((x & m) << s));
+  }
+  return v;
+}
+
+// A float's order as an unsigned key (-0 and +0 equal); 0 stands for an
+// inactive candidate, below every float's key.
+__device__ __forceinline__ uint32_t order_key(float v) {
+  const uint32_t u = __float_as_uint(v == 0.f ? 0.f : v);
+  return (u & 0x80000000u) ? ~u : (u | 0x80000000u);
+}
+
+template <int NPL>
+__global__ void __launch_bounds__(MAX_SHARED_WARPS * 32)
+    nms_shared(const float* __restrict__ scores, const float* __restrict__ boxes,
+               float* __restrict__ out_boxes, float* __restrict__ out_scores, int C, int M,
+               int D, long long box_bstride, int cs, float iou_thr, float thr_lo, float thr_hi,
+               float score_thr) {
+  constexpr int MP = 32 * NPL;  // candidates padded to the lanes' slots
+  extern __shared__ __align__(16) unsigned char smem[];
+  float4* sbox = reinterpret_cast<float4*>(smem);                  // [MP]
+  uint32_t* smask = reinterpret_cast<uint32_t*>(sbox + MP);        // [MP][NPL]
+  float* sarea = reinterpret_cast<float*>(smask + MP * NPL);       // [MP]
+  float* ssc = sarea + MP;                                         // [cs][M]
+  int* spick = reinterpret_cast<int*>(ssc + ((cs * M + 3) & ~3));  // [min(W, cs)][D]
+
+  const int b = blockIdx.x;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int nwarps = blockDim.x >> 5;
+  const float* gsc = scores + size_t(b) * C * M;
+
+  copy_async(reinterpret_cast<float*>(sbox), boxes + b * box_bstride, 4 * M);
+  cp_async_commit();
+  copy_async(ssc, gsc, min(cs, C) * M);
+  cp_async_commit();
+  for (int i = M + tid; i < MP; i += blockDim.x) sbox[i] = make_float4(0.f, 0.f, 0.f, 0.f);
+  cp_async_wait<1>();  // this thread's box copies have landed
+  __syncthreads();
+  bool tiny = false;
+  for (int i = tid; i < MP; i += blockDim.x) {
+    const float4 v = sbox[i];
+    sarea[i] = fmaxf(0.f, v.w - v.y) * fmaxf(0.f, v.z - v.x);
+    tiny |= sarea[i] > 0.f && sarea[i] < MIN_AREA;
+  }
+  if (__syncthreads_or(tiny)) {  // settle nothing by the margin: divide every pair
+    thr_lo = -INFINITY;
+    thr_hi = INFINITY;
+  }
+
+  // Phase 1: the mask. A work item is half a 32 x 32 tile (I <= J): 16
+  // rows 32I + 16h + r against the 32 columns 32J + lane.
+  const int nt = (M + 31) >> 5;
+  const int items = nt * (nt + 1);
+  for (int t = warp; t < items; t += nwarps) {
+    const int h = t & 1;
+    int I = 0, rem = t >> 1;
+    while (rem >= nt - I) {
+      rem -= nt - I;
+      ++I;
+    }
+    const int J = I + rem, i0 = 32 * I + 16 * h;
+    const float4 bj = sbox[32 * J + lane];
+    const float aj = sarea[32 * J + lane];
+    // inter > thr_hi * uni puts inter / uni above thr by more than its
+    // rounding can undo, inter < thr_lo * uni below it. Pairs that this
+    // does not settle (the margin, NaN, a zero union; every pair when the
+    // bounds are infinite) are divided afterwards, in a branch the warp
+    // takes only when one of its lanes needs it.
+    uint32_t bits = 0, open = 0;  // bit r: kill(i0 + r, 32J + lane) / not settled
+#pragma unroll
+    for (int r = 0; r < 16; ++r) {
+      float inter, uni;
+      pair_terms(sbox[i0 + r], sarea[i0 + r], bj, aj, inter, uni);
+      const bool k = inter > thr_hi * uni;
+      if (k) bits |= 1u << r;
+      if (!k && !(inter < thr_lo * uni)) open |= 1u << r;
+    }
+    if (__any_sync(FULL, open != 0)) {
+      for (int r = 0; r < 16; ++r)
+        if ((open >> r) & 1u) {
+          float inter, uni;
+          pair_terms(sbox[i0 + r], sarea[i0 + r], bj, aj, inter, uni);
+          const bool k = (uni != 0.f ? inter / uni : 0.f) > iou_thr;
+          bits = (bits & ~(1u << r)) | (uint32_t(k) << r);
+        }
+    }
+    // lane r < 16 gets row i0 + r, word J (bit l = lane l's bit r) by
+    // transposing the warp's bits; the diagonal (a pick kills itself) is
+    // set here
+    uint32_t direct = transpose_bits(bits, lane);
+    if (lane < 16) {
+      if (I == J) direct |= 1u << (16 * h + lane);
+      smask[(i0 + lane) * NPL + J] = direct;
+    }
+    if (I != J)  // the mirror tile: row 32J + lane, word I, half h
+      reinterpret_cast<uint16_t*>(smask + (32 * J + lane) * NPL + I)[h] = uint16_t(bits);
+  }
+  cp_async_wait<0>();
+  __syncthreads();
+
+  // Phase 2: the greedy rounds, one warp per class.
+  const int word = (lane * NPL) >> 5, shift = (lane * NPL) & 31;
+  for (int c0 = 0; c0 < C; c0 += cs) {
+    const int cn = min(cs, C - c0);
+    if (c0 > 0) {  // the next pass of classes
+      __syncthreads();
+      copy_async(ssc, gsc + size_t(c0) * M, cn * M);
+      cp_async_commit();
+      cp_async_wait<0>();
+      __syncthreads();
+    }
+    for (int cl = warp; cl < cn; cl += nwarps) {
+      const float* sc = ssc + cl * M;
+      int* pk = spick + warp * D;
+      uint32_t key[NPL];
+#pragma unroll
+      for (int i = 0; i < NPL; ++i) {
+        const int k = lane * NPL + i;
+        const float v = k < M ? sc[k] : -INFINITY;
+        key[i] = (v >= score_thr && v > -INFINITY) ? order_key(v) : 0u;
+      }
+      int r = 0;
+      for (; r < D; ++r) {
+        uint32_t kb[NPL];
+        int ib[NPL];
+#pragma unroll
+        for (int i = 0; i < NPL; ++i) {
+          kb[i] = key[i];
+          ib[i] = i;
+        }
+#pragma unroll
+        for (int w = 1; w < NPL; w *= 2)  // the left (lower) index wins ties
+#pragma unroll
+          for (int i = 0; i + w < NPL; i += 2 * w)
+            if (kb[i + w] > kb[i]) {
+              kb[i] = kb[i + w];
+              ib[i] = ib[i + w];
+            }
+        const uint32_t top = __reduce_max_sync(FULL, kb[0]);
+        if (top == 0u) break;  // nothing active is left
+        // lane l holds candidates l * NPL ..: the lowest lane with the top
+        // key holds the lowest index
+        const int owner = __ffs(__ballot_sync(FULL, kb[0] == top)) - 1;
+        const int p = owner * NPL + __shfl_sync(FULL, ib[0], owner);
+        const uint32_t row = smask[p * NPL + word] >> shift;
+#pragma unroll
+        for (int i = 0; i < NPL; ++i)
+          if ((row >> i) & 1u) key[i] = 0u;
+        if (lane == 0) pk[r] = p;
+      }
+      __syncwarp();
+      const size_t out = (size_t(b) * C + c0 + cl) * D;
+      for (int t = lane; t < D; t += 32) out_scores[out + t] = t < r ? sc[pk[t]] : 0.f;
+      const float* sb = reinterpret_cast<const float*>(sbox);
+      for (int t = lane; t < 4 * D; t += 32)
+        out_boxes[out * 4 + t] = (t >> 2) < r ? sb[pk[t >> 2] * 4 + (t & 3)] : 0.f;
+      __syncwarp();
+    }
+  }
+}
+
 template <int NPL>
 cudaError_t launch(const void* scores, const void* boxes, void* out_boxes, void* out_scores,
                    int B, int C, int K, int D, long long bstride, long long cstride,
-                   float iou_thr, float score_thr, cudaStream_t stream) {
-  const int blocks = (B * C + WARPS - 1) / WARPS;
-  nms_kernel<NPL><<<blocks, WARPS * 32, 0, stream>>>(
+                   float iou_thr, float score_thr, int warps, int cs, int smem,
+                   cudaStream_t stream) {
+  if (warps == 0) {
+    const int blocks = (B * C + WARPS - 1) / WARPS;
+    nms_kernel<NPL><<<blocks, WARPS * 32, 0, stream>>>(
+        static_cast<const float*>(scores), static_cast<const float*>(boxes),
+        static_cast<float*>(out_boxes), static_cast<float*>(out_scores), B, C, K, D, bstride,
+        cstride, iou_thr, score_thr);
+    return cudaGetLastError();
+  }
+  static int smem_allowed = 48 * 1024;
+  if (smem > smem_allowed) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        nms_shared<NPL>, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_LIMIT);
+    if (e != cudaSuccess) return e;
+    smem_allowed = SMEM_LIMIT;
+  }
+  // The margin test's bounds; outside [2^-60, 2^60] (or NaN) its products
+  // could leave the normal range, so infinite bounds settle nothing and
+  // every pair is divided.
+  const bool fast = iou_thr >= 0x1p-60f && iou_thr <= 0x1p60f;
+  const float lo = fast ? float(double(iou_thr) * (1.0 - 0x1p-18)) : -INFINITY;
+  const float hi = fast ? float(double(iou_thr) * (1.0 + 0x1p-18)) : INFINITY;
+  nms_shared<NPL><<<B, warps * 32, smem, stream>>>(
       static_cast<const float*>(scores), static_cast<const float*>(boxes),
-      static_cast<float*>(out_boxes), static_cast<float*>(out_scores), B, C, K, D, bstride,
-      cstride, iou_thr, score_thr);
+      static_cast<float*>(out_boxes), static_cast<float*>(out_scores), C, K, D, bstride, cs,
+      iou_thr, lo, hi, score_thr);
   return cudaGetLastError();
+}
+
+// Bytes of dynamic shared memory nms_shared<npl> lays out (ops/nms_kernel.py
+// ::shared_smem_bytes computes the same).
+long long shared_smem_bytes(int npl, int K, int cs, int warps, int D) {
+  const long long mp = 32LL * npl;
+  return 16 * mp + 4 * mp * npl + 4 * mp + 16 * ((cs * (long long)K + 3) / 4) +
+         4LL * (warps < cs ? warps : cs) * D;
 }
 
 }  // namespace
 
 extern "C" {
 
-int yrt_nms_max_candidates() { return 16 * 32; }
-
 // scores [B, C, K] float32; boxes float32 (ymin, xmin, ymax, xmax) at
 // boxes + b * box_bstride + c * box_cstride + 4 * k (in floats);
-// out_boxes [B, C, D, 4], out_scores [B, C, D] float32.
+// out_boxes [B, C, D, 4], out_scores [B, C, D] float32. warps == 0 runs
+// the per-class kernel; warps > 0 (box_cstride must be 0) the shared-pool
+// kernel with that many warps per CTA, scores in passes of cs classes and
+// smem bytes of dynamic shared memory -- the plan of ops/nms_kernel.py::
+// plan_nms, refused if this file would lay it out differently.
 // Returns the CUDA error of the launch (0 on success).
 int yrt_nms(const void* scores, const void* boxes, void* out_boxes, void* out_scores, int B,
             int C, int K, int D, long long box_bstride, long long box_cstride, float iou_thr,
-            float score_thr, void* stream) {
-  if (K < 1 || K > 16 * 32 || D < 0) return int(cudaErrorInvalidValue);
+            float score_thr, int warps, int cs, int smem, void* stream) {
+  if (K < 1 || K > MAX_NPL * 32 || D < 0 || B < 0 || C < 0) return int(cudaErrorInvalidValue);
+  const int npl = K <= 32 ? 1 : K <= 64 ? 2 : K <= 128 ? 4 : K <= 256 ? 8 : 16;
+  if (warps != 0 &&
+      (box_cstride != 0 || warps < 1 || warps > MAX_SHARED_WARPS || cs < 1 || cs > C ||
+       smem > SMEM_LIMIT || smem != shared_smem_bytes(npl, K, cs, warps, D)))
+    return int(cudaErrorInvalidValue);
   if (B * C == 0 || D == 0) return int(cudaSuccess);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int npl = (K + 31) / 32;
   cudaError_t e;
-  if (npl <= 1)
-    e = launch<1>(scores, boxes, out_boxes, out_scores, B, C, K, D, box_bstride, box_cstride,
-                  iou_thr, score_thr, s);
-  else if (npl <= 2)
-    e = launch<2>(scores, boxes, out_boxes, out_scores, B, C, K, D, box_bstride, box_cstride,
-                  iou_thr, score_thr, s);
-  else if (npl <= 4)
-    e = launch<4>(scores, boxes, out_boxes, out_scores, B, C, K, D, box_bstride, box_cstride,
-                  iou_thr, score_thr, s);
-  else if (npl <= 8)
-    e = launch<8>(scores, boxes, out_boxes, out_scores, B, C, K, D, box_bstride, box_cstride,
-                  iou_thr, score_thr, s);
-  else
-    e = launch<16>(scores, boxes, out_boxes, out_scores, B, C, K, D, box_bstride,
-                   box_cstride, iou_thr, score_thr, s);
+  switch (npl) {
+    case 1:
+      e = launch<1>(scores, boxes, out_boxes, out_scores, B, C, K, D, box_bstride, box_cstride,
+                    iou_thr, score_thr, warps, cs, smem, s);
+      break;
+    case 2:
+      e = launch<2>(scores, boxes, out_boxes, out_scores, B, C, K, D, box_bstride, box_cstride,
+                    iou_thr, score_thr, warps, cs, smem, s);
+      break;
+    case 4:
+      e = launch<4>(scores, boxes, out_boxes, out_scores, B, C, K, D, box_bstride, box_cstride,
+                    iou_thr, score_thr, warps, cs, smem, s);
+      break;
+    case 8:
+      e = launch<8>(scores, boxes, out_boxes, out_scores, B, C, K, D, box_bstride, box_cstride,
+                    iou_thr, score_thr, warps, cs, smem, s);
+      break;
+    default:
+      e = launch<16>(scores, boxes, out_boxes, out_scores, B, C, K, D, box_bstride,
+                     box_cstride, iou_thr, score_thr, warps, cs, smem, s);
+  }
   return int(e);
 }
 

@@ -1,16 +1,19 @@
-"""Greedy class-aware suppression: the CUDA kernel's wrapper and its
-plain PyTorch version.
+"""Greedy class-aware suppression: the CUDA kernels' wrapper, their launch
+plan and their plain PyTorch version.
 
-Kernel: ``csrc/nms.cu``, built for sm_90a on first use. It replaces the
+Kernels: ``csrc/nms.cu``, built for sm_90a on first use. They replace the
 TPU kernel ``yoloret_tpu/ops/nms_pallas.py::_nms_kernel`` and, on the
 serving path, the XLA loop ``_suppress_lax_shared`` of
-``yoloret_tpu/ops/postprocess.py``.
+``yoloret_tpu/ops/postprocess.py``. ``plan_nms`` picks the variant from
+the class stride of the boxes:
 
-What bounds it on the card: the loop's operations (rounds x candidates
-x one IoU), with its inputs read once. One warp per (image, class) holds
-its candidates in registers for every round; each round is a shuffle
-argmax, a shuffle broadcast of the pick's box and one IoU per candidate,
-with no memory traffic (see the note at the top of the CUDA source).
+- ``shared`` (boxes [B, M, 4], the serving path): one CTA per image. All
+  warps build the image's M x M suppression mask (IoU > threshold) once
+  in shared memory, then one warp per class runs the greedy rounds on it:
+  an argmax by warp reductions and one mask-row load per round, no IoU.
+- ``per_class`` (boxes [B, C, K, 4], the TPU kernel's own contract): one
+  warp per (image, class), candidates in registers, one IoU per
+  candidate per round.
 
 Per (image, class), ``max_det`` rounds: take the highest active score
 (ties to the lowest index), emit it with its box, deactivate the pick and
@@ -21,24 +24,67 @@ every candidate with IoU > ``iou_threshold``. Scores below
 from __future__ import annotations
 
 import ctypes
-from typing import Tuple
+from typing import NamedTuple, Tuple
 
 import torch
 
 from yoloret_tpu_torch.ops import _build
 from yoloret_tpu_torch.ops.boxes import iou as box_iou
 
+MAX_CANDIDATES = 512  # 16 per lane
+SMEM_LIMIT = 232448  # bytes of shared memory one block may use on sm_90
+MAX_WARPS = 32
+
 _vp, _ci = ctypes.c_void_p, ctypes.c_int
 _PROTOTYPES = {
-    "yrt_nms": ([_vp] * 4 + [_ci] * 4 + [ctypes.c_longlong] * 2 + [ctypes.c_float] * 2 + [_vp],
-                _ci),
-    "yrt_nms_max_candidates": ([], _ci),
+    "yrt_nms": ([_vp] * 4 + [_ci] * 4 + [ctypes.c_longlong] * 2 + [ctypes.c_float] * 2
+                + [_ci] * 3 + [_vp], _ci),
     "yrt_error_string": ([_ci], ctypes.c_char_p),
 }
 
 
 def _lib() -> ctypes.CDLL:
     return _build.load("nms", _PROTOTYPES)
+
+
+class NMSPlan(NamedTuple):
+    variant: str  # "shared" or "per_class"
+    npl: int  # candidates per lane (1, 2, 4, 8 or 16)
+    warps: int  # warps per CTA
+    classes_per_pass: int  # classes whose scores sit in shared memory at once
+    smem: int  # bytes of dynamic shared memory
+
+
+def shared_smem_bytes(npl: int, k: int, classes_per_pass: int, warps: int, max_det: int) -> int:
+    """Dynamic shared memory of the shared-pool kernel: boxes [32 npl] as
+    float4, the mask [32 npl][npl] words, areas, the scores of one pass
+    [cs, K] (16-byte rounded) and a buffer of picked indices per class
+    warp. ``csrc/nms.cu::shared_smem_bytes`` computes the same."""
+    mp = 32 * npl
+    return (16 * mp + 4 * mp * npl + 4 * mp + 16 * -(-classes_per_pass * k // 4)
+            + 4 * min(warps, classes_per_pass) * max_det)
+
+
+def plan_nms(c: int, k: int, max_det: int, shared: bool) -> NMSPlan:
+    """Launch plan for ``c`` classes of ``k`` candidates. A shared pool
+    takes one CTA per image with enough warps for the mask's 32 x 32 tiles
+    and one warp per class (8 to 32); its scores sit in shared memory in
+    as few passes as fit. Per-class pools (and a shared pool whose pick
+    buffers alone overflow shared memory, max_det in the tens of
+    thousands) take the warp-per-(image, class) kernel."""
+    if not 1 <= k <= MAX_CANDIDATES:
+        raise ValueError(f"{k} candidates: the kernel takes 1 to {MAX_CANDIDATES}")
+    npl = next(n for n in (1, 2, 4, 8, 16) if 32 * n >= k)
+    per_class = NMSPlan("per_class", npl, 4, c, 0)
+    if not shared or c < 1:
+        return per_class
+    tiles = -(-k // 32)
+    warps = min(MAX_WARPS, max(8, c, tiles * (tiles + 1) // 2))
+    for cs in range(c, 0, -1):
+        smem = shared_smem_bytes(npl, k, cs, warps, max_det)
+        if smem <= SMEM_LIMIT:
+            return NMSPlan("shared", npl, warps, cs, smem)
+    return per_class
 
 
 def suppress_plain(boxes: torch.Tensor, scores: torch.Tensor, *, max_det: int,
@@ -77,7 +123,8 @@ def suppress(boxes: torch.Tensor, scores: torch.Tensor, *, max_det: int = 20,
     Returns (boxes [B, C, D, 4], scores [B, C, D]), zeros in empty slots.
 
     A CPU tensor takes the plain version. A CUDA tensor launches the
-    kernel (and adds one to ``suppress.launches``), or raises."""
+    kernel that ``plan_nms`` picks (and adds one to ``suppress.launches``),
+    or raises."""
     b, c, k = scores.shape
     shared = boxes.dim() == 3
     want = (b, k, 4) if shared else (b, c, k, 4)
@@ -91,17 +138,18 @@ def suppress(boxes: torch.Tensor, scores: torch.Tensor, *, max_det: int = 20,
     for t in (boxes, scores):
         if t.device != scores.device or t.dtype != torch.float32 or not t.is_contiguous():
             raise ValueError("suppress needs contiguous float32 tensors on one device")
+    plan = plan_nms(c, k, max_det, shared)
     lib = _lib()
-    if k > lib.yrt_nms_max_candidates():
-        raise ValueError(f"{k} candidates exceed the kernel's {lib.yrt_nms_max_candidates()}")
     out_b = torch.empty((b, c, max_det, 4), dtype=torch.float32, device=scores.device)
     out_s = torch.empty((b, c, max_det), dtype=torch.float32, device=scores.device)
     if out_s.numel() == 0:
         return out_b, out_s
     stream = torch.cuda.current_stream(scores.device).cuda_stream
+    warps = plan.warps if plan.variant == "shared" else 0
     rc = lib.yrt_nms(scores.data_ptr(), boxes.data_ptr(), out_b.data_ptr(), out_s.data_ptr(),
                      b, c, k, max_det, k * 4 if shared else c * k * 4, 0 if shared else k * 4,
-                     iou_threshold, score_threshold, stream)
+                     iou_threshold, score_threshold, warps, plan.classes_per_pass, plan.smem,
+                     stream)
     if rc != 0:
         raise RuntimeError(f"nms kernel launch failed: {lib.yrt_error_string(rc).decode()}")
     suppress.launches += 1
