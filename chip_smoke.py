@@ -15,7 +15,10 @@ Phases (any failure exits non-zero and prints no result):
    work items outnumber the persistent CTAs); the suppression kernels,
    exactly: the shared-pool kernel on model candidates at C=20, M=64
    (t=0.3) and M=512 (t=0) for B=128, 8 and 1, on tied scores and on
-   pairs at IoU 0.5; the per-class kernel on per-class pools.
+   pairs at IoU 0.5; the per-class kernel on per-class pools; the
+   large-pool kernel on the exact evaluation's per-class pools (model
+   candidates, K=6300, B=128 and 1) and on tied scores with pairs at IoU
+   0.5.
 3. The serving slice through its entry points, with seeded weights
    (BatchNorm calibrated on seeded images, so scores are not all ties): ``Predictor.detect_arrays``
    on 1, 8 and 130 images, the HTTP ``DetectionServer`` on 4 JPEGs, and
@@ -23,12 +26,27 @@ Phases (any failure exits non-zero and prints no result):
    and 1 NMS launch per forward. The float32 Predictor on the card must
    agree with the same Predictor on the CPU (plain versions) on 2 images.
 4. Times: serving (t=0.3, M=64) and MAP grade (t=0, M=512) img/s at
-   batch 128 with CUDA events; each kernel's device time (L2 flushed,
-   the device kept behind the host) beside its plain version, a library
-   yardstick and its bound (bytes at 3.35 TB/s, operations at the peak
-   rate of their type); per MBConv block also the tile plan (tile,
-   warpgroups, pipeline stages, persistent grid, shared memory); NMS at
-   the serving and the MAP-grade shape, each with its launch plan.
+   batch 128 with CUDA events.
+5. The VOC mAP evaluation path: a seeded synthetic dataset in a
+   temporary directory (JPEGs of mixed sizes and aspect ratios, a text
+   list and a TFRecord shard of the same images), its ground truth the
+   port's own float32 detections on the CPU through the eval pipeline;
+   the float32 CPU run of ``evaluate_map`` is the reference. On the
+   card, with the launch counts set to 0 just before and read just
+   after: ``evaluate_map`` float32 shared pool (M=512), the CLI's
+   ``--mode=MAP --exact_nms`` float32 (per-class pools of the whole
+   grid, the large-pool NMS kernel) and ``evaluate_map`` bf16 shared.
+   16 MBConv launches and 1 NMS launch per batch; the float32 runs' APs
+   within EVAL_AP_TOL of the CPU's. Then the bf16 run again under the
+   profiler: the device's idle share of the eval loop; and the host's
+   two shares alone: the decode, and the evaluator's filing.
+6. Each kernel's device time (L2 flushed, the device kept behind the
+   host) beside its plain version, a library yardstick and its bound
+   (bytes at 3.35 TB/s, operations at the peak rate of their type); per
+   MBConv block also the tile plan (tile, warpgroups, pipeline stages,
+   persistent grid, shared memory); NMS at the serving and the MAP-grade
+   shape, each with its launch plan, and the large-pool variant at the
+   exact evaluation's shape.
 
 The line before the last is the kernel table as JSON; the last line is
 ``{"ok": true, "device": {...}}``. Details go to chiprun_out/chip_smoke.json.
@@ -37,12 +55,14 @@ The line before the last is the kernel table as JSON; the last line is
 from __future__ import annotations
 
 import argparse
+import contextlib
 import io
 import json
 import os
 import re
 import subprocess
 import sys
+import tempfile
 import threading
 import time
 import urllib.request
@@ -68,6 +88,16 @@ NMS_ARGMAX_OPS = 1
 # IoUs in every round, 16 operations per candidate per round
 NMS_OPS_PER_CLASS_PAIR = 16
 SLEEP_CYCLES = 1_000_000  # ~0.5 ms of GPU spin before each timed window
+# --exact_nms's per-class pool: every position of the grid at SIZE
+EXACT_K = sum((SIZE // s) ** 2 * 3 for s in (32, 16, 8))
+EVAL_IMAGES = 256  # distinct JPEGs; the text list and the TFRecord shard hold each once
+EVAL_GT_PER_IMAGE = 3
+# Largest per-class AP difference allowed between a float32 run on the
+# card and the float32 run on the CPU: the same detections up to float32
+# rounding (and, for --exact_nms, the low-scoring ones a per-class pool
+# adds), so only a few swaps in the ranking of near-tied scores, each
+# worth under 0.02 of a class's AP with ~77 ground-truth boxes a class.
+EVAL_AP_TOL = 0.02
 
 
 def log(*a):
@@ -92,6 +122,7 @@ def ptxas_lines(text):
             k = re.search(r"(mbconv_wgmma|mbconv_f32|nms_kernel|nms_shared)I((?:Li\d+E)+)E",
                           m.group(1))
             fn = f"{k.group(1)}<{','.join(re.findall(r'Li(\d+)E', k.group(2)))}>" if k else ""
+            fn = fn or ("nms_large" if "nms_large" in m.group(1) else "")
         elif re.search(r"Used \d+ registers|spill stores", line):
             out.append(f"{fn + ': ' if fn else ''}{line.split(':', 1)[-1].strip()}")
     return out
@@ -299,26 +330,32 @@ def check_mbconv(pred, report):
     return max(worst.values())
 
 
-def candidates_at_b128(pred, m, seed):
+def candidates_at_b128(pred, k, seed, per_class=False):
+    """The NMS inputs of BATCH seeded images through the kernel path: the
+    shared pool of ``k`` (boxes [B, k, 4]) or, with ``per_class``, per-class
+    pools of ``k`` (boxes [B, C, k, 4]); scores [B, C, k]."""
     import torch
 
     from yoloret_tpu_torch.nn.fused_infer import fused_detector_apply
-    from yoloret_tpu_torch.ops.postprocess import shared_pool_candidates
+    from yoloret_tpu_torch.ops.postprocess import per_class_candidates, shared_pool_candidates
 
     g = torch.Generator(device=DEVICE).manual_seed(seed)
     images = torch.randint(0, 256, (BATCH, SIZE, SIZE, 3), generator=g, device=DEVICE,
                            dtype=torch.uint8)
     hw = torch.full((BATCH, 2), float(SIZE), device=DEVICE)
+    pool = per_class_candidates if per_class else shared_pool_candidates
     with torch.inference_mode():
         outs = fused_detector_apply(pred.model, images.float() / 255.0, pred._fused)
-        return shared_pool_candidates(outs, pred._anchors_t, NUM_CLASSES, hw, num_candidates=m)
+        return pool(outs, pred._anchors_t, NUM_CLASSES, hw, num_candidates=k)
 
 
 def nms_cases(pred):
-    """(name, boxes, scores, score threshold) of every NMS check: model
-    candidates of the serving and the MAP-grade shape at B=128, 8 and 1;
-    tied scores; pairs at IoU 0.5, exactly and within rounding; per-class
-    pools."""
+    """(name, boxes, scores, score threshold, empty score) of every NMS
+    check: model candidates of the serving and the MAP-grade shape at
+    B=128, 8 and 1; tied scores; pairs at IoU 0.5, exactly and within
+    rounding; per-class pools; the exact evaluation's per-class pools of
+    the whole grid (large-pool kernel, empty slots -inf as on that path)
+    at B=128 and 1, and large pools of tied scores and pairs at IoU 0.5."""
     import numpy as np
     import torch
 
@@ -330,13 +367,13 @@ def nms_cases(pred):
         boxes, scores = candidates_at_b128(pred, m, seed=m)
         for b in (BATCH, 8, 1):
             cases.append((f"shared b{b} M={m} t={thr} (model candidates)",
-                          boxes[:b].contiguous(), scores[:b].contiguous(), thr))
+                          boxes[:b].contiguous(), scores[:b].contiguous(), thr, 0.0))
     rs = np.random.RandomState(5)
     k = 512
     yx = rs.randint(0, SIZE, (BATCH, k, 2))
     boxes = np.concatenate([yx, yx + rs.randint(8, 80, (BATCH, k, 2))], -1)
     cases.append((f"shared b{BATCH} M={k} t=0.25 (tied scores in eighths, integer boxes)",
-                  dev(boxes), dev(rs.randint(0, 9, (BATCH, NUM_CLASSES, k)) / 8), 0.25))
+                  dev(boxes), dev(rs.randint(0, 9, (BATCH, NUM_CLASSES, k)) / 8), 0.25, 0.0))
     p = np.arange(32)
     y0, x0 = 40.0 * (p // 8), 40.0 * (p % 8)
     side = np.where(p < 16, 1 + p % 5, 0.1 * (p + 1))  # exact 0.5, then 0.5 by rounding
@@ -345,11 +382,23 @@ def nms_cases(pred):
     pairs = np.stack([big, small], 1).reshape(64, 4).astype(np.float32)
     scores = rs.permutation(BATCH * NUM_CLASSES * 64).reshape(BATCH, NUM_CLASSES, 64)
     cases.append((f"shared b{BATCH} M=64 t=0 (32 pairs at IoU 0.5)",
-                  dev(np.repeat(pairs[None], BATCH, 0)), dev(scores / scores.size), 0.0))
+                  dev(np.repeat(pairs[None], BATCH, 0)), dev(scores / scores.size), 0.0, 0.0))
     b = rs.rand(BATCH, NUM_CLASSES, k, 4).astype(np.float32) * SIZE
     b[..., 2:] = b[..., :2] + rs.rand(BATCH, NUM_CLASSES, k, 2).astype(np.float32) * 80
     s = rs.permutation(BATCH * NUM_CLASSES * k).reshape(BATCH, NUM_CLASSES, k)
-    cases.append((f"per-class b{BATCH} K={k} t=0.3 (random)", dev(b), dev(s / s.size), 0.3))
+    cases.append((f"per-class b{BATCH} K={k} t=0.3 (random)", dev(b), dev(s / s.size), 0.3, 0.0))
+    boxes, scores = candidates_at_b128(pred, EXACT_K, seed=7, per_class=True)
+    for b in (BATCH, 1):
+        cases.append((f"per-class b{b} K={EXACT_K} t=0 (model candidates, the --exact_nms pools)",
+                      boxes[:b].contiguous(), scores[:b].contiguous(), 0.0, float("-inf")))
+    del boxes, scores
+    b, c = 8, NUM_CLASSES
+    yx = rs.randint(0, SIZE // 8, (b, c, EXACT_K, 2))
+    big = np.concatenate([yx, yx + rs.randint(1, 9, (b, c, EXACT_K, 2))], -1).astype(np.float32)
+    big[:, :, :len(pairs)] = pairs
+    cases.append((f"per-class b{b} K={EXACT_K} t=0.25 (tied scores in eighths, integer boxes, "
+                  "32 pairs at IoU 0.5)", dev(big), dev(rs.randint(0, 9, (b, c, EXACT_K)) / 8),
+                  0.25, float("-inf")))
     return cases
 
 
@@ -358,24 +407,30 @@ def check_nms(pred, report):
 
     from yoloret_tpu_torch.ops.nms_kernel import plan_nms, suppress, suppress_plain
 
-    rows, worst = [], 0.0
-    for name, boxes, scores, thr in nms_cases(pred):
+    rows, worst = [], {"small": 0.0, "large": 0.0}
+    for name, boxes, scores, thr, empty in nms_cases(pred):
         plan = plan_nms(scores.shape[1], scores.shape[2], 20, boxes.dim() == 3)
-        got = suppress(boxes, scores, max_det=20, iou_threshold=0.5, score_threshold=thr)
-        want = suppress_plain(boxes, scores, max_det=20, iou_threshold=0.5,
-                              score_threshold=thr)
+        kw = dict(max_det=20, iou_threshold=0.5, score_threshold=thr, empty_score=empty)
+        got = suppress(boxes, scores, **kw)
+        want = suppress_plain(boxes, scores, **kw)
         torch.cuda.synchronize()
-        err = max(max_err(got[0], want[0]), max_err(got[1], want[1]))
+        same = all(torch.equal(g, w) for g, w in zip(got, want))
+        err = 0.0 if same else max(max_err(torch.nan_to_num(g), torch.nan_to_num(w))
+                                   for g, w in zip(got, want))
         dets = int((got[1] > 0).sum())
-        rows.append(dict(case=name, plan=plan._asdict(), max_abs_err=err, detections=dets))
-        how = (f"shared-pool kernel ({plan.warps} warps, {plan.classes_per_pass} classes per "
-               f"pass, {plan.smem} B shared memory)" if plan.variant == "shared"
-               else "per-class kernel (a warp per image and class)")
+        rows.append(dict(case=name, plan=plan._asdict(), max_abs_err=err, exact=same,
+                         detections=dets))
+        how = {"shared": f"shared-pool kernel ({plan.warps} warps, {plan.classes_per_pass} "
+                         f"classes per pass, {plan.smem} B shared memory)",
+               "per_class": "per-class kernel (a warp per image and class)",
+               "per_class_large": f"large-pool kernel (a CTA of {plan.warps} warps per image "
+                                  f"and class, {plan.smem} B shared memory)"}[plan.variant]
         log(f"nms kernel vs plain, {name}: {how}: max abs err {err} (tolerance 0: exact), "
             f"{dets} detections")
-        if err != 0.0:
+        if not same:
             raise AssertionError(f"nms {name}: kernel differs from plain by {err}")
-        worst = max(worst, err)
+        key = "large" if plan.variant == "per_class_large" else "small"
+        worst[key] = max(worst[key], err)
     report["nms_check"] = rows
     return worst
 
@@ -524,12 +579,31 @@ def time_paths(pred, map_pred, report):
     return out
 
 
+def device_ms_by_group(prof, groups):
+    """Device ms of a ``torch.profiler`` run, summed per group of kernel
+    names (a kernel joins the first group whose name is in its own, else
+    "other"), and the other kernels' ms by name."""
+    from torch.autograd import DeviceType
+
+    out, others = dict.fromkeys(list(groups) + ["other"], 0.0), {}
+    for e in prof.key_averages():
+        us = getattr(e, "self_device_time_total", None)
+        if us is None:
+            us = getattr(e, "self_cuda_time_total", 0.0)
+        if not us or e.device_type != DeviceType.CUDA:  # CPU ops repeat their kernels' time
+            continue
+        key = next((k for k in groups if k in e.key), "other")
+        out[key] += us / 1e3
+        if key == "other":
+            others[e.key] = others.get(e.key, 0.0) + us / 1e3
+    return out, others
+
+
 def profile_serving(pred, report, batches=3):
     """Where a serving batch's device time goes: torch.profiler kernel
     times over ``batches`` b128 batches, grouped into the two hand kernels
     and the rest, and the device's busy share of the window."""
     import torch
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     g = torch.Generator(device=DEVICE).manual_seed(1)
@@ -544,19 +618,9 @@ def profile_serving(pred, report, batches=3):
             pred.infer(images, hw)
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    groups, others = {"mbconv": 0.0, "nms": 0.0, "other": 0.0}, {}
-    for e in prof.key_averages():
-        us = getattr(e, "self_device_time_total", None)
-        if us is None:
-            us = getattr(e, "self_cuda_time_total", 0.0)
-        if not us:
-            continue
-        if e.device_type != DeviceType.CUDA:  # CPU ops repeat their kernels' time
-            continue
-        key = next((k for k in groups if k in e.key), "other")
-        groups[key] += us / 1e3 / batches
-        if key == "other":
-            others[e.key] = others.get(e.key, 0.0) + us / 1e3 / batches
+    totals, other_totals = device_ms_by_group(prof, ("mbconv", "nms"))
+    groups = {k: v / batches for k, v in totals.items()}
+    others = {k: v / batches for k, v in other_totals.items()}
     busy = sum(groups.values())
     if busy == 0.0:
         log("profile: the profiler recorded no device time (not measured)")
@@ -572,7 +636,232 @@ def profile_serving(pred, report, batches=3):
         log(f"  other: {ms:.4f} ms  {name[:90]}")
 
 
-def time_kernels(pred, launches, errs, report):
+# -- phase 5: the mAP evaluation -------------------------------------------
+
+
+def write_eval_images(root, seed):
+    """EVAL_IMAGES seeded JPEGs, 120-640 px a side (aspect ratios up to
+    5.3 either way): smooth colour waves and noise. Returns [(path, (h,
+    w))]."""
+    import numpy as np
+    from PIL import Image
+
+    rs = np.random.RandomState(seed)
+    out = []
+    for i in range(EVAL_IMAGES):
+        h, w = (int(v) for v in rs.randint(120, 641, 2))
+        yy, xx = np.mgrid[0:h, 0:w]
+        waves = np.sin(xx[..., None] * rs.uniform(0.005, 0.06, 3)
+                       + yy[..., None] * rs.uniform(0.005, 0.06, 3) + rs.uniform(0, 6.3, 3))
+        img = np.clip(127 + 100 * waves + rs.randn(h, w, 3) * 12, 0, 255).astype(np.uint8)
+        path = os.path.join(root, f"img_{i:04d}.jpg")
+        Image.fromarray(img).save(path, quality=90)
+        out.append((path, (h, w)))
+    return out
+
+
+def eval_ground_truth(cpu_pred, images, root):
+    """Ground truth from the float32 CPU detections of each image through
+    the eval pipeline (shared pool, M=512, t=0): the EVAL_GT_PER_IMAGE
+    best of an image, [n, 5] (x1, y1, x2, y2, cls) in original pixels."""
+    import numpy as np
+    import torch
+
+    from yoloret_tpu_torch.data import Dataset
+
+    lst = os.path.join(root, "ground_truth_pass.lst")
+    with open(lst, "w") as f:
+        f.write("\n".join(p for p, _ in images) + "\n")
+    gts = []
+    for batch in Dataset(lst, BATCH, input_hw=(SIZE, SIZE), device="cpu").build(epochs=1):
+        res = cpu_pred.infer(batch["images"], batch["image_hw"], score_threshold=0.0,
+                             num_candidates=512)
+        for i in range(batch["n_valid"]):
+            m = res.valid[i]
+            top = torch.argsort(res.scores[i][m], descending=True, stable=True)
+            top = top[:EVAL_GT_PER_IMAGE]
+            ymin, xmin, ymax, xmax = res.boxes[i][m][top].T.numpy()
+            gts.append(np.stack([xmin, ymin, xmax, ymax,
+                                 res.classes[i][m][top].numpy().astype(np.float32)], -1))
+    return gts
+
+
+def write_eval_dataset(images, gts, root):
+    """A text list (pixel boxes) and a TFRecord shard (normalised boxes)
+    of the same images; returns the glob of both."""
+    from yoloret_tpu_torch.data.tfrecord import Example, TFRecordWriter
+
+    d = os.path.join(root, "eval")
+    os.makedirs(d)
+    with open(os.path.join(d, "test.txt"), "w") as f:
+        for (path, _), gt in zip(images, gts):
+            f.write(path + "".join(" {!r},{!r},{!r},{!r},{}".format(*map(float, g[:4]), int(g[4]))
+                                   for g in gt) + "\n")
+    with TFRecordWriter(os.path.join(d, "test.tfrecord")) as w:
+        for (path, (h, wd)), gt in zip(images, gts):
+            with open(path, "rb") as f:
+                raw = f.read()
+            w.write(Example({
+                "image/encoded": raw,
+                "image/object/bbox/xmin": [float(v) for v in gt[:, 0] / wd],
+                "image/object/bbox/ymin": [float(v) for v in gt[:, 1] / h],
+                "image/object/bbox/xmax": [float(v) for v in gt[:, 2] / wd],
+                "image/object/bbox/ymax": [float(v) for v in gt[:, 3] / h],
+                "image/object/bbox/label": [float(v) for v in gt[:, 4]],
+            }).serialize())
+    return os.path.join(d, "test.*")
+
+
+def run_printing(fn, *a, **kw):
+    """``fn``'s result and what it printed (the eval lines logged)."""
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        out = fn(*a, **kw)
+    text = buf.getvalue()
+    for line in text.splitlines():
+        if line.startswith(("eval:", "mAP:")):
+            log(f"    {line}")
+    return out, text
+
+
+def parse_eval_print(text, class_names):
+    """images, ms/image, images/s, per-class APs and mAP from what
+    ``evaluate_map`` printed."""
+    m = re.search(r"eval: (\d+) images, ([\d.]+) ms/image, ([\d.]+) images/s", text)
+    aps = dict(re.findall(r"^(\S+) ap: ([\d.]+)$", text, re.M))
+    return dict(images=int(m.group(1)), ms_per_image=float(m.group(2)),
+                img_per_s=float(m.group(3)),
+                aps=[float(aps[name]) for name in class_names],
+                map=float(re.search(r"^mAP: ([\d.]+)$", text, re.M).group(1)))
+
+
+def eval_phase(map_pred, state, seed, report):
+    """The mAP evaluation path through its entry points (phase 5); returns
+    the launch counts of its run on the card."""
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from yoloret_tpu_torch.cli.main import main as cli_main
+    from yoloret_tpu_torch.data import Dataset
+    from yoloret_tpu_torch.eval import MAPEvaluator, evaluate_map
+    from yoloret_tpu_torch.infer import Predictor
+    from yoloret_tpu_torch.ops.mbconv import fused_mbconv
+    from yoloret_tpu_torch.ops.nms_kernel import suppress
+
+    names = map_pred.class_names
+    kw = dict(class_names=names, anchors=map_pred.anchors, input_hw=map_pred.input_hw,
+              score_threshold=0.0, num_candidates=512, bf16=False)
+    out = {}
+    with tempfile.TemporaryDirectory(prefix="yoloret_eval_") as root:
+        t0 = time.perf_counter()
+        images = write_eval_images(root, seed)
+        cpu = Predictor(weights=state, device="cpu", **kw)
+        gts = eval_ground_truth(cpu, images, root)
+        pattern = write_eval_dataset(images, gts, root)
+        n_samples, n_gt = 2 * len(images), 2 * sum(len(g) for g in gts)
+        n_batches = -(-n_samples // BATCH)
+        out["setup_s"] = time.perf_counter() - t0
+        log(f"eval dataset: {len(images)} JPEGs in a text list and a TFRecord shard = "
+            f"{n_samples} samples, {n_gt} ground-truth boxes (the CPU's {EVAL_GT_PER_IMAGE} best "
+            f"detections of each image), written in {out['setup_s']:.1f} s")
+
+        def dataset(device):
+            return Dataset(pattern, BATCH, input_hw=(SIZE, SIZE), device=device)
+
+        log("eval on the CPU, float32, shared pool M=512 (the reference):")
+        (cpu_map, cpu_aps), text = run_printing(evaluate_map, cpu, dataset("cpu"), names)
+        runs = {"cpu_f32_shared": parse_eval_print(text, names)}
+        if not cpu_map > 0:
+            raise AssertionError(f"the CPU run's mAP is {cpu_map}: the ground truth matches nothing")
+
+        f32 = Predictor(weights=state, device=DEVICE, **kw)
+        weights = os.path.join(root, "weights.pt")
+        torch.save(state, weights)
+        with open(os.path.join(root, "classes.txt"), "w") as f:
+            f.write("\n".join(names) + "\n")
+        with open(os.path.join(root, "anchors.txt"), "w") as f:
+            f.write(", ".join(f"{v:g}" for v in map_pred.anchors.ravel()) + "\n")
+        cli = ["--mode=MAP", f"--model={weights}", f"--test_dataset={pattern}",
+               f"--classes_path={os.path.join(root, 'classes.txt')}",
+               f"--anchors_path={os.path.join(root, 'anchors.txt')}", f"--input_size={SIZE}",
+               f"--batch_size={BATCH}", "--no-bf16", "--exact_nms", f"--device={DEVICE}"]
+
+        fused_mbconv.launches = suppress.launches = 0
+        suppress.variant_launches.clear()
+        log("eval on the card, float32, shared pool M=512 (evaluate_map):")
+        _, text = run_printing(evaluate_map, f32, dataset(DEVICE), names)
+        runs["card_f32_shared"] = parse_eval_print(text, names)
+        log(f"eval on the card, float32, per-class pools K={EXACT_K} (the CLI: "
+            f"{' '.join(a for a in cli if not a.startswith(('--model', '--test', '--cl', '--an')))}):")
+        rc, text = run_printing(cli_main, cli)
+        if rc != 0:
+            raise AssertionError(f"the CLI's MAP mode returned {rc}")
+        runs["card_f32_exact_cli"] = parse_eval_print(text, names)
+        log("eval on the card, bf16, shared pool M=512 (evaluate_map):")
+        _, text = run_printing(evaluate_map, map_pred, dataset(DEVICE), names)
+        runs["card_bf16_shared"] = parse_eval_print(text, names)
+        launches = {"mbconv": fused_mbconv.launches, "nms": suppress.launches,
+                    **{f"nms_{k}": v for k, v in suppress.variant_launches.items()}}
+        log(f"eval path: 3 runs of {n_batches} batches, launches {launches}")
+        assert launches["mbconv"] == 16 * 3 * n_batches, launches
+        assert launches["nms"] == 3 * n_batches, launches
+        assert launches.get("nms_per_class_large") == n_batches, launches
+        assert launches.get("nms_shared") == 2 * n_batches, launches
+        for name in runs:
+            assert runs[name]["images"] == n_samples, (name, runs[name]["images"])
+
+        diffs = {}
+        for name in ("card_f32_shared", "card_f32_exact_cli"):
+            diffs[name] = max(abs(a - cpu_aps[c]) for c, a in enumerate(runs[name]["aps"]))
+            log(f"  {name}: mAP {runs[name]['map']:.6f} (CPU {cpu_map:.6f}), largest per-class "
+                f"AP difference from the CPU {diffs[name]:.6f} (tolerance {EVAL_AP_TOL})")
+        log(f"  card_bf16_shared: mAP {runs['card_bf16_shared']['map']:.6f} (printed, not held)")
+        bad = {k: v for k, v in diffs.items() if v > EVAL_AP_TOL}
+        if bad:
+            raise AssertionError(f"per-class APs off the CPU's by more than {EVAL_AP_TOL}: {bad}")
+
+        # the device's idle share of the bf16 eval loop, by the profiler
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            _, text = run_printing(evaluate_map, map_pred, dataset(DEVICE), names)
+        loop = parse_eval_print(text, names)
+        loop_ms = loop["ms_per_image"] * loop["images"]
+        groups, _ = device_ms_by_group(prof, ("mbconv", "nms", "Memcpy"))
+        busy = sum(groups.values())
+        idle = None if busy == 0.0 else 1.0 - busy / loop_ms
+        log(f"  profile, bf16 eval loop: {loop_ms:.1f} ms wall ({loop['img_per_s']:.2f} images/s "
+            f"under the profiler), device busy {busy:.1f} ms "
+            f"({ {k: round(v, 2) for k, v in groups.items()} }): device idle "
+            + ("not measured (no device time recorded)" if idle is None else f"{idle:.1%}"))
+        # the host's two shares of the loop, each alone: the thread pool's
+        # decode of the same samples, and the evaluator filing one image's
+        # detections (the whole slate of C x 20 at t=0) per sample
+        ds = dataset("cpu")
+        t0 = time.perf_counter()
+        decoded = sum(h["n_valid"] for h in ds._host_batches(1))
+        decode_s = time.perf_counter() - t0
+        rs = np.random.RandomState(seed)
+        n_det = len(names) * 20
+        dets = (rs.rand(n_det, 4) * SIZE, rs.rand(n_det), rs.randint(0, len(names), n_det))
+        ev = MAPEvaluator(len(names))
+        t0 = time.perf_counter()
+        for g in gts + gts:
+            ev.add_image(*dets, g)
+        filing_s = time.perf_counter() - t0
+        log(f"  host alone: decode {decoded} samples ({ds.num_workers} threads, PIL) "
+            f"{decode_s * 1e3:.1f} ms = {decoded / decode_s:.1f} images/s; filing {n_det} "
+            f"detections an image for {2 * len(gts)} images {filing_s * 1e3:.1f} ms")
+        out.update(runs=runs, cpu_aps=[cpu_aps[c] for c in range(len(names))],
+                   ap_diff=diffs, launches=launches, batches_per_run=n_batches,
+                   samples=n_samples, gt_boxes=n_gt, host_decode_s=decode_s,
+                   host_filing_s=filing_s, profile=dict(
+                       loop_ms=loop_ms, img_per_s=loop["img_per_s"], device_ms=groups,
+                       idle_share=idle))
+    report["eval"] = out
+    return out
+
+
+def time_kernels(pred, launches, eval_launches, errs, report):
     import torch
 
     from yoloret_tpu_torch.ops.mbconv import fused_mbconv, plan_tile, reference_mbconv
@@ -628,7 +917,8 @@ def time_kernels(pred, launches, errs, report):
         also_replaces=["yoloret_tpu/ops/mbconv_pallas.py:109",
                        "yoloret_tpu/ops/mbconv_pallas2.py:86"],
         shapes=f"the 16 blocks of one forward at b{BATCH}@{SIZE} bf16 (times summed)",
-        launches=launches["mbconv"], max_abs_err=errs["mbconv"], ms=tot["ms"],
+        launches=launches["mbconv"], eval_launches=eval_launches["mbconv"],
+        max_abs_err=errs["mbconv"], ms=tot["ms"],
         plain_ms=tot["plain_ms"], bound_ms=tot["bound_ms"],
         bound_by=max(("bytes", "operations"),
                      key=lambda by: sum(r["bound_ms"] for r in rows if r["bound_by"] == by)),
@@ -650,7 +940,21 @@ def time_kernels(pred, launches, errs, report):
             f"{plan.warps} warps, {plan.smem} B shared memory): kernel {ms:.4f} ms, plain "
             f"{plain:.4f}, bound {bound:.5f} ({by}; {work['distinct_picks']} distinct picks, "
             f"{work['rounds']} rounds; per-class count {work['bound_ms_per_class_count']:.5f})")
-    report["nms_timing"] = nms_rows
+    # the large-pool variant at the --exact_nms eval's shape
+    boxes, scores = candidates_at_b128(pred, EXACT_K, seed=100 + EXACT_K, per_class=True)
+    kw = dict(max_det=20, iou_threshold=0.5, score_threshold=0.0)
+    plan = plan_nms(NUM_CLASSES, EXACT_K, 20, shared=False)
+    ms = cuda_time_ms(lambda: suppress(boxes, scores, **kw), 10, 2, flush)
+    plain = cuda_time_ms(lambda: suppress_plain(boxes, scores, **kw), 3, 1, flush)
+    out_b, out_s = suppress(boxes, scores, **kw)
+    bound, by, work = nms_bound_ms(boxes, scores, out_b, out_s, 20)
+    large = dict(k=EXACT_K, score_threshold=0.0, plan=plan._asdict(), ms=ms, plain_ms=plain,
+                 bound_ms=bound, bound_by=by, detections=int((out_s > 0).sum()), **work)
+    log(f"  nms per-class b{BATCH} C={NUM_CLASSES} K={EXACT_K} t=0 ({plan.variant} kernel, "
+        f"{plan.warps} warps, {plan.smem} B shared memory): kernel {ms:.4f} ms, plain "
+        f"{plain:.4f}, bound {bound:.5f} ({by}; {work['rounds']} rounds, {work['bytes']} bytes)")
+    del boxes, scores
+    report["nms_timing"] = nms_rows + [large]
     serving, mapg = nms_rows
     kernels.append(dict(
         name="nms", route="cuda", source="yoloret_tpu_torch/csrc/nms.cu",
@@ -658,11 +962,20 @@ def time_kernels(pred, launches, errs, report):
         also_replaces=["yoloret_tpu/ops/postprocess.py:361"],
         shapes=f"shared pool b{BATCH} C={NUM_CLASSES} M=64 t=0.3 (serving); map_grade_*: "
                f"M=512 t=0",
-        launches=launches["nms"], max_abs_err=errs["nms"], ms=serving["ms"],
+        launches=launches["nms"], eval_launches=eval_launches.get("nms_shared", 0),
+        max_abs_err=errs["nms"], ms=serving["ms"],
         plain_ms=serving["plain_ms"], bound_ms=serving["bound_ms"],
         bound_by=serving["bound_by"], library_ms=None, map_grade_ms=mapg["ms"],
         map_grade_plain_ms=mapg["plain_ms"], map_grade_bound_ms=mapg["bound_ms"],
         map_grade_bound_by=mapg["bound_by"]))
+    kernels.append(dict(
+        name="nms_per_class_large", route="cuda", source="yoloret_tpu_torch/csrc/nms.cu",
+        replaces="yoloret_tpu/ops/nms_pallas.py:36",
+        shapes=f"per-class pools b{BATCH} C={NUM_CLASSES} K={EXACT_K} t=0 max_det 20 (the "
+               f"--exact_nms eval's); launches: the eval path's run",
+        launches=eval_launches.get("nms_per_class_large", 0), max_abs_err=errs["nms_large"],
+        ms=large["ms"], plain_ms=large["plain_ms"], bound_ms=large["bound_ms"],
+        bound_by=large["bound_by"], library_ms=None))
     return kernels
 
 
@@ -709,12 +1022,15 @@ def main(argv=None) -> int:
     map_pred = make_predictor(args.seed, weights=state, score_threshold=0.0, num_candidates=512)
 
     with torch.no_grad():
-        errs = {"mbconv": check_mbconv(pred, report), "nms": check_nms(pred, report)}
+        errs = {"mbconv": check_mbconv(pred, report)}
+        nms_err = check_nms(pred, report)
+        errs.update(nms=nms_err["small"], nms_large=nms_err["large"])
     launches = drive_main_path(pred, map_pred, args.seed, report)
     check_against_cpu(pred, args.seed, report)
     e2e = time_paths(pred, map_pred, report)
     profile_serving(pred, report)
-    kernels = time_kernels(pred, launches, errs, report)
+    ev = eval_phase(map_pred, state, args.seed, report)
+    kernels = time_kernels(pred, launches, ev["launches"], errs, report)
 
     report["kernels"] = kernels
     report["seconds"] = time.perf_counter() - t_start
@@ -724,6 +1040,9 @@ def main(argv=None) -> int:
         json.dump(report, f, indent=1)
     log(json.dumps({"end_to_end_img_per_s": {k: v["img_per_s"] for k, v in e2e.items()
                                              if isinstance(v, dict)},
+                    "eval_img_per_s": {k: v["img_per_s"] for k, v in ev["runs"].items()},
+                    "eval_device_idle_share": ev["profile"]["idle_share"],
+                    "eval_map": {k: v["map"] for k, v in ev["runs"].items()},
                     "card": smi}))
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -9,7 +9,8 @@ Float32 with TF32 off (tolerance 1e-4: summation order over at most
 order is the only difference); NMS must agree exactly (the kernels are built without FMA
 contraction and copy the picked values; the shared-pool kernel divides wherever its
 margin test cannot settle IoU > threshold). The NMS edge cases here are also held
-against the JAX package on the CPU by tests/test_torch_nms.py.
+against the JAX package on the CPU by tests/test_torch_nms.py; so is the large-pool
+variant's plain version, on ``large_pool_case``.
 """
 
 import numpy as np
@@ -151,6 +152,25 @@ def nms_case(name):
     return np.ascontiguousarray(boxes), np.ascontiguousarray(scores), thr
 
 
+def large_pool_case(k, b=2, c=3, shared=False, seed=0):
+    """(boxes [B, C, K, 4] or [B, K, 4], scores [B, C, K]) for the
+    large-pool kernel: integer boxes on a 40 x 40 grid (many overlaps and
+    identical boxes), the pairs of ``AT_THRESHOLD`` (IoU 0.5, exactly and
+    by rounding) at the front of every pool, scores in eighths (ties, and
+    -0 beside +0), the last pool all negative (nothing to pick at a
+    threshold of 0). float32 numpy, made from ``seed``."""
+    rs = np.random.RandomState(seed + k)
+    shape = (b, k) if shared else (b, c, k)
+    yx = rs.randint(0, 40, shape + (2,)).astype(np.float32)
+    boxes = np.concatenate([yx, yx + rs.randint(1, 9, shape + (2,))], -1).astype(np.float32)
+    pairs = np.array([q for pair in AT_THRESHOLD for q in pair], np.float32)
+    boxes[..., :len(pairs), :] = pairs
+    scores = (rs.randint(0, 9, (b, c, k)) / 8).astype(np.float32)
+    scores[(scores == 0) & (rs.rand(b, c, k) < 0.5)] = -0.0
+    scores[-1, -1] = -0.125 - scores[-1, -1]
+    return np.ascontiguousarray(boxes), scores
+
+
 def _nms_exact(bt, st, **kw):
     before = suppress.launches
     got = suppress(bt, st, **kw)
@@ -227,3 +247,34 @@ def test_nms_kernel_matches_plain(cuda, k, shared):
     want = suppress_plain(bt, st, max_det=20, iou_threshold=0.5, score_threshold=0.3)
     for g, w in zip(got, want):
         torch.testing.assert_close(g, w, atol=0, rtol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [513, 6300, 10647])
+def test_nms_large_kernel_matches_plain(cuda, k):
+    """Pools above 512 (the exact-NMS evaluation's whole grid at 320 and
+    416): tied scores, pairs at IoU 0.5, per-class and shared pools, both
+    empty scores; exact."""
+    for shared in (False, True):
+        boxes, scores = large_pool_case(k, shared=shared)
+        bt, st = torch.from_numpy(boxes).to(cuda), torch.from_numpy(scores).to(cuda)
+        assert plan_nms(st.shape[1], k, NMS_MAX_DET, shared).variant == "per_class_large"
+        before = suppress.variant_launches["per_class_large"]
+        for thr, empty in ((0.0, 0.0), (0.25, float("-inf")), (2.0, 0.0)):
+            got = _nms_exact(bt, st, max_det=NMS_MAX_DET, iou_threshold=0.5,
+                             score_threshold=thr, empty_score=empty)
+            assert (got[1] > 0).any() == (thr < 1)
+        assert suppress.variant_launches["per_class_large"] == before + 3
+
+
+@pytest.mark.cuda
+def test_nms_large_kernel_distinct_scores(cuda):
+    """Seeded random boxes and distinct scores at b4 C=20 K=6300, max_det
+    100 (every round picks)."""
+    rs = np.random.RandomState(1)
+    b, c, k = 4, 20, 6300
+    boxes = rs.rand(b, c, k, 4).astype(np.float32) * 320
+    boxes[..., 2:] = boxes[..., :2] + rs.rand(b, c, k, 2).astype(np.float32) * 60
+    scores = (rs.permutation(b * c * k).reshape(b, c, k) / (b * c * k)).astype(np.float32)
+    bt, st = torch.from_numpy(boxes).to(cuda), torch.from_numpy(scores).to(cuda)
+    _nms_exact(bt, st, max_det=100, iou_threshold=0.45, score_threshold=0.0)

@@ -17,12 +17,13 @@ import numpy as np
 import pytest
 import torch
 
-from test_torch_cuda import AT_THRESHOLD, NMS_CASES, NMS_MAX_DET, nms_case
+from test_torch_cuda import AT_THRESHOLD, NMS_CASES, NMS_MAX_DET, large_pool_case, nms_case
 from yoloret_tpu.ops.nms_pallas import nms_fused
-from yoloret_tpu.ops.postprocess import _suppress_lax_shared
+from yoloret_tpu.ops.postprocess import _suppress_lax, _suppress_lax_shared
 from yoloret_tpu_torch.ops.boxes import iou
 from yoloret_tpu_torch.ops.nms_kernel import (
-    MAX_CANDIDATES, SMEM_LIMIT, plan_nms, shared_smem_bytes, suppress, suppress_plain)
+    MAX_CANDIDATES, SMEM_LIMIT, large_smem_bytes, plan_nms, shared_smem_bytes, suppress,
+    suppress_plain)
 
 torch.set_num_threads(1)
 IOU_THR = 0.5
@@ -261,10 +262,46 @@ def test_plan_fits_every_shape(k):
 
 
 def test_plan_limits():
-    with pytest.raises(ValueError):
-        plan_nms(20, MAX_CANDIDATES + 1, 20, shared=True)
+    for shared in (True, False):
+        assert plan_nms(20, MAX_CANDIDATES + 1, 20, shared).variant == "per_class_large"
+        with pytest.raises(ValueError):  # keys beyond shared memory
+            plan_nms(20, (SMEM_LIMIT - 8 * 32) // 4, 20, shared)
     with pytest.raises(ValueError):
         plan_nms(20, 0, 20, shared=True)
     # pick buffers beyond shared memory even at one class per pass
     assert plan_nms(20, 512, 60000, shared=True).variant == "per_class"
     assert plan_nms(200, 512, 20, shared=True).classes_per_pass == 91
+
+
+@pytest.mark.parametrize("k", [513, 1000, 6300, 10647, 30000, 58000])
+def test_plan_large_pools(k):
+    """Pools above 512, shared or per-class, take the large-pool kernel:
+    one warp per 256 candidates (8 to 32), the keys in shared memory."""
+    for shared in (True, False):
+        for max_det in (1, 20, 1000):
+            p = plan_nms(20, k, max_det, shared)
+            assert p.variant == "per_class_large" and p.classes_per_pass == 20
+            assert p.warps == min(32, max(8, -(-k // 256))) and 32 * p.warps * p.npl >= k
+            assert p.smem == large_smem_bytes(k) <= SMEM_LIMIT and p.smem >= 4 * k
+    assert plan_nms(20, 512, 20, shared=False).variant == "per_class"
+
+
+@pytest.mark.parametrize("k", [513, 6300])
+@pytest.mark.parametrize("shared", [False, True])
+def test_large_pool_plain_matches_jax(k, shared):
+    """The plain version on large pools (tied scores, -0, pairs at IoU
+    0.5; ``tests/test_torch_cuda.py`` holds the large-pool kernel to it)
+    against ``_suppress_lax`` / ``_suppress_lax_shared``, exactly, and
+    with an empty score of -inf only the empty slots differ."""
+    boxes, scores = large_pool_case(k, shared=shared)
+    kw = dict(max_det=NMS_MAX_DET, iou_threshold=IOU_THR, score_threshold=0.25)
+    ref = _suppress_lax_shared if shared else _suppress_lax
+    jb, js = ref(jnp.asarray(boxes), jnp.asarray(scores), **kw)
+    pb, ps = suppress(torch.from_numpy(boxes), torch.from_numpy(scores), **kw)
+    np.testing.assert_array_equal(ps.numpy(), np.asarray(js))
+    np.testing.assert_array_equal(pb.numpy(), np.asarray(jb))
+    assert (ps > 0).any() and (ps == 0).any()
+    _, ps_inf = suppress(torch.from_numpy(boxes), torch.from_numpy(scores),
+                         empty_score=float("-inf"), **kw)
+    empty = ps_inf == float("-inf")
+    assert empty.any() and torch.equal(ps_inf[~empty], ps[~empty]) and not ps[empty].any()

@@ -1,4 +1,4 @@
-// Greedy class-aware NMS for Hopper, in two variants.
+// Greedy class-aware NMS for Hopper, in three variants.
 //
 // Replaces the TPU kernel yoloret_tpu/ops/nms_pallas.py::_nms_kernel
 // (nms_fused) and, on the serving path, the XLA loop
@@ -9,8 +9,9 @@
 // (ties to the lowest candidate index), emit it with its box, deactivate
 // the pick and every candidate whose IoU with it is strictly above the
 // threshold. Scores below the score threshold start inactive; empty
-// slots are written as zeros. Built with -fmad=false, so every IoU rounds
-// exactly as the plain PyTorch version's does.
+// slots get a zero box and the caller's empty score (0, or -inf where
+// the caller tells picks from empty slots by it). Built with -fmad=false,
+// so every IoU rounds exactly as the plain PyTorch version's does.
 //
 // nms_shared: the shared pool (boxes [B, M, 4], class stride 0), which is
 // the serving path. One CTA per image.
@@ -58,7 +59,26 @@
 //   argmax over (score, -index), a shuffle broadcast of the pick's box and
 //   one IoU per candidate -- no shared memory, no barrier, no memory
 //   traffic inside the loop. A warp stops at the first round with nothing
-//   left to pick.
+//   left to pick. Up to 512 candidates (16 a lane).
+//
+// nms_large: pools of any size above that (per-class pools, K up to
+// ~58k; a shared pool is the same with class stride 0). The exact-NMS
+// evaluation runs it with the whole grid as each class's pool (6,300
+// candidates at 320x320, 10,647 at 416x416). One CTA per (image, class),
+// 8-32 warps.
+//   What bounds it: the rounds' operations (one IoU per active candidate
+//   per round) and, at the bound, the bytes of scores and boxes read once.
+//   Design: the class's K scores sit in shared memory as order-preserving
+//   integer keys (4 B each, 0 = inactive); candidate k belongs to thread
+//   k mod T in every phase, so a thread reads and writes only its own
+//   keys. Boxes stay in device memory (in L2 after the first round) and
+//   are read only for candidates still active. A round is a strided scan
+//   for the thread's top key (ascending index, strict >: ties to the
+//   lowest index), a warp reduction (__reduce_max_sync on the key, then
+//   __reduce_min_sync on the index among the lanes holding it), one pass
+//   of warp 0 over the warp winners, and one IoU per active candidate
+//   against the pick: two barriers a round. The CTA stops at the first
+//   round with nothing left to pick.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -68,7 +88,9 @@ namespace {
 
 constexpr int WARPS = 4;  // warps per block of the per-class kernel
 constexpr int MAX_NPL = 16;
-constexpr int MAX_SHARED_WARPS = 32;
+constexpr int MAX_SHARED_WARPS = 32;  // also the most warps of nms_large
+// The variants, in the numbering of ops/nms_kernel.py::VARIANTS.
+constexpr int VARIANT_PER_CLASS = 0, VARIANT_SHARED = 1, VARIANT_LARGE = 2;
 constexpr int SMEM_LIMIT = 232448;  // bytes of shared memory one block may use (sm_90)
 constexpr unsigned FULL = 0xffffffffu;
 // An image with an area in (0, MIN_AREA) has its every pair divided: with
@@ -81,7 +103,7 @@ __global__ void __launch_bounds__(WARPS * 32)
     nms_kernel(const float* __restrict__ scores, const float* __restrict__ boxes,
                float* __restrict__ out_boxes, float* __restrict__ out_scores, int B, int C,
                int K, int D, long long box_bstride, long long box_cstride, float iou_thr,
-               float score_thr) {
+               float score_thr, float empty_score) {
   const int warp = blockIdx.x * WARPS + (threadIdx.x >> 5);
   const int lane = threadIdx.x & 31;
   if (warp >= B * C) return;
@@ -162,7 +184,7 @@ __global__ void __launch_bounds__(WARPS * 32)
     }
   }
   for (int t = r + lane; t < D; t += 32) {
-    os[t] = 0.f;
+    os[t] = empty_score;
     ob[4 * t + 0] = ob[4 * t + 1] = ob[4 * t + 2] = ob[4 * t + 3] = 0.f;
   }
 }
@@ -243,7 +265,7 @@ __global__ void __launch_bounds__(MAX_SHARED_WARPS * 32)
     nms_shared(const float* __restrict__ scores, const float* __restrict__ boxes,
                float* __restrict__ out_boxes, float* __restrict__ out_scores, int C, int M,
                int D, long long box_bstride, int cs, float iou_thr, float thr_lo, float thr_hi,
-               float score_thr) {
+               float score_thr, float empty_score) {
   constexpr int MP = 32 * NPL;  // candidates padded to the lanes' slots
   extern __shared__ __align__(16) unsigned char smem[];
   float4* sbox = reinterpret_cast<float4*>(smem);                  // [MP]
@@ -378,7 +400,7 @@ __global__ void __launch_bounds__(MAX_SHARED_WARPS * 32)
       }
       __syncwarp();
       const size_t out = (size_t(b) * C + c0 + cl) * D;
-      for (int t = lane; t < D; t += 32) out_scores[out + t] = t < r ? sc[pk[t]] : 0.f;
+      for (int t = lane; t < D; t += 32) out_scores[out + t] = t < r ? sc[pk[t]] : empty_score;
       const float* sb = reinterpret_cast<const float*>(sbox);
       for (int t = lane; t < 4 * D; t += 32)
         out_boxes[out * 4 + t] = (t >> 2) < r ? sb[pk[t >> 2] * 4 + (t & 3)] : 0.f;
@@ -387,17 +409,104 @@ __global__ void __launch_bounds__(MAX_SHARED_WARPS * 32)
   }
 }
 
+// ---- large per-class pools ---------------------------------------------
+
+// Bytes of dynamic shared memory nms_large lays out: the keys [K] (16-byte
+// rounded), the warp winners' keys and indices [MAX_SHARED_WARPS] each,
+// and the pick (ops/nms_kernel.py::large_smem_bytes computes the same).
+long long large_smem_bytes(int K) { return 16 * ((K + 3LL) / 4) + 8 * MAX_SHARED_WARPS + 16; }
+
+__global__ void __launch_bounds__(MAX_SHARED_WARPS * 32)
+    nms_large(const float* __restrict__ scores, const float* __restrict__ boxes,
+              float* __restrict__ out_boxes, float* __restrict__ out_scores, int C, int K, int D,
+              long long box_bstride, long long box_cstride, float iou_thr, float score_thr,
+              float empty_score) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  uint32_t* skey = reinterpret_cast<uint32_t*>(smem);                   // [K]
+  uint32_t* wkey = skey + ((K + 3) & ~3);                               // [MAX_SHARED_WARPS]
+  unsigned* widx = wkey + MAX_SHARED_WARPS;                             // [MAX_SHARED_WARPS]
+  unsigned* pick = widx + MAX_SHARED_WARPS;                             // key, index
+
+  const int bc = blockIdx.x;
+  const int b = bc / C, c = bc - b * C;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int nthreads = blockDim.x, nwarps = nthreads >> 5;
+  const float* sc = scores + size_t(bc) * K;
+  const float* bx = boxes + b * box_bstride + c * box_cstride;
+
+  for (int k = tid; k < K; k += nthreads) {
+    const float v = sc[k];
+    skey[k] = (v >= score_thr && v > -INFINITY) ? order_key(v) : 0u;
+  }  // no barrier: a thread reads back only the keys it wrote
+
+  float* ob = out_boxes + size_t(bc) * D * 4;
+  float* os = out_scores + size_t(bc) * D;
+  int r = 0;
+  for (; r < D; ++r) {
+    uint32_t best = 0u;
+    unsigned bi = 0xffffffffu;
+    for (int k = tid; k < K; k += nthreads) {  // ascending index: strict > keeps the lowest
+      const uint32_t key = skey[k];
+      if (key > best) {
+        best = key;
+        bi = unsigned(k);
+      }
+    }
+    const uint32_t wtop = __reduce_max_sync(FULL, best);
+    const unsigned wi = __reduce_min_sync(FULL, best == wtop ? bi : 0xffffffffu);
+    if (lane == 0) {
+      wkey[warp] = wtop;
+      widx[warp] = wi;
+    }
+    __syncthreads();
+    if (warp == 0) {
+      const uint32_t k2 = lane < nwarps ? wkey[lane] : 0u;
+      const unsigned i2 = lane < nwarps ? widx[lane] : 0xffffffffu;
+      const uint32_t top = __reduce_max_sync(FULL, k2);
+      const unsigned ti = __reduce_min_sync(FULL, k2 == top ? i2 : 0xffffffffu);
+      if (lane == 0) {
+        pick[0] = top;
+        pick[1] = ti;
+      }
+    }
+    __syncthreads();
+    if (pick[0] == 0u) break;  // nothing active is left (the same value in every thread)
+    const int p = int(pick[1]);
+    const float4 pb = make_float4(bx[4 * p + 0], bx[4 * p + 1], bx[4 * p + 2], bx[4 * p + 3]);
+    if (tid == 0) {
+      os[r] = sc[p];
+      ob[4 * r + 0] = pb.x;
+      ob[4 * r + 1] = pb.y;
+      ob[4 * r + 2] = pb.z;
+      ob[4 * r + 3] = pb.w;
+    }
+    const float pa = fmaxf(0.f, pb.w - pb.y) * fmaxf(0.f, pb.z - pb.x);
+    for (int k = tid; k < K; k += nthreads) {
+      if (skey[k] == 0u) continue;
+      const float4 q = make_float4(bx[4 * k + 0], bx[4 * k + 1], bx[4 * k + 2], bx[4 * k + 3]);
+      const float qa = fmaxf(0.f, q.w - q.y) * fmaxf(0.f, q.z - q.x);
+      float inter, uni;
+      pair_terms(pb, pa, q, qa, inter, uni);
+      if (k == p || (uni != 0.f ? inter / uni : 0.f) > iou_thr) skey[k] = 0u;
+    }
+  }
+  for (int t = r + tid; t < D; t += nthreads) {
+    os[t] = empty_score;
+    ob[4 * t + 0] = ob[4 * t + 1] = ob[4 * t + 2] = ob[4 * t + 3] = 0.f;
+  }
+}
+
 template <int NPL>
 cudaError_t launch(const void* scores, const void* boxes, void* out_boxes, void* out_scores,
                    int B, int C, int K, int D, long long bstride, long long cstride,
-                   float iou_thr, float score_thr, int warps, int cs, int smem,
-                   cudaStream_t stream) {
-  if (warps == 0) {
+                   float iou_thr, float score_thr, float empty_score, int variant, int warps,
+                   int cs, int smem, cudaStream_t stream) {
+  if (variant == VARIANT_PER_CLASS) {
     const int blocks = (B * C + WARPS - 1) / WARPS;
     nms_kernel<NPL><<<blocks, WARPS * 32, 0, stream>>>(
         static_cast<const float*>(scores), static_cast<const float*>(boxes),
         static_cast<float*>(out_boxes), static_cast<float*>(out_scores), B, C, K, D, bstride,
-        cstride, iou_thr, score_thr);
+        cstride, iou_thr, score_thr, empty_score);
     return cudaGetLastError();
   }
   static int smem_allowed = 48 * 1024;
@@ -416,7 +525,25 @@ cudaError_t launch(const void* scores, const void* boxes, void* out_boxes, void*
   nms_shared<NPL><<<B, warps * 32, smem, stream>>>(
       static_cast<const float*>(scores), static_cast<const float*>(boxes),
       static_cast<float*>(out_boxes), static_cast<float*>(out_scores), C, K, D, bstride, cs,
-      iou_thr, lo, hi, score_thr);
+      iou_thr, lo, hi, score_thr, empty_score);
+  return cudaGetLastError();
+}
+
+cudaError_t launch_large(const void* scores, const void* boxes, void* out_boxes,
+                         void* out_scores, int B, int C, int K, int D, long long bstride,
+                         long long cstride, float iou_thr, float score_thr, float empty_score,
+                         int warps, int smem, cudaStream_t stream) {
+  static int smem_allowed = 48 * 1024;
+  if (smem > smem_allowed) {
+    const cudaError_t e =
+        cudaFuncSetAttribute(nms_large, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_LIMIT);
+    if (e != cudaSuccess) return e;
+    smem_allowed = SMEM_LIMIT;
+  }
+  nms_large<<<B * C, warps * 32, smem, stream>>>(
+      static_cast<const float*>(scores), static_cast<const float*>(boxes),
+      static_cast<float*>(out_boxes), static_cast<float*>(out_scores), C, K, D, bstride, cstride,
+      iou_thr, score_thr, empty_score);
   return cudaGetLastError();
 }
 
@@ -434,44 +561,58 @@ extern "C" {
 
 // scores [B, C, K] float32; boxes float32 (ymin, xmin, ymax, xmax) at
 // boxes + b * box_bstride + c * box_cstride + 4 * k (in floats);
-// out_boxes [B, C, D, 4], out_scores [B, C, D] float32. warps == 0 runs
-// the per-class kernel; warps > 0 (box_cstride must be 0) the shared-pool
-// kernel with that many warps per CTA, scores in passes of cs classes and
-// smem bytes of dynamic shared memory -- the plan of ops/nms_kernel.py::
-// plan_nms, refused if this file would lay it out differently.
-// Returns the CUDA error of the launch (0 on success).
+// out_boxes [B, C, D, 4], out_scores [B, C, D] float32; empty slots get a
+// zero box and empty_score. variant 0 runs the per-class kernel (K <= 512,
+// warps == 4, smem == 0); 1 the shared-pool kernel (K <= 512, box_cstride
+// 0) with that many warps per CTA, scores in passes of cs classes and smem
+// bytes of dynamic shared memory; 2 the large-pool kernel (any K whose
+// keys fit in shared memory) with that many warps per CTA. The plan is
+// ops/nms_kernel.py::plan_nms's, refused if this file would lay it out
+// differently. Returns the CUDA error of the launch (0 on success).
 int yrt_nms(const void* scores, const void* boxes, void* out_boxes, void* out_scores, int B,
             int C, int K, int D, long long box_bstride, long long box_cstride, float iou_thr,
-            float score_thr, int warps, int cs, int smem, void* stream) {
-  if (K < 1 || K > MAX_NPL * 32 || D < 0 || B < 0 || C < 0) return int(cudaErrorInvalidValue);
+            float score_thr, float empty_score, int variant, int warps, int cs, int smem,
+            void* stream) {
+  if (K < 1 || D < 0 || B < 0 || C < 0) return int(cudaErrorInvalidValue);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (variant == VARIANT_LARGE) {
+    if (warps < 1 || warps > MAX_SHARED_WARPS || smem > SMEM_LIMIT || smem != large_smem_bytes(K))
+      return int(cudaErrorInvalidValue);
+    if (B * C == 0 || D == 0) return int(cudaSuccess);
+    return int(launch_large(scores, boxes, out_boxes, out_scores, B, C, K, D, box_bstride,
+                            box_cstride, iou_thr, score_thr, empty_score, warps, smem, s));
+  }
+  if (K > MAX_NPL * 32) return int(cudaErrorInvalidValue);
   const int npl = K <= 32 ? 1 : K <= 64 ? 2 : K <= 128 ? 4 : K <= 256 ? 8 : 16;
-  if (warps != 0 &&
+  if (variant == VARIANT_PER_CLASS && (warps != WARPS || smem != 0))
+    return int(cudaErrorInvalidValue);
+  if (variant == VARIANT_SHARED &&
       (box_cstride != 0 || warps < 1 || warps > MAX_SHARED_WARPS || cs < 1 || cs > C ||
        smem > SMEM_LIMIT || smem != shared_smem_bytes(npl, K, cs, warps, D)))
     return int(cudaErrorInvalidValue);
+  if (variant != VARIANT_PER_CLASS && variant != VARIANT_SHARED) return int(cudaErrorInvalidValue);
   if (B * C == 0 || D == 0) return int(cudaSuccess);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t e;
   switch (npl) {
     case 1:
       e = launch<1>(scores, boxes, out_boxes, out_scores, B, C, K, D, box_bstride, box_cstride,
-                    iou_thr, score_thr, warps, cs, smem, s);
+                    iou_thr, score_thr, empty_score, variant, warps, cs, smem, s);
       break;
     case 2:
       e = launch<2>(scores, boxes, out_boxes, out_scores, B, C, K, D, box_bstride, box_cstride,
-                    iou_thr, score_thr, warps, cs, smem, s);
+                    iou_thr, score_thr, empty_score, variant, warps, cs, smem, s);
       break;
     case 4:
       e = launch<4>(scores, boxes, out_boxes, out_scores, B, C, K, D, box_bstride, box_cstride,
-                    iou_thr, score_thr, warps, cs, smem, s);
+                    iou_thr, score_thr, empty_score, variant, warps, cs, smem, s);
       break;
     case 8:
       e = launch<8>(scores, boxes, out_boxes, out_scores, B, C, K, D, box_bstride, box_cstride,
-                    iou_thr, score_thr, warps, cs, smem, s);
+                    iou_thr, score_thr, empty_score, variant, warps, cs, smem, s);
       break;
     default:
       e = launch<16>(scores, boxes, out_boxes, out_scores, B, C, K, D, box_bstride,
-                     box_cstride, iou_thr, score_thr, warps, cs, smem, s);
+                     box_cstride, iou_thr, score_thr, empty_score, variant, warps, cs, smem, s);
   }
   return int(e);
 }

@@ -5,6 +5,7 @@ from __future__ import annotations
 
 from typing import Union
 
+import numpy as np
 import torch
 
 DeviceLike = Union[str, torch.device, None]
@@ -22,3 +23,12 @@ def resolve_device(device: DeviceLike = "cuda") -> torch.device:
             "no CUDA device is available; pass device='cpu' to run the "
             "plain PyTorch path on the CPU")
     return dev
+
+
+def upload(a: np.ndarray, device: torch.device) -> torch.Tensor:
+    """A host array on ``device``: to a CUDA device pinned and
+    asynchronous (the copy overlaps the stream's queued work)."""
+    t = torch.from_numpy(np.ascontiguousarray(a))
+    if device.type == "cuda":
+        t = t.pin_memory()
+    return t.to(device, non_blocking=True)

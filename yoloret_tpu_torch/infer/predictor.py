@@ -22,7 +22,9 @@ from typing import Any, List, Mapping, Optional, Sequence, Tuple, Union
 import numpy as np
 import torch
 
-from yoloret_tpu_torch.device import DeviceLike, resolve_device
+from yoloret_tpu_torch.data.annotations import load_anchors, load_classes
+from yoloret_tpu_torch.data.augment import to_unit_float
+from yoloret_tpu_torch.device import DeviceLike, resolve_device, upload
 from yoloret_tpu_torch.nn.detector import YoloReT
 from yoloret_tpu_torch.nn.fused_infer import fused_detector_apply, fused_params
 from yoloret_tpu_torch.nn.layers import init_weights
@@ -40,18 +42,6 @@ class Detection:
     class_name: str
 
 
-def load_classes(path: str) -> List[str]:
-    with open(path) as f:
-        return [line.strip() for line in f if line.strip()]
-
-
-def load_anchors(path: str) -> np.ndarray:
-    """[9, 2] float32 (w, h) anchor table from one comma-separated line."""
-    with open(path) as f:
-        vals = [float(x) for x in f.readline().split(",")]
-    return np.asarray(vals, np.float32).reshape(-1, 2)
-
-
 Weights = Union[str, Mapping[str, Any], None]
 
 
@@ -59,7 +49,8 @@ class Predictor:
     """``weights``: None (seeded init from ``seed``), a path to a saved
     port state dict (``torch.save(model.state_dict())``), a port state
     dict, or Flax variables ``{'params', 'batch_stats'}`` as numpy
-    arrays (converted by ``weights.from_flax``)."""
+    arrays (converted by ``weights.from_flax``). ``pool``: the candidate
+    pool of the postprocess, ``"shared"`` (None) or ``"per_class"``."""
 
     def __init__(
         self,
@@ -75,6 +66,7 @@ class Predictor:
         bf16: bool = True,
         seed: int = 0,
         num_candidates: int = 256,
+        pool: Optional[str] = None,
         batch_buckets: Sequence[int] = (1, 8, 32, 128),
         inflight_chunks: int = 2,
         device: DeviceLike = "cuda",
@@ -96,6 +88,7 @@ class Predictor:
         self.score_threshold = score_threshold
         self.iou_threshold = iou_threshold
         self.num_candidates = num_candidates
+        self.pool = pool
         self.batch_buckets = tuple(sorted({int(b) for b in batch_buckets}))
         self.inflight_chunks = max(1, int(inflight_chunks))
         self.dispatched_batch_sizes: set = set()
@@ -123,15 +116,20 @@ class Predictor:
     # -- device path --------------------------------------------------------
 
     @torch.inference_mode()
-    def infer(self, images_u8: torch.Tensor, image_hw: torch.Tensor) -> NMSResult:
-        """images_u8 [B, H, W, 3] uint8 and image_hw [B, 2] float32 on the
-        device -> NMSResult. Asynchronous on CUDA."""
-        images = images_u8.float() * (1.0 / 255.0)
-        outs = fused_detector_apply(self.model, images, self._fused)
+    def infer(self, images: torch.Tensor, image_hw: torch.Tensor, *,
+              score_threshold: Optional[float] = None, iou_threshold: Optional[float] = None,
+              num_candidates: Optional[int] = None, pool: Optional[str] = None) -> NMSResult:
+        """images [B, H, W, 3] on the device, uint8 (0-255) or float
+        ([0, 1]), and image_hw [B, 2] float32 -> NMSResult. The keywords
+        override the predictor's own settings for this call.
+        Asynchronous on CUDA."""
+        outs = fused_detector_apply(self.model, to_unit_float(images), self._fused)
         return detect_batch(
             outs, self._anchors_t, len(self.class_names), image_hw,
-            score_threshold=self.score_threshold, iou_threshold=self.iou_threshold,
-            num_candidates=self.num_candidates)
+            score_threshold=self.score_threshold if score_threshold is None else score_threshold,
+            iou_threshold=self.iou_threshold if iou_threshold is None else iou_threshold,
+            num_candidates=self.num_candidates if num_candidates is None else num_candidates,
+            pool=self.pool if pool is None else pool)
 
     # -- array API ----------------------------------------------------------
 
@@ -159,12 +157,6 @@ class Predictor:
             out.extend(self._collect_chunk(*pending.popleft()))
         return out
 
-    def _upload(self, a: np.ndarray) -> torch.Tensor:
-        t = torch.from_numpy(np.ascontiguousarray(a))
-        if self.device.type == "cuda":
-            t = t.pin_memory()
-        return t.to(self.device, non_blocking=True)
-
     def _dispatch_chunk(self, images: Sequence[np.ndarray]) -> NMSResult:
         batch = len(images)
         bucket = self._bucket_for(batch)
@@ -175,7 +167,7 @@ class Predictor:
             hw = np.concatenate([hw, np.broadcast_to(hw[:1], (bucket - batch, 2))])
         self.dispatched_batch_sizes.add(bucket)
         self.forwards += 1
-        return self.infer(self._upload(lb), self._upload(hw))
+        return self.infer(upload(lb, self.device), upload(hw, self.device))
 
     def _collect_chunk(self, batch: int, res: NMSResult) -> List[List[Detection]]:
         boxes = res.boxes[:batch].cpu().numpy()

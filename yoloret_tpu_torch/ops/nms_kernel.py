@@ -14,16 +14,23 @@ the class stride of the boxes:
 - ``per_class`` (boxes [B, C, K, 4], the TPU kernel's own contract): one
   warp per (image, class), candidates in registers, one IoU per
   candidate per round.
+- ``per_class_large`` (pools above 512 candidates, per-class or shared;
+  the exact-NMS evaluation's whole-grid pools): one CTA per (image,
+  class), the class's scores as keys in shared memory, boxes read from
+  device memory; a round is a block-wide argmax and one IoU per active
+  candidate.
 
 Per (image, class), ``max_det`` rounds: take the highest active score
 (ties to the lowest index), emit it with its box, deactivate the pick and
 every candidate with IoU > ``iou_threshold``. Scores below
-``score_threshold`` start inactive; empty slots are zeros.
+``score_threshold`` start inactive; empty slots get a zero box and
+``empty_score``.
 """
 
 from __future__ import annotations
 
 import ctypes
+from collections import Counter
 from typing import NamedTuple, Tuple
 
 import torch
@@ -31,14 +38,15 @@ import torch
 from yoloret_tpu_torch.ops import _build
 from yoloret_tpu_torch.ops.boxes import iou as box_iou
 
-MAX_CANDIDATES = 512  # 16 per lane
+MAX_CANDIDATES = 512  # of the register kernels: 16 per lane
 SMEM_LIMIT = 232448  # bytes of shared memory one block may use on sm_90
 MAX_WARPS = 32
+VARIANTS = ("per_class", "shared", "per_class_large")  # csrc/nms.cu's numbering
 
 _vp, _ci = ctypes.c_void_p, ctypes.c_int
 _PROTOTYPES = {
-    "yrt_nms": ([_vp] * 4 + [_ci] * 4 + [ctypes.c_longlong] * 2 + [ctypes.c_float] * 2
-                + [_ci] * 3 + [_vp], _ci),
+    "yrt_nms": ([_vp] * 4 + [_ci] * 4 + [ctypes.c_longlong] * 2 + [ctypes.c_float] * 3
+                + [_ci] * 4 + [_vp], _ci),
     "yrt_error_string": ([_ci], ctypes.c_char_p),
 }
 
@@ -48,8 +56,8 @@ def _lib() -> ctypes.CDLL:
 
 
 class NMSPlan(NamedTuple):
-    variant: str  # "shared" or "per_class"
-    npl: int  # candidates per lane (1, 2, 4, 8 or 16)
+    variant: str  # one of VARIANTS
+    npl: int  # candidates per lane (1, 2, 4, 8 or 16; per thread in per_class_large)
     warps: int  # warps per CTA
     classes_per_pass: int  # classes whose scores sit in shared memory at once
     smem: int  # bytes of dynamic shared memory
@@ -65,15 +73,31 @@ def shared_smem_bytes(npl: int, k: int, classes_per_pass: int, warps: int, max_d
             + 4 * min(warps, classes_per_pass) * max_det)
 
 
+def large_smem_bytes(k: int) -> int:
+    """Dynamic shared memory of the large-pool kernel: the keys [K]
+    (16-byte rounded), the warp winners' keys and indices and the pick.
+    ``csrc/nms.cu::large_smem_bytes`` computes the same."""
+    return 16 * -(-k // 4) + 8 * MAX_WARPS + 16
+
+
 def plan_nms(c: int, k: int, max_det: int, shared: bool) -> NMSPlan:
-    """Launch plan for ``c`` classes of ``k`` candidates. A shared pool
-    takes one CTA per image with enough warps for the mask's 32 x 32 tiles
-    and one warp per class (8 to 32); its scores sit in shared memory in
-    as few passes as fit. Per-class pools (and a shared pool whose pick
-    buffers alone overflow shared memory, max_det in the tens of
-    thousands) take the warp-per-(image, class) kernel."""
-    if not 1 <= k <= MAX_CANDIDATES:
-        raise ValueError(f"{k} candidates: the kernel takes 1 to {MAX_CANDIDATES}")
+    """Launch plan for ``c`` classes of ``k`` candidates. Pools above
+    ``MAX_CANDIDATES``, shared or not, take the large-pool kernel: one CTA
+    per (image, class), one warp per 256 candidates (8 to 32). A shared
+    pool takes one CTA per image with enough warps for the mask's 32 x 32
+    tiles and one warp per class (8 to 32); its scores sit in shared
+    memory in as few passes as fit. Per-class pools (and a shared pool
+    whose pick buffers alone overflow shared memory, max_det in the tens
+    of thousands) take the warp-per-(image, class) kernel."""
+    if k < 1:
+        raise ValueError(f"{k} candidates: the kernels take at least 1")
+    if k > MAX_CANDIDATES:
+        smem = large_smem_bytes(k)
+        if smem > SMEM_LIMIT:
+            raise ValueError(f"{k} candidates: their keys do not fit in shared memory "
+                             f"({smem} > {SMEM_LIMIT} bytes)")
+        warps = min(MAX_WARPS, max(8, -(-k // 256)))
+        return NMSPlan("per_class_large", -(-k // (32 * warps)), warps, c, smem)
     npl = next(n for n in (1, 2, 4, 8, 16) if 32 * n >= k)
     per_class = NMSPlan("per_class", npl, 4, c, 0)
     if not shared or c < 1:
@@ -88,12 +112,13 @@ def plan_nms(c: int, k: int, max_det: int, shared: bool) -> NMSPlan:
 
 
 def suppress_plain(boxes: torch.Tensor, scores: torch.Tensor, *, max_det: int,
-                   iou_threshold: float, score_threshold: float
+                   iou_threshold: float, score_threshold: float, empty_score: float = 0.0
                    ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Plain PyTorch version: the batched loop of the JAX package's
     ``_suppress_lax`` (per-class boxes [B, C, K, 4]) and
-    ``_suppress_lax_shared`` (shared boxes [B, K, 4]). Scores [B, C, K].
-    Returns (boxes [B, C, D, 4], scores [B, C, D])."""
+    ``_suppress_lax_shared`` (shared boxes [B, K, 4]); with ``empty_score``
+    -inf, the loop of ``class_aware_nms``. Scores [B, C, K]. Returns
+    (boxes [B, C, D, 4], scores [B, C, D])."""
     b, c, k = scores.shape
     if boxes.dim() == 3:
         boxes = boxes[:, None].expand(b, c, k, 4)
@@ -101,14 +126,14 @@ def suppress_plain(boxes: torch.Tensor, scores: torch.Tensor, *, max_det: int,
     active = torch.where(scores >= score_threshold, scores, neg_inf)
     lane = torch.arange(k, device=scores.device)
     out_b = torch.zeros((b, c, max_det, 4), dtype=torch.float32, device=scores.device)
-    out_s = torch.zeros((b, c, max_det), dtype=torch.float32, device=scores.device)
+    out_s = torch.full((b, c, max_det), empty_score, dtype=torch.float32, device=scores.device)
     for i in range(max_det):
         best = torch.argmax(active, dim=-1)  # first maximum: ties to the lowest index
         best_score = torch.gather(active, -1, best[..., None])[..., 0]
         best_box = torch.gather(boxes, 2, best[..., None, None].expand(b, c, 1, 4))[:, :, 0]
         picked = best_score > neg_inf
         out_b[:, :, i] = torch.where(picked[..., None], best_box, 0.0)
-        out_s[:, :, i] = torch.where(picked, best_score, 0.0)
+        out_s[:, :, i] = torch.where(picked, best_score, empty_score)
         kill = (box_iou(best_box[:, :, None, :], boxes) > iou_threshold) | (
             lane == best[..., None])
         active = torch.where(picked[..., None] & kill, neg_inf, active)
@@ -116,15 +141,16 @@ def suppress_plain(boxes: torch.Tensor, scores: torch.Tensor, *, max_det: int,
 
 
 def suppress(boxes: torch.Tensor, scores: torch.Tensor, *, max_det: int = 20,
-             iou_threshold: float = 0.5, score_threshold: float = 0.6
-             ) -> Tuple[torch.Tensor, torch.Tensor]:
+             iou_threshold: float = 0.5, score_threshold: float = 0.6,
+             empty_score: float = 0.0) -> Tuple[torch.Tensor, torch.Tensor]:
     """Greedy per-class NMS over a shared pool (boxes [B, K, 4]) or
     per-class pools (boxes [B, C, K, 4]); scores [B, C, K] float32.
-    Returns (boxes [B, C, D, 4], scores [B, C, D]), zeros in empty slots.
+    Returns (boxes [B, C, D, 4], scores [B, C, D]); empty slots get a zero
+    box and ``empty_score``.
 
     A CPU tensor takes the plain version. A CUDA tensor launches the
-    kernel that ``plan_nms`` picks (and adds one to ``suppress.launches``),
-    or raises."""
+    kernel that ``plan_nms`` picks (and adds one to ``suppress.launches``
+    and to ``suppress.variant_launches[variant]``), or raises."""
     b, c, k = scores.shape
     shared = boxes.dim() == 3
     want = (b, k, 4) if shared else (b, c, k, 4)
@@ -132,7 +158,7 @@ def suppress(boxes: torch.Tensor, scores: torch.Tensor, *, max_det: int = 20,
         raise ValueError(f"boxes {tuple(boxes.shape)} do not fit scores {tuple(scores.shape)}")
     if scores.device.type == "cpu":
         return suppress_plain(boxes, scores, max_det=max_det, iou_threshold=iou_threshold,
-                              score_threshold=score_threshold)
+                              score_threshold=score_threshold, empty_score=empty_score)
     if scores.device.type != "cuda":
         raise ValueError(f"suppress runs on CPU or CUDA tensors, not {scores.device}")
     for t in (boxes, scores):
@@ -145,15 +171,16 @@ def suppress(boxes: torch.Tensor, scores: torch.Tensor, *, max_det: int = 20,
     if out_s.numel() == 0:
         return out_b, out_s
     stream = torch.cuda.current_stream(scores.device).cuda_stream
-    warps = plan.warps if plan.variant == "shared" else 0
     rc = lib.yrt_nms(scores.data_ptr(), boxes.data_ptr(), out_b.data_ptr(), out_s.data_ptr(),
                      b, c, k, max_det, k * 4 if shared else c * k * 4, 0 if shared else k * 4,
-                     iou_threshold, score_threshold, warps, plan.classes_per_pass, plan.smem,
-                     stream)
+                     iou_threshold, score_threshold, empty_score, VARIANTS.index(plan.variant),
+                     plan.warps, plan.classes_per_pass, plan.smem, stream)
     if rc != 0:
         raise RuntimeError(f"nms kernel launch failed: {lib.yrt_error_string(rc).decode()}")
     suppress.launches += 1
+    suppress.variant_launches[plan.variant] += 1
     return out_b, out_s
 
 
 suppress.launches = 0
+suppress.variant_launches = Counter()

@@ -1,7 +1,9 @@
-"""Shared-pool detection postprocess: raw multi-scale heads -> per-class
-detections in original-image pixels. Port of the shared-pool path of
-``yoloret_tpu/ops/postprocess.py``.
+"""Detection postprocess: raw multi-scale heads -> per-class detections
+in original-image pixels. Port of ``yoloret_tpu/ops/postprocess.py``
+(``detect_batch`` with its two candidate pools; not the zoom ensemble
+and not ``use_pallas``, whose kernel every pool here runs anyway).
 
+Shared pool (the serving path and the default):
 1. ``shared_pool_candidates``: ONE exact top-M over all head positions,
    ranked by their best class score (max_c sigmoid(obj) * sigmoid(l_c) =
    sigmoid(obj) * sigmoid(max_c l_c), so no [B, N, C] score tensor is
@@ -9,16 +11,23 @@ detections in original-image pixels. Port of the shared-pool path of
    the M candidates only.
 2. ``shared_pool_suppress``: greedy per-class NMS over that shared pool,
    through the suppression kernel (``ops/nms_kernel.py``).
+
+Per-class pools (the reference's candidate semantics; with K = the grid
+size, ``--exact_nms``, the reference's NMS exactly):
+1. ``per_class_candidates``: per class, the top-K positions by score,
+   then their boxes.
+2. ``per_class_suppress``: greedy NMS in each class's own pool, through
+   the same kernel (its large-pool variant above 512 candidates).
 """
 
 from __future__ import annotations
 
-from typing import Sequence, Tuple
+from typing import Optional, Sequence, Tuple
 
 import torch
 
 from yoloret_tpu_torch.ops.decode import anchor_masks_for, correct_boxes, make_grid, pair
-from yoloret_tpu_torch.ops.nms import NMSResult, fused_result
+from yoloret_tpu_torch.ops.nms import NMSResult, fused_result, picked_result
 from yoloret_tpu_torch.ops.nms_kernel import suppress
 
 
@@ -41,6 +50,19 @@ def _position_constants(outputs: Sequence[torch.Tensor], anchors: torch.Tensor):
     return torch.cat(gxs), torch.cat(gws), torch.cat(aws)
 
 
+def _decode_at(raw_box: torch.Tensor, idx: torch.Tensor, outputs: Sequence[torch.Tensor],
+               anchors: torch.Tensor, image_hw: torch.Tensor) -> torch.Tensor:
+    """Boxes [B, M, 4] in image pixels of the positions ``idx`` [B, M] of
+    the concatenated heads, from their raw box logits ``raw_box`` [B, M,
+    4] (float32), image_hw [B, 2]."""
+    input_hw = (outputs[0].shape[-4] * 32, outputs[0].shape[-3] * 32)
+    grid_xy, grid_wh, anchor_wh = _position_constants(outputs, anchors)
+    wh_in = pair(input_hw[1], input_hw[0], idx.device)
+    xy = (torch.sigmoid(raw_box[..., :2]) + grid_xy[idx]) / grid_wh[idx]
+    wh = torch.exp(raw_box[..., 2:4]) * anchor_wh[idx] / wh_in
+    return correct_boxes(xy, wh, input_hw, image_hw[:, None, :])
+
+
 def shared_pool_candidates(
     outputs: Sequence[torch.Tensor],
     anchors: torch.Tensor,
@@ -55,7 +77,6 @@ def shared_pool_candidates(
     The concat keeps the head dtype; the cast to float32 comes after the
     M-row gather (exact: float32(bf16) is lossless and max commutes with
     the cast). Ranking sigmoids run in float32."""
-    input_hw = (outputs[0].shape[-4] * 32, outputs[0].shape[-3] * 32)
     b = outputs[0].shape[0]
     dt = outputs[0].dtype
     for o in outputs[1:]:
@@ -73,12 +94,7 @@ def shared_pool_candidates(
     cand_raw = cand_raw.float()  # [B, M, 5+C]
     cls_scores = (torch.sigmoid(cand_raw[..., 4:5]) * torch.sigmoid(cand_raw[..., 5:]))
     cls_scores = cls_scores.transpose(1, 2).contiguous()  # [B, C, M]
-
-    grid_xy, grid_wh, anchor_wh = _position_constants(outputs, anchors)
-    wh_in = pair(input_hw[1], input_hw[0], idx.device)
-    xy = (torch.sigmoid(cand_raw[..., :2]) + grid_xy[idx]) / grid_wh[idx]
-    wh = torch.exp(cand_raw[..., 2:4]) * anchor_wh[idx] / wh_in
-    boxes = correct_boxes(xy, wh, input_hw, image_hw[:, None, :])  # [B, M, 4]
+    boxes = _decode_at(cand_raw[..., :4], idx, outputs, anchors, image_hw)
     return boxes.contiguous(), cls_scores
 
 
@@ -98,6 +114,55 @@ def shared_pool_suppress(
     return fused_result(out_boxes, out_scores)
 
 
+def per_class_candidates(
+    outputs: Sequence[torch.Tensor],
+    anchors: torch.Tensor,
+    num_classes: int,
+    image_hw: torch.Tensor,
+    *,
+    num_candidates: int,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Heads [B, gh, gw, A, 5+C] per scale, image_hw [B, 2] -> (boxes [B,
+    C, K, 4] in image pixels, cls_scores [B, C, K]): per class, the K
+    highest-scoring positions, K = min(num_candidates, N).
+
+    The selection is a stable descending sort, so tied scores keep the
+    order of their positions, as ``lax.top_k`` keeps it (``torch.topk``
+    promises no order). Boxes are decoded once per position and gathered:
+    bit for bit the candidate-only decode of the JAX package, in N decodes
+    instead of C * K."""
+    b = outputs[0].shape[0]
+    raw_flat = torch.cat([o.float().reshape(b, -1, o.shape[-1]) for o in outputs], dim=1)
+    n = raw_flat.shape[1]
+    k = min(num_candidates, n)
+    scores = torch.sigmoid(raw_flat[..., 4:5]) * torch.sigmoid(raw_flat[..., 5:])  # [B, N, C]
+    cls_scores, cls_idx = torch.sort(scores.transpose(1, 2), dim=-1, descending=True,
+                                     stable=True)
+    cls_scores, cls_idx = cls_scores[..., :k].contiguous(), cls_idx[..., :k]
+    positions = torch.arange(n, device=raw_flat.device).expand(b, n)
+    boxes = _decode_at(raw_flat[..., :4], positions, outputs, anchors, image_hw)  # [B, N, 4]
+    cls_boxes = torch.gather(boxes[:, None].expand(b, num_classes, n, 4), 2,
+                             cls_idx[..., None].expand(b, num_classes, k, 4))
+    return cls_boxes.contiguous(), cls_scores
+
+
+def per_class_suppress(
+    cls_boxes: torch.Tensor,
+    cls_scores: torch.Tensor,
+    *,
+    max_det_per_class: int = 20,
+    score_threshold: float = 0.6,
+    iou_threshold: float = 0.5,
+) -> NMSResult:
+    """Greedy NMS in each class's own pool (cls_boxes [B, C, K, 4],
+    cls_scores [B, C, K]). The slate is ``class_aware_nms``'s: a slot is
+    valid when it holds a pick."""
+    out_boxes, out_scores = suppress(
+        cls_boxes, cls_scores, max_det=max_det_per_class, iou_threshold=iou_threshold,
+        score_threshold=score_threshold, empty_score=float("-inf"))
+    return picked_result(out_boxes, out_scores)
+
+
 def detect_batch(
     outputs: Sequence[torch.Tensor],
     anchors: torch.Tensor,
@@ -108,13 +173,28 @@ def detect_batch(
     score_threshold: float = 0.6,
     iou_threshold: float = 0.5,
     num_candidates: int = 256,
+    zoom_outputs: Optional[Sequence[torch.Tensor]] = None,
+    use_pallas: Optional[bool] = None,
+    pool: Optional[str] = None,
 ) -> NMSResult:
-    """Batched postprocess over the shared candidate pool (the JAX
-    package's ``detect_batch(pool="shared")``; the per-class pool is not
-    ported): heads [B, gh, gw, A, 5+C] per scale, image_hw [B, 2] ->
-    NMSResult with a leading batch dim."""
-    boxes, cls_scores = shared_pool_candidates(
-        outputs, anchors, num_classes, image_hw, num_candidates=num_candidates)
-    return shared_pool_suppress(
-        boxes, cls_scores, max_det_per_class=max_det_per_class,
-        score_threshold=score_threshold, iou_threshold=iou_threshold)
+    """Batched postprocess (the JAX package's ``detect_batch`` with exact
+    top-k): heads [B, gh, gw, A, 5+C] per scale, image_hw [B, 2] ->
+    NMSResult with a leading batch dim. ``pool``: ``"shared"`` (None) or
+    ``"per_class"``, as in the JAX package. ``zoom_outputs`` and
+    ``use_pallas=True`` are not ported and raise."""
+    if zoom_outputs is not None or use_pallas:
+        raise NotImplementedError(
+            "detect_batch: the zoom ensemble and use_pallas are not ported (ROADMAP.md, "
+            "queue 1, item 5); every pool runs the suppression kernel")
+    pool = "shared" if pool is None else pool
+    kw = dict(max_det_per_class=max_det_per_class, score_threshold=score_threshold,
+              iou_threshold=iou_threshold)
+    if pool == "shared":
+        boxes, cls_scores = shared_pool_candidates(
+            outputs, anchors, num_classes, image_hw, num_candidates=num_candidates)
+        return shared_pool_suppress(boxes, cls_scores, **kw)
+    if pool == "per_class":
+        boxes, cls_scores = per_class_candidates(
+            outputs, anchors, num_classes, image_hw, num_candidates=num_candidates)
+        return per_class_suppress(boxes, cls_scores, **kw)
+    raise ValueError(f"pool must be 'shared' or 'per_class', not {pool!r}")
