@@ -1,6 +1,6 @@
 """The evaluation letterbox on the device. Port of the eval part of
-``yoloret_tpu/data/augment.py``: ``AugmentConfig`` (the fields eval
-reads), ``_to_unit_float`` and ``_eval_one`` / ``eval_batch``, batched
+``yoloret_tpu/data/augment.py``: ``AugmentConfig`` (the one field eval
+reads, ``input_hw``), ``_to_unit_float`` and ``_eval_one`` / ``eval_batch``, batched
 over B instead of vmapped. The training augmentation is not ported yet.
 
 The host stretches each image to a staging square [S, S, 3]; here each
@@ -27,7 +27,6 @@ import torch
 @dataclasses.dataclass(frozen=True)
 class AugmentConfig:
     input_hw: Tuple[int, int] = (320, 320)
-    max_boxes: int = 20
 
 
 def to_unit_float(images: torch.Tensor) -> torch.Tensor:

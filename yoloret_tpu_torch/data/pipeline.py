@@ -93,7 +93,7 @@ class Dataset:
             raise ValueError(f"batch_size must be at least 1, not {self.batch_size}")
         self.device = resolve_device(self.device)
         self.staging = self.staging or max(self.input_hw)
-        self.augment = AugmentConfig(input_hw=tuple(self.input_hw), max_boxes=self.max_boxes)
+        self.augment = AugmentConfig(input_hw=tuple(self.input_hw))
         files = (sorted(globlib.glob(self.glob)) if any(c in self.glob for c in "*?[")
                  else [self.glob])
         if not files:

@@ -49,8 +49,7 @@ class Predictor:
     """``weights``: None (seeded init from ``seed``), a path to a saved
     port state dict (``torch.save(model.state_dict())``), a port state
     dict, or Flax variables ``{'params', 'batch_stats'}`` as numpy
-    arrays (converted by ``weights.from_flax``). ``pool``: the candidate
-    pool of the postprocess, ``"shared"`` (None) or ``"per_class"``."""
+    arrays (converted by ``weights.from_flax``)."""
 
     def __init__(
         self,
@@ -66,7 +65,6 @@ class Predictor:
         bf16: bool = True,
         seed: int = 0,
         num_candidates: int = 256,
-        pool: Optional[str] = None,
         batch_buckets: Sequence[int] = (1, 8, 32, 128),
         inflight_chunks: int = 2,
         device: DeviceLike = "cuda",
@@ -88,7 +86,6 @@ class Predictor:
         self.score_threshold = score_threshold
         self.iou_threshold = iou_threshold
         self.num_candidates = num_candidates
-        self.pool = pool
         self.batch_buckets = tuple(sorted({int(b) for b in batch_buckets}))
         self.inflight_chunks = max(1, int(inflight_chunks))
         self.dispatched_batch_sizes: set = set()
@@ -120,16 +117,18 @@ class Predictor:
               score_threshold: Optional[float] = None, iou_threshold: Optional[float] = None,
               num_candidates: Optional[int] = None, pool: Optional[str] = None) -> NMSResult:
         """images [B, H, W, 3] on the device, uint8 (0-255) or float
-        ([0, 1]), and image_hw [B, 2] float32 -> NMSResult. The keywords
-        override the predictor's own settings for this call.
-        Asynchronous on CUDA."""
+        ([0, 1]), and image_hw [B, 2] float32 -> NMSResult. The
+        thresholds and ``num_candidates`` override the predictor's own
+        settings for this call; ``pool`` is the postprocess's candidate
+        pool, ``"shared"`` (None) or ``"per_class"``. Asynchronous on
+        CUDA."""
         outs = fused_detector_apply(self.model, to_unit_float(images), self._fused)
         return detect_batch(
             outs, self._anchors_t, len(self.class_names), image_hw,
             score_threshold=self.score_threshold if score_threshold is None else score_threshold,
             iou_threshold=self.iou_threshold if iou_threshold is None else iou_threshold,
             num_candidates=self.num_candidates if num_candidates is None else num_candidates,
-            pool=self.pool if pool is None else pool)
+            pool=pool)
 
     # -- array API ----------------------------------------------------------
 
