@@ -54,6 +54,26 @@ MBCONV_CASES += [s + (n,) for n in (1, 3) for s in BLOCK_SHAPES] + [
     (9, 11, 24, 24, 16, 1, False, False, 3),
     (10, 10, 120, 720, 120, 1, True, True, 128),
 ]
+# MobileNetV2 x1.4 @224 (the COCO config; 11 distinct shapes of its 16
+# blocks): Cout 136 and 224 take the NB=11 instance of the bf16 kernel,
+# blocks 14-15 Ce 1344 (28 chunks) on 7x7 maps; at batch 1 and 128.
+X14_BLOCK_SHAPES = [
+    (112, 112, 48, 48, 24, 1, False, False),
+    (112, 112, 24, 144, 32, 2, True, False),
+    (56, 56, 32, 192, 32, 1, True, True),
+    (56, 56, 32, 192, 48, 2, True, False),
+    (28, 28, 48, 288, 48, 1, True, True),
+    (28, 28, 48, 288, 88, 2, True, False),
+    (14, 14, 88, 528, 88, 1, True, True),
+    (14, 14, 88, 528, 136, 1, True, False),
+    (14, 14, 136, 816, 136, 1, True, True),
+    (14, 14, 136, 816, 224, 2, True, False),
+    (7, 7, 224, 1344, 224, 1, True, True),
+]
+MBCONV_CASES += [s + (1,) for s in X14_BLOCK_SHAPES] + [
+    s + (128,) for s in X14_BLOCK_SHAPES[-3:]] + [
+    (10, 10, 160, 960, 160, 1, True, True, 8),  # x1.0 @320, blocks 14-15
+]
 
 
 @pytest.fixture
@@ -201,6 +221,9 @@ def test_nms_kernel_edge_cases(cuda, name):
     (2, 200, 512, 20),  # scores in passes of classes
     (2, 20, 512, 2000),  # pick buffers large: passes of fewer classes
     (3, 5, 200, 7),  # tiles beyond the last candidate
+    (128, 80, 64, 20),  # the COCO configs: serving
+    (128, 80, 512, 20),  # MAP grade
+    (1, 80, 512, 20),
 ])
 def test_nms_shared_kernel_shapes(cuda, b, c, m, max_det):
     plan = plan_nms(c, m, max_det, True)
@@ -250,7 +273,7 @@ def test_nms_kernel_matches_plain(cuda, k, shared):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("k", [513, 6300, 10647])
+@pytest.mark.parametrize("k", [513, 6300, 10647, 3087])
 def test_nms_large_kernel_matches_plain(cuda, k):
     """Pools above 512 (the exact-NMS evaluation's whole grid at 320 and
     416): tied scores, pairs at IoU 0.5, per-class and shared pools, both
@@ -265,6 +288,18 @@ def test_nms_large_kernel_matches_plain(cuda, k):
                              score_threshold=thr, empty_score=empty)
             assert (got[1] > 0).any() == (thr < 1)
         assert suppress.variant_launches["per_class_large"] == before + 3
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [3087, 10647])
+def test_nms_large_kernel_80_classes(cuda, k):
+    """The exact evaluation's whole grid of the COCO configs (224: 3,087;
+    416: 10,647) at 80 classes: several classes' CTAs per image."""
+    boxes, scores = large_pool_case(k, b=2, c=80)
+    bt, st = torch.from_numpy(boxes).to(cuda), torch.from_numpy(scores).to(cuda)
+    for thr, empty in ((0.0, float("-inf")), (0.25, 0.0)):
+        _nms_exact(bt, st, max_det=NMS_MAX_DET, iou_threshold=0.5, score_threshold=thr,
+                   empty_score=empty)
 
 
 @pytest.mark.cuda

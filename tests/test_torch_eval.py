@@ -244,7 +244,7 @@ def test_cli_map_prints_the_same_map(eval_setup, exact, tmp_path, capsys):
 
 def test_cli_refuses_what_is_not_ported(capsys):
     for argv in (["--mode=TRAIN"], ["--mode=IMAGE"], ["--mode=MAP", "--int8"],
-                 ["--mode=MAP", "--mesh_data=4"], ["--mode=MAP", "--rfcr=concat"],
+                 ["--mode=MAP", "--mesh_data=4"], ["--mode=MAP", "--use_ema"],
                  ["--mode=bogus"]):
         assert cli_main(argv) == 2
         assert "ROADMAP.md" in capsys.readouterr().err

@@ -47,6 +47,10 @@ MBCONV_CASES = [
     (12, 12, 16, 16, 16, 1, False, True),
     (16, 16, 8, 48, 24, 2, True, False),  # stride 2 pads (0, 1)
     (16, 8, 16, 16, 24, 2, False, False),
+    # MobileNetV2 x1.4 @224: block 13 (Cout 224, 10 accumulator blocks of
+    # the bf16 kernel) and blocks 14-15 (Ce 1344 = 28 chunks, a 7x7 map)
+    (8, 8, 136, 816, 224, 2, True, False),
+    (7, 7, 224, 1344, 224, 1, True, True),
 ]
 
 

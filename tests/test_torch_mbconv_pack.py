@@ -30,6 +30,10 @@ PACK_CASES = [
     (7, 5, 24, 24, 16, 1, False, False),  # no expand: Ce 24 is half a chunk; Cout 16 -> 24
     (6, 6, 16, 96, 24, 2, True, False),
     (5, 7, 8, 40, 8, 1, True, False),  # Ce 40: one ragged chunk
+    # MobileNetV2 x1.4 (blocks 10, 13, 14): Cout 136 -> 144 and 224 -> 240
+    (4, 4, 88, 528, 136, 1, True, False),
+    (3, 3, 136, 816, 224, 2, True, False),  # Ce 816: 17 chunks
+    (3, 3, 224, 1344, 224, 1, True, True),  # Ce 1344: 28 chunks
 ]
 
 
@@ -123,11 +127,11 @@ def test_fused_params_packs_once_and_forwards_do_not_repack(monkeypatch):
     assert all(b.packed is None for b in fused_infer.fused_params(YoloReT().eval()).blocks)
 
 
-def _block_shapes(size):
+def _block_shapes(size, alpha=0.75):
     """(h_out, w_out, stride, cin, ce, cout, expand) of the 16 blocks of
-    MobileNetV2 x0.75 at a size x size input."""
+    MobileNetV2 x``alpha`` at a size x size input."""
     hw, out = size // 2, []
-    for _, stride, t, cin, cout in block_specs(0.75):
+    for _, stride, t, cin, cout in block_specs(alpha):
         out.append((hw // stride, hw // stride, stride, cin, cin * t, cout, t != 1))
         hw //= stride
     return out
@@ -136,7 +140,28 @@ def _block_shapes(size):
 @pytest.mark.parametrize("batch", [1, 128])
 @pytest.mark.parametrize("size", [320, 416, 224])  # last maps 10x10, 13x13, 7x7
 def test_tile_plan_fits_shared_memory_and_wgmma_granularity(size, batch):
-    for ho, wo, stride, cin, ce, cout, expand in _block_shapes(size):
+    _check_plans(_block_shapes(size), batch)
+
+
+@pytest.mark.parametrize("alpha,size", [(1.4, 224), (1.0, 320)])
+@pytest.mark.parametrize("batch", [1, 8, 128])
+def test_tile_plan_other_widths(alpha, size, batch):
+    """The 16 blocks of MobileNetV2 x1.4 @224 (the COCO config: Cout up to
+    224, Ce up to 1344, 7x7 maps) and x1.0 @320 fit too; x1.4's last
+    blocks take one consumer warpgroup and one 7x8 tile per image."""
+    shapes = _block_shapes(size, alpha)
+    _check_plans(shapes, batch)
+    if alpha == 1.4:
+        assert [s[3:6] for s in shapes[13:]] == [(136, 816, 224), (224, 1344, 224),
+                                                 (224, 1344, 224)]
+        for shape in shapes[13:]:
+            p = M.plan_tile(*shape, batch)
+            assert (p.th, p.tw, p.nc, p.items) == (7, 8, 1, batch)
+            assert p.smem <= M.SMEM_LIMIT and M._round_up(shape[5], M.NBW) // M.NBW == 10
+
+
+def _check_plans(shapes, batch):
+    for ho, wo, stride, cin, ce, cout, expand in shapes:
         p = M.plan_tile(ho, wo, stride, cin, ce, cout, expand, batch)
         lay = M.kernel_layout(stride, p.th, p.tw, cin, cout, expand, p.xst, p.wst)
         assert p.smem == lay.smem <= M.SMEM_LIMIT

@@ -273,6 +273,39 @@ def test_plan_limits():
     assert plan_nms(200, 512, 20, shared=True).classes_per_pass == 91
 
 
+def test_plan_coco_shapes():
+    """C=80, max_det 20: the shared pool of both COCO configs at serving
+    (M=64) and MAP grade (M=512), and the exact evaluation's whole grid at
+    224 (K=3,087) and 416 (K=10,647)."""
+    assert plan_nms(80, 64, 20, shared=True) == ("shared", 2, 32, 80, 24832)
+    assert plan_nms(80, 512, 20, shared=True) == ("shared", 16, 32, 80, 209408)
+    assert shared_smem_bytes(16, 512, 80, 32, 20) == 209408 <= SMEM_LIMIT
+    for shared in (False, True):
+        assert plan_nms(80, 3087, 20, shared) == ("per_class_large", 8, 13, 80, 12624)
+        assert plan_nms(80, 10647, 20, shared) == ("per_class_large", 11, 32, 80, 42864)
+    assert large_smem_bytes(10647) == 42864
+
+
+@pytest.mark.parametrize("k,shared,thr", [(64, True, 0.3), (512, True, 0.0),
+                                          (3087, False, 0.0)])
+def test_plain_matches_jax_at_80_classes(k, shared, thr):
+    """Random boxes and distinct scores at C=80, exactly against
+    ``_suppress_lax_shared`` / ``_suppress_lax``."""
+    rs = np.random.RandomState(k)
+    b, c = 2, 80
+    shape = (b, k) if shared else (b, c, k)
+    boxes = rs.rand(*shape, 4).astype(np.float32) * 224
+    boxes[..., 2:] = boxes[..., :2] + rs.rand(*shape, 2).astype(np.float32) * 40
+    scores = (rs.permutation(b * c * k).reshape(b, c, k) / (b * c * k)).astype(np.float32)
+    kw = dict(max_det=NMS_MAX_DET, iou_threshold=IOU_THR, score_threshold=thr)
+    ref = _suppress_lax_shared if shared else _suppress_lax
+    jb, js = ref(jnp.asarray(boxes), jnp.asarray(scores), **kw)
+    pb, ps = suppress(torch.from_numpy(boxes), torch.from_numpy(scores), **kw)
+    np.testing.assert_array_equal(ps.numpy(), np.asarray(js))
+    np.testing.assert_array_equal(pb.numpy(), np.asarray(jb))
+    assert (ps > 0).sum() > b * c
+
+
 @pytest.mark.parametrize("k", [513, 1000, 6300, 10647, 30000, 58000])
 def test_plan_large_pools(k):
     """Pools above 512, shared or per-class, take the large-pool kernel:

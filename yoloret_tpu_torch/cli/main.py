@@ -9,10 +9,15 @@
 without it the weights are a seeded init). ``--config`` overlays a YAML
 file onto the flags. ``--exact_nms`` takes per-class pools of the whole
 grid, the reference's exact NMS. ``--device`` (default ``cuda``) is the
-port's own; ``--device=cpu`` runs every kernel's plain version. The other
-modes, ``--int8``, ``--use_ema``, ``--mesh_data`` above 1 and RFCR
-variants other than ``weighted_sum`` stop with a message that names
-their place in ROADMAP.md.
+port's own; ``--device=cpu`` runs every kernel's plain version.
+``--backbone`` takes every name of the detector registry and ``--rfcr``
+every fusion; the shipped configs run as they are, e.g.
+
+    python -m yoloret_tpu_torch.cli.main --config=configs/coco_efficientnetb3_416.yaml \
+        --mode=MAP --test_dataset='coco_val_*.txt' --exact_nms
+
+The other modes, ``--int8``, ``--use_ema`` and ``--mesh_data`` above 1
+stop with a message that names their place in ROADMAP.md.
 """
 
 from __future__ import annotations
@@ -21,6 +26,7 @@ import argparse
 import sys
 
 from yoloret_tpu_torch.configs import RunConfig, load_config
+from yoloret_tpu_torch.nn.detector import BACKBONES
 
 # What each mode that is not ported waits for (ROADMAP.md, queue 1).
 NOT_PORTED = {
@@ -54,7 +60,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--mode", type=str, default="IMAGE",
                    help="MAP (the others are not ported yet)")
     p.add_argument("--config", type=str, default=None, help="YAML config overlay")
-    p.add_argument("--backbone", type=str, help=f"default {d.backbone}")
+    p.add_argument("--backbone", type=str,
+                   help=f"default {d.backbone}; any of {', '.join(sorted(BACKBONES))}")
     p.add_argument("--input_size", type=_parse_size,
                    help="single int or 'h,w', multiples of 32")
     p.add_argument("--model", type=str, help="port state dict (torch.save)")
@@ -108,9 +115,6 @@ def main(argv=None) -> int:
     if cfg.use_ema:
         return _refuse("--use_ema: a port state dict holds one set of weights; convert the EMA "
                        "weights with weights.from_flax instead")
-    if cfg.rfcr != "weighted_sum":
-        return _refuse(f"--rfcr={cfg.rfcr}: only weighted_sum is ported: the others wait for "
-                       "item 3")
     if not (cfg.test_dataset and cfg.classes_path and cfg.anchors_path):
         print("MAP needs --test_dataset, --classes_path and --anchors_path", file=sys.stderr)
         return 2
@@ -123,7 +127,7 @@ def main(argv=None) -> int:
     anchors = load_anchors(cfg.anchors_path)
     pred = Predictor(
         backbone=cfg.backbone, weights=cfg.model, class_names=class_names, anchors=anchors,
-        input_hw=cfg.input_size, bf16=cfg.bf16,
+        input_hw=cfg.input_size, bf16=cfg.bf16, rfcr=cfg.rfcr,
         score_threshold=0.0,  # the reference sets score=0 for MAP, main.py:172
         device=args.device,
     )

@@ -3,9 +3,11 @@
 the int8, zoom-ensemble, mesh and video paths.
 
 The host letterboxes each image to uint8 (4x smaller upload than
-float32), the device divides by 255, runs the fused-backbone detector
-(``nn/fused_infer.py``: 16 fused MBConv kernel launches per forward) and
-the shared-pool postprocess (one suppression kernel launch per forward).
+float32), the device divides by 255, runs the detector through
+``nn/fused_infer.py`` (a MobileNetV2 backbone: 16 fused MBConv kernel
+launches per forward; any other backbone of the registry: its stock
+forward) and the shared-pool postprocess (one suppression kernel launch
+per forward).
 Requests are padded to a small ladder of batch buckets (1/8/32/128) by
 replicating row 0, and requests above the top bucket go in top-bucket
 chunks. CUDA work is asynchronous, so letterboxing chunk k+1 overlaps
@@ -49,7 +51,9 @@ class Predictor:
     """``weights``: None (seeded init from ``seed``), a path to a saved
     port state dict (``torch.save(model.state_dict())``), a port state
     dict, or Flax variables ``{'params', 'batch_stats'}`` as numpy
-    arrays (converted by ``weights.from_flax``)."""
+    arrays (converted by ``weights.from_flax``). ``backbone`` is any name
+    of ``nn.detector.BACKBONES``; ``rfcr`` the RFCR fusion the weights
+    were trained with (``weighted_sum``, ``concat`` or ``none``)."""
 
     def __init__(
         self,
@@ -67,6 +71,7 @@ class Predictor:
         num_candidates: int = 256,
         batch_buckets: Sequence[int] = (1, 8, 32, 128),
         inflight_chunks: int = 2,
+        rfcr: str = "weighted_sum",
         device: DeviceLike = "cuda",
     ):
         self.device = resolve_device(device)
@@ -92,7 +97,7 @@ class Predictor:
         self.forwards = 0  # device forwards dispatched (one per chunk)
 
         self.model = YoloReT(backbone, num_classes=len(self.class_names),
-                             dtype=torch.bfloat16 if bf16 else torch.float32)
+                             dtype=torch.bfloat16 if bf16 else torch.float32, rfcr=rfcr)
         if weights is None:
             init_weights(self.model, torch.Generator().manual_seed(seed))
         else:

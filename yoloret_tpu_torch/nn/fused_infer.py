@@ -3,7 +3,8 @@ with BatchNorm folded into the conv weights. Port of
 ``yoloret_tpu/nn/fused_infer.py`` (``fold_bn``, ``_block_args``,
 ``_block_meta``, ``mobilenetv2_fused_features``, ``fused_detector_apply``).
 
-It rebuilds the stock forward of ``nn.detector.YoloReT`` from the same
+For a MobileNetV2 backbone (``mobilenetv2x75``/``x10``/``x14``) it
+rebuilds the stock forward of ``nn.detector.YoloReT`` from the same
 module weights:
 
   * inference BN is the affine z*s + t with s = gamma/sqrt(var+eps),
@@ -15,7 +16,11 @@ module weights:
     kernel's shared-memory layout (``pack_mbconv``);
   * RFCR, neck and the head split stay the stock modules.
 
-This is the forward the Predictor runs.
+A kernel or its planner that refuses a block's shape raises; a
+MobileNetV2 model never falls back to the stock forward. Every other
+backbone (EfficientNet, DarkNet-53, the legacy bodies) has no fused
+kernel and takes the stock forward, as the JAX package's
+``fused_detector_apply`` does. This is the forward the Predictor runs.
 """
 
 from __future__ import annotations
@@ -71,10 +76,17 @@ def _block_meta(body: MobileNetV2, dtype: torch.dtype) -> List[BlockMeta]:
     return meta
 
 
+def is_fused(model: YoloReT) -> bool:
+    """Whether the model's backbone runs on the fused MBConv kernel."""
+    return model.kind == "mobilenetv2"
+
+
 @torch.no_grad()
-def fused_params(model: YoloReT) -> FusedParams:
+def fused_params(model: YoloReT) -> Optional[FusedParams]:
     """The folded stem and block weights (and the packed bf16 weights),
-    computed once per model."""
+    computed once per model; None for a backbone without a fused path."""
+    if not is_fused(model):
+        return None
     body = model.body
     ks, bs = fold_bn(body.stem.conv.weight, body.stem.bn)
     return FusedParams((ks.to(model.dtype), bs.float()), _block_meta(body, model.dtype))
@@ -96,8 +108,11 @@ def mobilenetv2_fused_features(x: torch.Tensor, params: FusedParams) -> Dict[str
 @torch.no_grad()
 def fused_detector_apply(model: YoloReT, images: torch.Tensor,
                          params: Optional[FusedParams] = None):
-    """Inference forward equal to ``model(images)``, with the backbone on
-    the fused kernel. Heads [B, gh, gw, A, 5+C] in the compute dtype."""
+    """Inference forward equal to ``model(images)``, with a MobileNetV2
+    backbone on the fused kernel (any other backbone takes the stock
+    forward). Heads [B, gh, gw, A, 5+C] in the compute dtype."""
+    if not is_fused(model):
+        return model(images)
     model.check_input(images)
     if params is None:
         params = fused_params(model)

@@ -34,6 +34,11 @@ def swish(x: torch.Tensor) -> torch.Tensor:
     return x * torch.sigmoid(x)
 
 
+def leaky(x: torch.Tensor) -> torch.Tensor:
+    """LeakyReLU(0.1), the darknet family's activation."""
+    return F.leaky_relu(x, 0.1)
+
+
 def make_divisible(v: float, divisor: int = 8, min_value: Optional[int] = None) -> int:
     """Channel rounding of the MobileNetV2 width multiplier."""
     if min_value is None:
@@ -248,9 +253,37 @@ def upsample2x(x: torch.Tensor) -> torch.Tensor:
 
 
 def init_weights(module: nn.Module, generator: torch.Generator) -> None:
-    """Seeded init of every conv kernel with ``conv_kernel_init``; biases,
-    BatchNorm and fusion weights keep their constructor values (zeros,
-    identity statistics and ones), as the Flax initialisers give."""
+    """Seeded init of every conv kernel with ``conv_kernel_init`` and of
+    every dense kernel with a fan-in normal; biases, BatchNorm and fusion
+    weights keep their constructor values (zeros, identity statistics and
+    ones), as the Flax initialisers give."""
     for m in module.modules():
         if isinstance(m, Conv2dSame):
             conv_kernel_init(m.weight, generator)
+        elif isinstance(m, nn.Linear):
+            with torch.no_grad():
+                m.weight.copy_(torch.randn(m.weight.shape, generator=generator)
+                               * m.in_features ** -0.5)
+
+
+@torch.no_grad()
+def calibrate_bn(model: nn.Module, images: torch.Tensor) -> None:
+    """Set every BatchNorm's running statistics to those of its conv's
+    output on ``images``, in one forward pass in layer order. Seeded
+    fan-out weights with identity statistics shrink activations some 50x
+    per MobileNetV2 block; calibrated, every layer carries unit-scale
+    activations, as trained weights do (for checks on seeded weights)."""
+
+    def hook(mod, inp):
+        conv = mod.conv if isinstance(mod, ConvBN) else mod.dwconv
+        y = conv(inp[0]).float()
+        mod.bn.running_mean.copy_(y.mean(dim=(0, 1, 2)))
+        mod.bn.running_var.copy_(y.var(dim=(0, 1, 2), unbiased=False))
+
+    handles = [m.register_forward_pre_hook(hook) for m in model.modules()
+               if isinstance(m, (ConvBN, DepthwiseConvBN))]
+    try:
+        model(images)
+    finally:
+        for h in handles:
+            h.remove()

@@ -188,6 +188,7 @@ def main(argv=None):
     p.add_argument("--host", default="0.0.0.0")
     p.add_argument("--port", type=int, default=8000)
     p.add_argument("--backbone", default="mobilenetv2x75")
+    p.add_argument("--rfcr", default="weighted_sum", choices=["weighted_sum", "concat", "none"])
     p.add_argument("--weights", default=None, help="saved port state dict")
     p.add_argument("--classes_path", required=True)
     p.add_argument("--anchors_path", required=True)
@@ -200,7 +201,7 @@ def main(argv=None):
         backbone=a.backbone, weights=a.weights,
         classes_path=a.classes_path, anchors_path=a.anchors_path,
         input_hw=(a.input_size, a.input_size), score_threshold=a.score,
-        device=a.device,
+        rfcr=a.rfcr, device=a.device,
     )
     DetectionServer(pred, a.host, a.port, max_batch=a.max_batch).start()
 

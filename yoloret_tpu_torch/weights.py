@@ -7,6 +7,7 @@ the leaves are renamed and, for convolutions, relaid out:
 
   * conv kernels HWIO -> OIHW; depthwise ``[kh, kw, 1, C]`` -> ``[C, 1, kh, kw]``
     (one transpose, ``(3, 2, 0, 1)``, does both);
+  * ``Dense`` kernels ``[in, out]`` -> ``nn.Linear`` weights ``[out, in]``;
   * BatchNorm ``scale``/``bias``/``mean``/``var`` -> ``weight``/``bias``/
     ``running_mean``/``running_var``;
   * conv ``bias`` and the RFCR ``fuse_weights/alpha`` carry over as they are.
@@ -50,9 +51,10 @@ def from_flax(variables: Mapping[str, Any], model: Optional[nn.Module] = None
                 raise KeyError(f"unknown {coll} leaf {'/'.join(path)!r}")
             arr = np.array(value, np.float32)  # a copy: jax arrays are read-only
             if leaf == "kernel":
-                if arr.ndim != 4:
-                    raise KeyError(f"kernel {'/'.join(path)!r} is not 4-D: {arr.shape}")
-                arr = arr.transpose(3, 2, 0, 1)
+                if arr.ndim not in (2, 4):
+                    raise KeyError(f"kernel {'/'.join(path)!r} is neither a 4-D conv nor a "
+                                   f"2-D dense kernel: {arr.shape}")
+                arr = arr.transpose(3, 2, 0, 1) if arr.ndim == 4 else arr.T
             out[".".join(mods + [leaves[leaf]])] = torch.from_numpy(np.ascontiguousarray(arr))
     if model is not None:
         want = set(model.state_dict())
