@@ -6,8 +6,11 @@
 Phases (any failure exits non-zero and prints no result):
 
 1. The card's name and power limit (``nvidia-smi``); build both CUDA
-   kernels from ``yoloret_tpu_torch/csrc/`` (one ``nvcc`` each, in
-   parallel) and print each kernel's ``ptxas`` registers and spills.
+   kernels from ``yoloret_tpu_torch/csrc/`` and the native JPEG loader
+   (``yoloret_tpu_torch/native/dataloader.cc``; one compiler each, in
+   parallel; the loader may fail to build, which is reported, and the
+   data path then decodes with PIL) and print each kernel's ``ptxas``
+   registers and spills.
 2. Each kernel against its plain PyTorch version on the card, at the
    serving path's shapes: the fused MBConv at all 16 backbone blocks of
    MobileNetV2 x0.75 @ 320 (float32 with TF32 off at b2; bfloat16, the
@@ -16,9 +19,11 @@ Phases (any failure exits non-zero and prints no result):
    exactly: the shared-pool kernel on model candidates at C=20, M=64
    (t=0.3) and M=512 (t=0) for B=128, 8 and 1, on tied scores and on
    pairs at IoU 0.5; the per-class kernel on per-class pools; the
-   large-pool kernel on the exact evaluation's per-class pools (model
-   candidates, K=6300, B=128 and 1) and on tied scores with pairs at IoU
-   0.5.
+   large-pool kernels on the exact evaluation's per-class pools (model
+   candidates, K=6300, B=128 and 1: sorted, the walk; shuffled and with
+   one inversion at the last index, the rounds; doubled to K=12600,
+   beyond the rounds' staging limit, sorted and shuffled) and on tied
+   scores with pairs at IoU 0.5.
 3. The serving slice through its entry points, with seeded weights
    (BatchNorm calibrated on seeded images, so scores are not all ties): ``Predictor.detect_arrays``
    on 1, 8 and 130 images, the HTTP ``DetectionServer`` on 4 JPEGs, and
@@ -38,8 +43,9 @@ Phases (any failure exits non-zero and prints no result):
    whole grid, the large-pool NMS kernel) and ``evaluate_map`` bf16
    shared. 16 MBConv launches and 1 NMS launch per batch; the float32
    runs' per-class APs within EVAL_AP_TOL of the CPU's float32 ones,
-   the bf16 run's mAP within EVAL_BF16_MAP_TOL of the CPU's bf16 one.
-   Then the bf16 run again under the
+   the bf16 run's mAP within EVAL_BF16_MAP_TOL of the CPU's bf16 one;
+   the decodes by decoder of every run (all native where the JPEG
+   loader built). Then the bf16 run again under the
    profiler: the device's idle share of the eval loop; and the host's
    two shares alone: the decode, and the evaluator's filing.
 6. Each kernel's device time (L2 flushed, the device kept behind the
@@ -48,7 +54,10 @@ Phases (any failure exits non-zero and prints no result):
    MBConv block also the tile plan (tile, warpgroups, pipeline stages,
    persistent grid, shared memory); NMS at the serving and the MAP-grade
    shape, each with its launch plan, and the large-pool variant at the
-   exact evaluation's shape.
+   exact evaluation's shape, its pools sorted as the path gives them and
+   shuffled; the bound counts only the boxes a sorted pool needs (up to
+   its last pick), and the bound of earlier records (every box) is
+   printed beside it.
 7. The paper's two COCO configurations, at full width and depth, 80
    classes (``configs/coco_mobilenetv2x14_224.yaml``,
    ``configs/coco_efficientnetb3_416.yaml``; class names and anchors from
@@ -91,6 +100,7 @@ import tempfile
 import threading
 import time
 import urllib.request
+import warnings
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 
@@ -179,6 +189,29 @@ def nvidia_smi_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
+def build_libraries(report):
+    """Build both CUDA libraries and the native JPEG loader, all compilers
+    at once; returns the seconds. The CUDA kernels must build; the loader
+    may not (no g++ or no jpeglib.h), and then the data path decodes with
+    PIL, as the JAX package does: ``report["native_loader"]`` says which,
+    with the compiler's message."""
+    from yoloret_tpu_torch import native
+    from yoloret_tpu_torch.ops import _build
+
+    t0 = time.perf_counter()
+    try:
+        _build.build_all(("mbconv", "nms", "native"))
+    except RuntimeError:
+        _build.build_all(("mbconv", "nms"))  # raises if a kernel failed
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore", RuntimeWarning)  # the reason is reported below
+        built = native.available()
+    report["native_loader"] = ("built" if built else
+                               f"not built, PIL decodes: {native.build_error()}")
+    report["native_loader_built"] = built
+    return time.perf_counter() - t0
+
+
 def ptxas_lines(text):
     """The registers, shared memory and spill lines of a ``-Xptxas -v``
     log, each with its kernel (template arguments spelled out). Dynamic
@@ -187,10 +220,10 @@ def ptxas_lines(text):
     for line in text.splitlines():
         m = re.search(r"Compiling entry function '(\S+)'", line)
         if m:
-            k = re.search(r"(mbconv_wgmma|mbconv_f32|nms_kernel|nms_shared)I((?:Li\d+E)+)E",
-                          m.group(1))
-            fn = f"{k.group(1)}<{','.join(re.findall(r'Li(\d+)E', k.group(2)))}>" if k else ""
-            fn = fn or ("nms_large" if "nms_large" in m.group(1) else "")
+            k = re.search(r"(mbconv_wgmma|mbconv_f32|nms_kernel|nms_shared|nms_large_rounds)I"
+                          r"((?:L[ib]\d+E)+)E", m.group(1))
+            fn = f"{k.group(1)}<{','.join(re.findall(r'L[ib](\d+)E', k.group(2)))}>" if k else ""
+            fn = fn or ("nms_large_walk" if "nms_large_walk" in m.group(1) else "")
         elif re.search(r"Used \d+ registers|spill stores", line):
             out.append(f"{fn + ': ' if fn else ''}{line.split(':', 1)[-1].strip()}")
     return out
@@ -272,18 +305,47 @@ def mbconv_bound(x, meta, elem):
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations"), nbytes, flops
 
 
-def nms_bound_ms(boxes, scores, out_boxes, out_scores, max_det):
-    """Least time of the function on this run's data. Bytes: scores, boxes
-    and outputs once. Operations: one IoU (NMS_IOU_OPS) per (image,
-    distinct picked box, candidate) -- greedy NMS needs no other IoU, and a
-    shared pool's classes share them -- plus NMS_ARGMAX_OPS per candidate
-    for each round, (picks + a final empty round, capped at max_det) per
-    (image, class); float32 peak. Also returns the bound by the per-class
-    count (every class's IoUs, NMS_OPS_PER_CLASS_PAIR per candidate per
-    round)."""
+def sorted_pool_reads(boxes, scores, out_boxes, out_scores, max_det, score_threshold):
+    """Per-class pools (boxes [B, C, K, 4]): which pools have
+    non-increasing keys (inactive candidates, below the threshold, count
+    as the lowest key), and how many of each pool's boxes greedy NMS needs
+    on such a pool: those up to its last pick when it makes max_det picks
+    (the pick is the first candidate with its score and box), else every
+    active one. ``out_scores`` must mark empty slots -inf. Returns
+    (sorted [B, C] bool, boxes needed [B, C] int64)."""
     import torch
 
-    picked = out_scores > 0
+    active = (scores >= score_threshold) & (scores > float("-inf"))
+    key = torch.where(active, scores, torch.full_like(scores, float("-inf")))
+    in_order = (key[..., :-1] >= key[..., 1:]).all(-1)
+    picks = torch.isfinite(out_scores).sum(-1)
+    needed = active.sum(-1)
+    k = scores.shape[-1]
+    for i in range(scores.shape[0]):  # an image at a time: the match is [C, K, 4]
+        last_s, last_b = out_scores[i, :, max_det - 1], out_boxes[i, :, max_det - 1]
+        match = (scores[i] == last_s[:, None]) & (boxes[i] == last_b[:, None]).all(-1)
+        first = torch.where(match.any(-1), match.int().argmax(-1), torch.full_like(picks[i], k))
+        needed[i] = torch.where(picks[i] == max_det, first + 1, needed[i])
+    return in_order, needed
+
+
+def nms_bound_ms(boxes, scores, out_boxes, out_scores, max_det, score_threshold):
+    """Least time of the function on this run's data, by the count of the
+    work the data needs. ``out_scores``' empty slots must be -inf. Bytes:
+    scores and outputs once, and boxes once, except that a per-class pool
+    whose keys do not increase needs only its boxes up to its last pick
+    (``sorted_pool_reads``). Operations: on such a pool, one compare per
+    candidate (its order) and one IoU (NMS_IOU_OPS) per box it needs;
+    elsewhere one IoU per (image, distinct picked box, candidate) --
+    greedy NMS needs no other IoU, and a shared pool's classes share them
+    -- plus NMS_ARGMAX_OPS per candidate for each round (picks + a final
+    empty round, capped at max_det) per (image, class); float32 peak. Also
+    returns the bound by the count of earlier records (every box read, the
+    IoUs of every pick) and by the per-class count (every class's IoUs,
+    NMS_OPS_PER_CLASS_PAIR per candidate per round)."""
+    import torch
+
+    picked = torch.isfinite(out_scores)
     picks = picked.sum(-1)
     rounds = (picks + (picks < max_det).long()).sum().item()
     m = scores.shape[-1]
@@ -292,13 +354,28 @@ def nms_bound_ms(boxes, scores, out_boxes, out_scores, max_det):
                        for i in range(len(boxes)) if picked[i].any())
     else:
         distinct = int(picks.sum())
-    ops = distinct * m * NMS_IOU_OPS + rounds * m * NMS_ARGMAX_OPS
-    nbytes = (scores.numel() + boxes.numel() + out_scores.numel() * 5) * 4
+    ops_all = distinct * m * NMS_IOU_OPS + rounds * m * NMS_ARGMAX_OPS
+    bytes_all = (scores.numel() + boxes.numel() + out_scores.numel() * 5) * 4
+    n_sorted, box_reads, ops, nbytes = 0, boxes.numel() // 4, ops_all, bytes_all
+    if boxes.dim() == 4:
+        in_order, needed = sorted_pool_reads(boxes, scores, out_boxes, out_scores, max_det,
+                                             score_threshold)
+        n_sorted = int(in_order.sum())
+        box_reads = int(torch.where(in_order, needed, torch.full_like(needed, m)).sum())
+        nbytes = (scores.numel() + 4 * box_reads + out_scores.numel() * 5) * 4
+        pool_picks = picks.float()
+        unsorted_ops = ((pool_picks * m * NMS_IOU_OPS
+                         + (pool_picks + (picks < max_det).float()) * m * NMS_ARGMAX_OPS)
+                        * ~in_order).sum().item()
+        ops = int(unsorted_ops) + int(((m + needed * NMS_IOU_OPS) * in_order).sum())
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / PEAK_OPS["f32"]
-    per_class = max(t_bytes, rounds * m * NMS_OPS_PER_CLASS_PAIR / PEAK_OPS["f32"]) * 1e3
+    before = max(bytes_all / HBM_BYTES_PER_S, ops_all / PEAK_OPS["f32"]) * 1e3
+    per_class = max(bytes_all / HBM_BYTES_PER_S,
+                    rounds * m * NMS_OPS_PER_CLASS_PAIR / PEAK_OPS["f32"]) * 1e3
     return (max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations"),
             dict(distinct_picks=distinct, rounds=rounds, ops=ops, bytes=nbytes,
-                 bound_ms_per_class_count=per_class))
+                 sorted_pools=n_sorted, pools=int(picks.numel()), boxes_needed=box_reads,
+                 bound_ms_all_boxes=before, bound_ms_per_class_count=per_class))
 
 
 def max_err(a, b):
@@ -410,8 +487,10 @@ def nms_cases(pred, synthetic=True):
     """(name, boxes, scores, score threshold, empty score) of every NMS
     check: model candidates of the serving and the MAP-grade shape at
     B=128, 8 and 1; the exact evaluation's per-class pools of the whole
-    grid (large-pool kernel, empty slots -inf as on that path) at B=128
-    and 1; with ``synthetic``, also tied scores; pairs at IoU 0.5, exactly
+    grid (large-pool kernels, empty slots -inf as on that path) at B=128
+    and 1; with ``synthetic``, also those pools shuffled, with one
+    inversion at the last index, and doubled beyond the rounds' staging
+    limit (sorted and shuffled); tied scores; pairs at IoU 0.5, exactly
     and within rounding; per-class pools; and large pools of tied scores
     and pairs at IoU 0.5."""
     import numpy as np
@@ -429,13 +508,34 @@ def nms_cases(pred, synthetic=True):
     del boxes, scores
     big_k = exact_k(pred.input_hw[0])
     boxes, scores = candidates_at_b128(pred, big_k, seed=7, per_class=True)
+    c = scores.shape[1]
     for b in (BATCH, 1):
-        cases.append((f"per-class b{b} C={scores.shape[1]} K={big_k} t=0 (model candidates, "
+        cases.append((f"per-class b{b} C={c} K={big_k} t=0 (model candidates, "
                       "the --exact_nms pools)", boxes[:b].contiguous(), scores[:b].contiguous(),
                       0.0, float("-inf")))
-    del boxes, scores
     if not synthetic:
         return cases
+    sb, ss = shuffle_pools(boxes, scores, seed=2)
+    cases.append((f"per-class b{BATCH} C={c} K={big_k} t=0 (the same pools shuffled: the "
+                  "rounds)", sb, ss, 0.0, float("-inf")))
+    inv = scores.clone()
+    inv[:, -1, -1] = inv[:, -1, -2] + 0.5  # the last class of each image: the rounds
+    cases.append((f"per-class b{BATCH} C={c} K={big_k} t=0 (sorted, one inversion at the last "
+                  "index of one pool an image)", boxes, inv, 0.0, float("-inf")))
+    # beyond the rounds' staging limit: each of 8 images' pools and a copy of
+    # them at half the scores, sorted again (the walk) and shuffled (the
+    # rounds, boxes read from device memory)
+    b8 = 8
+    both_b = torch.cat([boxes[:b8], boxes[:b8]], 2)
+    both_s, idx = torch.sort(torch.cat([scores[:b8], scores[:b8] * 0.5], 2), dim=-1,
+                             descending=True, stable=True)
+    both_b = torch.gather(both_b, 2, idx[..., None].expand(-1, -1, -1, 4)).contiguous()
+    cases.append((f"per-class b{b8} C={c} K={2 * big_k} t=0 (model candidates twice, sorted)",
+                  both_b, both_s.contiguous(), 0.0, float("-inf")))
+    sb, ss = shuffle_pools(both_b, both_s, seed=3)
+    cases.append((f"per-class b{b8} C={c} K={2 * big_k} t=0.1 (the same shuffled: the rounds "
+                  "from device memory)", sb, ss, 0.1, 0.0))
+    del boxes, scores, sb, ss, inv, both_b, both_s
     rs = np.random.RandomState(5)
     k = 512
     yx = rs.randint(0, SIZE, (BATCH, k, 2))
@@ -486,8 +586,9 @@ def check_nms(pred, report, synthetic=True):
         how = {"shared": f"shared-pool kernel ({plan.warps} warps, {plan.classes_per_pass} "
                          f"classes per pass, {plan.smem} B shared memory)",
                "per_class": "per-class kernel (a warp per image and class)",
-               "per_class_large": f"large-pool kernel (a CTA of {plan.warps} warps per image "
-                                  f"and class, {plan.smem} B shared memory)"}[plan.variant]
+               "per_class_large": f"large-pool kernels (the walk, a CTA per image and class; "
+                                  f"the rounds, {plan.warps} warps, {plan.smem} B shared "
+                                  "memory)"}[plan.variant]
         log(f"nms kernel vs plain, {name}: {how}: max abs err {err} (tolerance 0: exact), "
             f"{dets} detections")
         if not same:
@@ -831,11 +932,14 @@ def run_printing(fn, *a, **kw):
 
 
 def eval_rate(text):
-    """images, ms/image and images/s from the loop's line that
-    ``evaluate_map`` prints (the one number it does not return)."""
-    m = re.search(r"eval: (\d+) images, ([\d.]+) ms/image, ([\d.]+) images/s", text)
+    """images, ms/image, images/s and the decodes by decoder from the
+    loop's line that ``evaluate_map`` prints (the numbers it does not
+    return)."""
+    m = re.search(r"eval: (\d+) images, ([\d.]+) ms/image, ([\d.]+) images/s; "
+                  r"decoded: native (\d+), PIL (\d+)", text)
     return dict(images=int(m.group(1)), ms_per_image=float(m.group(2)),
-                img_per_s=float(m.group(3)))
+                img_per_s=float(m.group(3)),
+                decodes={"native": int(m.group(4)), "pil": int(m.group(5))})
 
 
 def evaluate(pred, ds, class_names):
@@ -873,6 +977,7 @@ def eval_phase(map_pred, state, seed, report, *, n_images=None, config=None,
     import torch
     from torch.profiler import ProfilerActivity, profile
 
+    from yoloret_tpu_torch import native
     from yoloret_tpu_torch.data import Dataset
     from yoloret_tpu_torch.eval import MAPEvaluator
     from yoloret_tpu_torch.infer import Predictor
@@ -881,6 +986,8 @@ def eval_phase(map_pred, state, seed, report, *, n_images=None, config=None,
 
     names = map_pred.class_names
     size = map_pred.input_hw[0]
+    native_built = native.available()  # built (or refused, and reported) in phase 1
+    report_native = "built" if native_built else "not built"
     kw = dict(backbone=map_pred.model.backbone, rfcr=map_pred.model.rfcr_fusion,
               class_names=names, anchors=map_pred.anchors, input_hw=map_pred.input_hw,
               score_threshold=0.0, num_candidates=512, bf16=False)
@@ -949,6 +1056,11 @@ def eval_phase(map_pred, state, seed, report, *, n_images=None, config=None,
         assert launches.get("nms_shared") == 2 * n_batches, launches
         for name in runs:
             assert runs[name]["images"] == n_samples, (name, runs[name]["images"])
+        decodes = {name: runs[name]["decodes"] for name in runs}
+        log(f"eval decodes by decoder (native JPEG loader {report_native}): {decodes}")
+        if native_built:  # every sample is a JPEG: none may fall back to PIL
+            for name, d in decodes.items():
+                assert d["pil"] == 0 and d["native"] >= n_samples, (name, d)
 
         diffs, bad = {}, {}
         pairs = [("card_f32_shared", "cpu_f32_shared"), ("card_f32_exact_cli", "cpu_f32_shared")]
@@ -971,7 +1083,7 @@ def eval_phase(map_pred, state, seed, report, *, n_images=None, config=None,
         if bad:
             raise AssertionError(f"off the CPU's run by more than the tolerance: {bad}")
         out.update(runs=runs, ap_diff=diffs, launches=launches, batches_per_run=n_batches,
-                   samples=n_samples, gt_boxes=n_gt)
+                   samples=n_samples, gt_boxes=n_gt, decodes=decodes)
         if not flagship:
             report["eval"] = out
             return out
@@ -994,6 +1106,7 @@ def eval_phase(map_pred, state, seed, report, *, n_images=None, config=None,
         t0 = time.perf_counter()
         decoded = sum(h["n_valid"] for h in ds._host_batches(1))
         decode_s = time.perf_counter() - t0
+        by = dict(ds.decodes)
         rs = np.random.RandomState(seed)
         n_det = len(names) * 20
         dets = (rs.rand(n_det, 4) * size, rs.rand(n_det), rs.randint(0, len(names), n_det))
@@ -1002,10 +1115,12 @@ def eval_phase(map_pred, state, seed, report, *, n_images=None, config=None,
         for g in gts + gts:
             ev.add_image(*dets, g)
         filing_s = time.perf_counter() - t0
-        log(f"  host alone: decode {decoded} samples ({ds.num_workers} threads, PIL) "
-            f"{decode_s * 1e3:.1f} ms = {decoded / decode_s:.1f} images/s; filing {n_det} "
-            f"detections an image for {2 * len(gts)} images {filing_s * 1e3:.1f} ms")
-        out.update(host_decode_s=decode_s, host_filing_s=filing_s, profile=dict(
+        log(f"  host alone: decode {decoded} samples ({ds.num_workers} threads; by decoder "
+            f"{by}) {decode_s * 1e3:.1f} ms = {decoded / decode_s:.1f} images/s; filing "
+            f"{n_det} detections an image for {2 * len(gts)} images {filing_s * 1e3:.1f} ms")
+        if native_built:
+            assert by.get("pil", 0) == 0, by
+        out.update(host_decode_s=decode_s, host_decodes=by, host_filing_s=filing_s, profile=dict(
             loop_ms=loop_ms, img_per_s=loop["img_per_s"], device_ms=groups, idle_share=idle))
     report["eval"] = out
     return out
@@ -1070,32 +1185,51 @@ def time_mbconv(pred, flush):
 def time_nms(pred, flush):
     """The suppression kernel at b128 on model candidates: the shared pool
     at serving (M=64, t=0.3) and MAP grade (M=512, t=0), and the
-    large-pool variant on the exact evaluation's whole grid; returns
-    (serving row, MAP-grade row, large-pool row)."""
+    large-pool variant on the exact evaluation's whole grid, its pools
+    sorted as the path gives them and the same pools shuffled; returns
+    (serving row, MAP-grade row, large-pool row, shuffled large-pool
+    row). Bounds by ``nms_bound_ms`` on this run's picks."""
+    import torch
+
     from yoloret_tpu_torch.ops.nms_kernel import plan_nms, suppress, suppress_plain
 
     rows = []
     big_k = exact_k(pred.input_hw[0])
-    for m, thr, per_class in ((64, 0.3, False), (512, 0.0, False), (big_k, 0.0, True)):
+    for m, thr, per_class, order in ((64, 0.3, False, None), (512, 0.0, False, None),
+                                     (big_k, 0.0, True, "sorted"),
+                                     (big_k, 0.0, True, "shuffled")):
         boxes, scores = candidates_at_b128(pred, m, seed=100 + m, per_class=per_class)
+        if order == "shuffled":
+            boxes, scores = shuffle_pools(boxes, scores, seed=1)
         c = scores.shape[1]
         kw = dict(max_det=20, iou_threshold=0.5, score_threshold=thr)
         plan = plan_nms(c, m, 20, shared=not per_class)
         ms = cuda_time_ms(lambda: suppress(boxes, scores, **kw), 10, 2, flush)
         plain = cuda_time_ms(lambda: suppress_plain(boxes, scores, **kw), 3, 1, flush)
-        out_b, out_s = suppress(boxes, scores, **kw)
-        bound, by, work = nms_bound_ms(boxes, scores, out_b, out_s, 20)
-        rows.append(dict(m=m, classes=c, score_threshold=thr, plan=plan._asdict(), ms=ms,
-                         plain_ms=plain, bound_ms=bound, bound_by=by,
-                         detections=int((out_s > 0).sum()), **work))
-        pool = f"per-class K={m}" if per_class else f"shared M={m}"
+        out_b, out_s = suppress(boxes, scores, empty_score=float("-inf"), **kw)
+        bound, by, work = nms_bound_ms(boxes, scores, out_b, out_s, 20, thr)
+        rows.append(dict(m=m, classes=c, score_threshold=thr, order=order, plan=plan._asdict(),
+                         ms=ms, plain_ms=plain, bound_ms=bound, bound_by=by,
+                         detections=int(torch.isfinite(out_s).sum()), **work))
+        pool = f"per-class K={m} {order}" if per_class else f"shared M={m}"
         log(f"  nms {pool} b{BATCH} C={c} t={thr} ({plan.variant} kernel, {plan.warps} warps, "
             f"{plan.smem} B shared memory): kernel {ms:.4f} ms, plain {plain:.4f}, bound "
             f"{bound:.5f} ({by}; {work['distinct_picks']} distinct picks, {work['rounds']} "
-            f"rounds, {work['bytes']} bytes; per-class count "
-            f"{work['bound_ms_per_class_count']:.5f})")
+            f"rounds, {work['bytes']} bytes, {work['sorted_pools']} of {work['pools']} pools "
+            f"sorted, {work['boxes_needed']} boxes needed); bound counting every box "
+            f"{work['bound_ms_all_boxes']:.5f}, per-class count "
+            f"{work['bound_ms_per_class_count']:.5f}")
         del boxes, scores
     return rows
+
+
+def shuffle_pools(boxes, scores, seed):
+    """Per-class pools with their candidates in one seeded random order."""
+    import torch
+
+    g = torch.Generator(device=boxes.device).manual_seed(seed)
+    perm = torch.randperm(scores.shape[-1], generator=g, device=boxes.device)
+    return boxes[:, :, perm].contiguous(), scores[:, :, perm].contiguous()
 
 
 def kernel_entries(pred, suffix, launches, eval_launches, errs, mbconv, nms):
@@ -1118,7 +1252,7 @@ def kernel_entries(pred, suffix, launches, eval_launches, errs, mbconv, nms):
             bound_by=max(("bytes", "operations"),
                          key=lambda by: sum(r["bound_ms"] for r in rows if r["bound_by"] == by)),
             library_ms=tot["library_ms"]))
-    serving, mapg, large = nms
+    serving, mapg, large, shuffled = nms
     out.append(dict(
         name="nms" + suffix, route="cuda", source="yoloret_tpu_torch/csrc/nms.cu",
         replaces="yoloret_tpu/ops/nms_pallas.py:36",
@@ -1135,10 +1269,14 @@ def kernel_entries(pred, suffix, launches, eval_launches, errs, mbconv, nms):
         name="nms_per_class_large" + suffix, route="cuda", source="yoloret_tpu_torch/csrc/nms.cu",
         replaces="yoloret_tpu/ops/nms_pallas.py:36",
         shapes=f"per-class pools b{BATCH} C={c} K={large['m']} t=0 max_det 20 (the "
-               f"--exact_nms eval's at {size}); launches: the eval path's run",
+               f"--exact_nms eval's at {size}, sorted as the path gives them); shuffled_*: the "
+               "same pools shuffled; launches: the eval path's run",
         launches=eval_launches.get("nms_per_class_large", 0), max_abs_err=errs["nms_large"],
         ms=large["ms"], plain_ms=large["plain_ms"], bound_ms=large["bound_ms"],
-        bound_by=large["bound_by"], library_ms=None))
+        bound_by=large["bound_by"], library_ms=None,
+        bound_ms_all_boxes=large["bound_ms_all_boxes"], shuffled_ms=shuffled["ms"],
+        shuffled_plain_ms=shuffled["plain_ms"], shuffled_bound_ms=shuffled["bound_ms"],
+        shuffled_bound_by=shuffled["bound_by"]))
     return out
 
 
@@ -1292,9 +1430,9 @@ def main(argv=None) -> int:
     log(smi)
     report = dict(nvidia_smi=smi, torch=torch.__version__, cuda=torch.version.cuda,
                   device=torch.cuda.get_device_name(0))
-    build_s = _build.build_all()
-    report["build_seconds"] = build_s
-    log(f"built csrc/mbconv.cu and csrc/nms.cu for sm_90a in {build_s:.1f} s")
+    build_s = report["build_seconds"] = build_libraries(report)
+    log(f"built csrc/mbconv.cu and csrc/nms.cu for sm_90a in {build_s:.1f} s (the JPEG loader "
+        f"beside them: {report['native_loader']})")
     for name in ("mbconv", "nms"):
         for line in ptxas_lines(_build.ptxas_log(name)):
             log(f"  ptxas {name}: {line}")
@@ -1335,6 +1473,8 @@ def main(argv=None) -> int:
                                              if isinstance(v, dict)},
                     "eval_img_per_s": {k: v["img_per_s"] for k, v in ev["runs"].items()},
                     "eval_device_idle_share": ev["profile"]["idle_share"],
+                    "eval_host_decode_s": ev["host_decode_s"],
+                    "native_loader": report["native_loader"],
                     "eval_map": {k: v["map"] for k, v in ev["runs"].items()},
                     "coco": {name: dict(
                         end_to_end_img_per_s={k: v["img_per_s"]

@@ -313,3 +313,78 @@ def test_nms_large_kernel_distinct_scores(cuda):
     scores = (rs.permutation(b * c * k).reshape(b, c, k) / (b * c * k)).astype(np.float32)
     bt, st = torch.from_numpy(boxes).to(cuda), torch.from_numpy(scores).to(cuda)
     _nms_exact(bt, st, max_det=100, iou_threshold=0.45, score_threshold=0.0)
+
+
+def model_like_pool(k, b=2, c=20, seed=0):
+    """(boxes [B, C, K, 4], scores [B, C, K]) like the exact evaluation's
+    whole-grid pools: per image a few objects, each seen by many
+    candidates (jittered copies of its box, as neighbouring anchors see
+    it) scoring high in its class, the rest background boxes scoring low;
+    distinct scores; every class's pool in a stable descending sort of
+    its scores, as ``per_class_candidates`` orders it. float32 numpy."""
+    rs = np.random.RandomState(seed + k)
+    n_obj = 6
+    yx = rs.rand(b, n_obj, 2) * 280
+    obj = np.concatenate([yx, yx + 20 + rs.rand(b, n_obj, 2) * 100], -1)
+    owner = rs.randint(-1, n_obj, (b, k))  # -1: background
+    boxes = rs.rand(b, k, 4) * 300
+    boxes[..., 2:] = boxes[..., :2] + rs.rand(b, k, 2) * 40
+    for i in range(b):
+        on = owner[i] >= 0
+        boxes[i, on] = obj[i, owner[i, on]] + rs.randn(int(on.sum()), 4) * 6
+    obj_cls = rs.randint(0, c, (b, n_obj))
+    scores = rs.rand(b, c, k) * 0.05
+    for i in range(b):
+        on = np.nonzero(owner[i] >= 0)[0]
+        scores[i, obj_cls[i, owner[i, on]], on] += 0.3 + 0.7 * rs.rand(len(on))
+    scores = scores.astype(np.float32)
+    s, idx = torch.sort(torch.from_numpy(scores), dim=-1, descending=True, stable=True)
+    bx = torch.gather(torch.from_numpy(boxes.astype(np.float32))[:, None].expand(b, c, k, 4), 2,
+                      idx[..., None].expand(b, c, k, 4))
+    return np.ascontiguousarray(bx.numpy()), np.ascontiguousarray(s.numpy())
+
+
+def reorder(boxes, scores, order, seed=0):
+    """A sorted pool as it is (``sorted``), each pool's candidates in a
+    seeded random order (``shuffled``), or sorted with one inversion at
+    the last index (``one_inversion``, in the last pool of each image)."""
+    if order == "shuffled":
+        perm = np.random.RandomState(seed).permutation(scores.shape[-1])
+        return np.ascontiguousarray(boxes[:, :, perm]), np.ascontiguousarray(scores[:, :, perm])
+    scores = scores.copy()
+    if order == "one_inversion":
+        scores[:, -1, -1] = scores[:, -1, -2] + np.float32(0.5)
+    return boxes, scores
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("order", ["sorted", "shuffled", "one_inversion"])
+@pytest.mark.parametrize("k,c", [(6300, 20), (3087, 80), (10647, 80), (12000, 20)])
+def test_nms_large_kernel_sorted_and_not(cuda, k, c, order):
+    """Model-like sorted pools (the walk), the same shuffled and with one
+    inversion at the last index (the rounds), at the exact evaluation's
+    shapes and beyond the staging limit (12,000: boxes from device
+    memory); at thresholds 0 and 0.2 and with nothing above the
+    threshold; exact."""
+    boxes, scores = reorder(*model_like_pool(k, c=c), order)
+    bt, st = torch.from_numpy(boxes).to(cuda), torch.from_numpy(scores).to(cuda)
+    for thr, empty in ((0.0, float("-inf")), (0.2, 0.0), (2.0, 0.0)):
+        got = _nms_exact(bt, st, max_det=NMS_MAX_DET, iou_threshold=0.5, score_threshold=thr,
+                         empty_score=empty)
+        assert (got[1] > 0).any() == (thr < 1)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [700, 6300])
+def test_nms_large_kernel_sorted_ties(cuda, k):
+    """``large_pool_case`` in a stable descending sort: tied scores in
+    eighths, -0 beside +0, pairs at IoU 0.5, an all-negative pool; the
+    walk at max_det 1, 20 and 200 (fewer picks than max_det)."""
+    boxes, scores = large_pool_case(k, b=2, c=3, shared=True)
+    s, idx = torch.sort(torch.from_numpy(scores), dim=-1, descending=True, stable=True)
+    bx = torch.gather(torch.from_numpy(boxes)[:, None].expand(2, 3, k, 4), 2,
+                      idx[..., None].expand(2, 3, k, 4))
+    bt, st = bx.contiguous().to(cuda), s.contiguous().to(cuda)
+    for max_det in (1, 20, 200):
+        for thr in (0.0, 0.25):
+            _nms_exact(bt, st, max_det=max_det, iou_threshold=0.5, score_threshold=thr)

@@ -1,6 +1,8 @@
 """The port's evaluation data path vs the JAX package: annotation parsing,
 the TFRecord codec both ways, the device letterbox (``eval_batch``) and
-the whole ``Dataset(mode=TEST)`` on a small mixed dataset.
+the whole ``Dataset(mode=TEST)`` on a small mixed dataset, with both
+packages decoding by PIL and by the native loader (staging images equal
+bit for bit), and the choice of decoder per sample.
 
 Float32 on the CPU; inputs made with numpy from a seed. The letterbox is
 a resampling by two contractions whose summation order differs between
@@ -8,6 +10,8 @@ XLA and PyTorch: images at atol 1e-5 (values in [0, 1]), boxes at atol
 1e-4 px, keep flags exact.
 """
 
+import contextlib
+import io
 import os
 import threading
 
@@ -18,6 +22,8 @@ import torch
 from PIL import Image
 
 import yoloret_tpu.native
+import yoloret_tpu_torch.native
+from test_torch_native import jax_native_built, need_toolchain
 from yoloret_tpu.data import annotations as jax_annotations
 from yoloret_tpu.data import tfrecord as jax_tfrecord
 from yoloret_tpu.data.augment import AugmentConfig as JaxAugmentConfig
@@ -218,17 +224,39 @@ def _write_dataset(root, n_list=3, n_shard=2, seed=0):
     return os.path.join(root, "*.*[dt]")  # a.txt and b.tfrecord, not the JPEGs
 
 
-def test_dataset_matches_jax(tmp_path, monkeypatch):
+@contextlib.contextmanager
+def pinned_decoder(decoder, tmp_dir):
+    """Both packages decode with ``decoder``: "pil" (the native loaders
+    reported unavailable) or "native" (both loaders built,
+    ``test_torch_native.jax_native_built``)."""
+    if decoder == "native":
+        with jax_native_built(tmp_dir):
+            yield
+        return
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(yoloret_tpu.native, "available", lambda: False)
+        mp.setattr(yoloret_tpu_torch.native, "available", lambda: False)
+        yield
+
+
+@pytest.mark.parametrize("decoder", ["pil", "native"])
+def test_dataset_matches_jax(tmp_path, decoder):
     """Text list + TFRecord shard, 5 images at batch 2: three batches, the
-    last padded with n_valid = 1. The JAX side decodes with PIL too."""
-    monkeypatch.setattr(yoloret_tpu.native, "available", lambda: False)
+    last padded with n_valid = 1. Both sides decode with ``decoder``; the
+    staging images are equal bit for bit."""
     pattern = _write_dataset(str(tmp_path))
-    want = list(JaxDataset(pattern, 2, ANCHORS, 3, input_hw=(64, 64),
-                           mode=JaxDatasetMode.TEST).build(epochs=1))
-    ds = Dataset(pattern, 2, input_hw=(64, 64), mode=DatasetMode.TEST, device="cpu",
-                 num_workers=2)
-    assert len(ds) == 5 and ds.staging == 64
-    got = list(ds.build(epochs=1))
+    with pinned_decoder(decoder, tmp_path):
+        jds = JaxDataset(pattern, 2, ANCHORS, 3, input_hw=(64, 64), mode=JaxDatasetMode.TEST)
+        want = list(jds.build(epochs=1))
+        ds = Dataset(pattern, 2, input_hw=(64, 64), mode=DatasetMode.TEST, device="cpu",
+                     num_workers=2)
+        assert len(ds) == 5 and ds.staging == 64
+        got = list(ds.build(epochs=1))
+        assert ds.decodes == {decoder: 6}  # the padded row of the last batch is decoded too
+        for i in range(len(ds)):
+            g, w = ds._load_sample(i), jds._load_sample(i, None)
+            np.testing.assert_array_equal(g[0], w[0])
+            assert g[0].dtype == w[0].dtype == np.uint8 and g[3] == w[3]
     assert [g["n_valid"] for g in got] == [w["n_valid"] for w in want] == [2, 2, 1]
     for g, w in zip(got, want):
         np.testing.assert_allclose(g["images"].numpy(), np.asarray(w["images"]), rtol=0,
@@ -240,6 +268,25 @@ def test_dataset_matches_jax(tmp_path, monkeypatch):
         np.testing.assert_array_equal(g["orig_boxes"], np.asarray(w["orig_boxes"]))
         np.testing.assert_array_equal(g["orig_valid"], np.asarray(w["orig_valid"]))
     assert sum(int(g["orig_valid"].sum()) for g in got[:2]) + int(got[2]["orig_valid"][0].sum()) > 0
+
+
+def test_png_payload_goes_to_pil(tmp_path):
+    """A TFRecord payload the native loader refuses (PNG) and a ``.png``
+    path decode with PIL, JPEGs natively; the counts say which."""
+    need_toolchain()
+    rs = np.random.RandomState(9)
+    im = rs.randint(0, 256, (40, 60, 3), dtype=np.uint8)
+    buf = io.BytesIO()
+    Image.fromarray(im).save(buf, format="PNG")
+    with tfrecord.TFRecordWriter(str(tmp_path / "p.tfrecord")) as w:
+        w.write(tfrecord.Example({"image/encoded": buf.getvalue()}).serialize())
+    Image.fromarray(im).save(tmp_path / "p.png")
+    Image.fromarray(im).save(tmp_path / "p.JPG")
+    (tmp_path / "p.txt").write_text(f"{tmp_path / 'p.png'}\n{tmp_path / 'p.JPG'}\n")
+    ds = Dataset(str(tmp_path / "p.*[dt]"), 3, input_hw=(32, 32), device="cpu", num_workers=1)
+    batch = next(ds.build(epochs=1))
+    assert ds.decodes == {"pil": 2, "native": 1} and batch["n_valid"] == 3
+    np.testing.assert_array_equal(batch["image_hw"].numpy(), [[40, 60]] * 3)
 
 
 def test_dataset_errors_and_early_close(tmp_path):

@@ -18,7 +18,8 @@ import pytest
 import torch
 from PIL import Image
 
-import yoloret_tpu.native
+import yoloret_tpu_torch.native
+from test_torch_data import pinned_decoder
 from test_torch_slice import ANCHORS, _heads
 from yoloret_tpu.data.pipeline import Dataset as JaxDataset
 from yoloret_tpu.data.pipeline import DatasetMode as JaxDatasetMode
@@ -200,26 +201,29 @@ def eval_setup(tmp_path_factory):
                 jax_model=jax_model, variables=variables)
 
 
-@pytest.mark.parametrize("pool,k", [("shared", 512), ("per_class", GRID)])
-def test_evaluate_map_matches_jax(eval_setup, pool, k):
+@pytest.mark.parametrize("pool,k,decoder", [("shared", 512, "pil"), ("shared", 512, "native"),
+                                             ("per_class", GRID, "native")])
+def test_evaluate_map_matches_jax(eval_setup, pool, k, decoder, tmp_path):
+    """Both packages decode with ``decoder`` (test_torch_data.pinned_decoder)."""
     s = eval_setup
-    ds = Dataset(s["pattern"], 2, input_hw=(SIZE, SIZE), device="cpu")
-    got_map, got_aps = evaluate_map(s["pred"], ds, CLASSES, num_candidates=k, pool=pool,
-                                    verbose=False)
-    with pytest.MonkeyPatch.context() as mp:
-        mp.setattr(yoloret_tpu.native, "available", lambda: False)
+    with pinned_decoder(decoder, tmp_path):
+        ds = Dataset(s["pattern"], 2, input_hw=(SIZE, SIZE), device="cpu")
+        got_map, got_aps = evaluate_map(s["pred"], ds, CLASSES, num_candidates=k, pool=pool,
+                                        verbose=False)
+        assert ds.decodes == {decoder: 6}
         jds = JaxDataset(s["pattern"], 2, ANCHORS, len(CLASSES), input_hw=(SIZE, SIZE),
                          mode=JaxDatasetMode.TEST)
         want_map, want_aps = jax_evaluate_map(
             s["jax_model"], s["variables"], jds, ANCHORS, CLASSES, num_candidates=k, pool=pool,
             approx_topk=False, verbose=False)
+        first = evaluate_map(s["pred"], ds, CLASSES, num_candidates=k, pool=pool,
+                             verbose=False, max_batches=1)[0]
     assert set(got_aps) == set(want_aps) == {0, 1, 2}
     for c in want_aps:
         assert abs(got_aps[c] - want_aps[c]) <= 1e-6, (c, got_aps, want_aps)
     assert abs(got_map - want_map) <= 1e-6
     assert 0.1 < got_map < 1.0  # the ground truth matches, not all of it
-    assert evaluate_map(s["pred"], ds, CLASSES, num_candidates=k, pool=pool, verbose=False,
-                        max_batches=1)[0] != got_map  # the first batch alone
+    assert first != got_map  # the first batch alone
 
 
 @pytest.mark.parametrize("exact", [False, True])
@@ -240,6 +244,8 @@ def test_cli_map_prints_the_same_map(eval_setup, exact, tmp_path, capsys):
     kw = dict(pool="per_class", num_candidates=GRID) if exact else {}
     want, _ = evaluate_map(s["pred"], ds, CLASSES, verbose=False, **kw)
     assert abs(printed - want) <= 5e-7 and "eval: 5 images" in out
+    n_native = 6 if yoloret_tpu_torch.native.available() else 0  # 3 batches of 2
+    assert f"decoded: native {n_native}, PIL {6 - n_native}" in out
 
 
 def test_cli_refuses_what_is_not_ported(capsys):

@@ -16,14 +16,16 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from hypothesis import given, settings
+from hypothesis import strategies as st
 
 from test_torch_cuda import AT_THRESHOLD, NMS_CASES, NMS_MAX_DET, large_pool_case, nms_case
 from yoloret_tpu.ops.nms_pallas import nms_fused
 from yoloret_tpu.ops.postprocess import _suppress_lax, _suppress_lax_shared
 from yoloret_tpu_torch.ops.boxes import iou
 from yoloret_tpu_torch.ops.nms_kernel import (
-    MAX_CANDIDATES, SMEM_LIMIT, large_smem_bytes, plan_nms, shared_smem_bytes, suppress,
-    suppress_plain)
+    MAX_CANDIDATES, ROUNDS_WARPS, ROUNDS_WARPS_GLOBAL, SMEM_LIMIT, WALK_WARPS, large_smem_bytes,
+    large_staged_bytes, plan_nms, shared_smem_bytes, suppress, suppress_plain, walk_smem_bytes)
 
 torch.set_num_threads(1)
 IOU_THR = 0.5
@@ -262,10 +264,15 @@ def test_plan_fits_every_shape(k):
 
 
 def test_plan_limits():
+    most = (SMEM_LIMIT - 16 * ROUNDS_WARPS_GLOBAL) // 4  # keys alone fill shared memory
+    assert large_smem_bytes(most) == SMEM_LIMIT
     for shared in (True, False):
         assert plan_nms(20, MAX_CANDIDATES + 1, 20, shared).variant == "per_class_large"
+        assert plan_nms(20, most, 20, shared).smem == SMEM_LIMIT
         with pytest.raises(ValueError):  # keys beyond shared memory
-            plan_nms(20, (SMEM_LIMIT - 8 * 32) // 4, 20, shared)
+            plan_nms(20, most + 1, 20, shared)
+        with pytest.raises(ValueError):  # the walk's picks beyond shared memory
+            plan_nms(20, 1000, SMEM_LIMIT // 20 + 1, shared)
     with pytest.raises(ValueError):
         plan_nms(20, 0, 20, shared=True)
     # pick buffers beyond shared memory even at one class per pass
@@ -281,9 +288,9 @@ def test_plan_coco_shapes():
     assert plan_nms(80, 512, 20, shared=True) == ("shared", 16, 32, 80, 209408)
     assert shared_smem_bytes(16, 512, 80, 32, 20) == 209408 <= SMEM_LIMIT
     for shared in (False, True):
-        assert plan_nms(80, 3087, 20, shared) == ("per_class_large", 8, 13, 80, 12624)
-        assert plan_nms(80, 10647, 20, shared) == ("per_class_large", 11, 32, 80, 42864)
-    assert large_smem_bytes(10647) == 42864
+        assert plan_nms(80, 3087, 20, shared) == ("per_class_large", 4, 32, 80, 62256)
+        assert plan_nms(80, 10647, 20, shared) == ("per_class_large", 11, 32, 80, 213456)
+    assert large_smem_bytes(10647) == 16 * 10647 + 4 * 10648 + 16 * 32 == 213456
 
 
 @pytest.mark.parametrize("k,shared,thr", [(64, True, 0.3), (512, True, 0.0),
@@ -308,15 +315,36 @@ def test_plain_matches_jax_at_80_classes(k, shared, thr):
 
 @pytest.mark.parametrize("k", [513, 1000, 6300, 10647, 30000, 58000])
 def test_plan_large_pools(k):
-    """Pools above 512, shared or per-class, take the large-pool kernel:
-    one warp per 256 candidates (8 to 32), the keys in shared memory."""
+    """Pools above 512, shared or per-class, take the large-pool kernels:
+    the rounds with the boxes staged in shared memory where K x 20 B fit
+    (32 warps), else the keys alone (16 warps); the walk's picks."""
+    staged = large_staged_bytes(k) <= SMEM_LIMIT
+    assert staged == (k <= 11596)
     for shared in (True, False):
         for max_det in (1, 20, 1000):
             p = plan_nms(20, k, max_det, shared)
             assert p.variant == "per_class_large" and p.classes_per_pass == 20
-            assert p.warps == min(32, max(8, -(-k // 256))) and 32 * p.warps * p.npl >= k
+            assert p.warps == (ROUNDS_WARPS if staged else ROUNDS_WARPS_GLOBAL)
+            assert 32 * p.warps * p.npl >= k > 32 * p.warps * (p.npl - 1)
             assert p.smem == large_smem_bytes(k) <= SMEM_LIMIT and p.smem >= 4 * k
+            assert (p.smem >= 20 * k) == staged
+            assert walk_smem_bytes(max_det) == 20 * max_det
     assert plan_nms(20, 512, 20, shared=False).variant == "per_class"
+
+
+@pytest.mark.parametrize("c", [20, 80])
+@pytest.mark.parametrize("k,want", [
+    (513, (1, 32, 10784)), (3087, (4, 32, 62256)), (6300, (7, 32, 126512)),
+    (10647, (11, 32, 213456)), (11597, (23, 16, 46656))])
+def test_plan_large_pools_at_exact_shapes(c, k, want):
+    """The exact evaluation's whole grid at 224 (3,087), 320 (6,300) and
+    416 (10,647), the smallest large pool and the first pool whose boxes
+    no longer fit beside its keys (11,597): (npl, warps, smem) of the
+    rounds, the same shared or not; csrc/nms.cu refuses any other plan."""
+    for shared in (False, True):
+        assert plan_nms(c, k, NMS_MAX_DET, shared) == ("per_class_large", *want[:2], c, want[2])
+    assert large_staged_bytes(k - 1) <= SMEM_LIMIT or k == 11597
+    assert WALK_WARPS == 4 and walk_smem_bytes(NMS_MAX_DET) == 400
 
 
 @pytest.mark.parametrize("k", [513, 6300])
@@ -338,3 +366,171 @@ def test_large_pool_plain_matches_jax(k, shared):
                          empty_score=float("-inf"), **kw)
     empty = ps_inf == float("-inf")
     assert empty.any() and torch.equal(ps_inf[~empty], ps[~empty]) and not ps[empty].any()
+
+
+# -- the large-pool walk: what it rests on, and its algorithm --------------
+
+
+def _kills(p, q, thr):
+    """The large-pool kernels' test of iou(p, q) > thr (p the pick, q [N,
+    4]) in numpy float32: the margin test where the union is at least
+    2^-58 and it settles the comparison, else the division."""
+    f32 = np.float32
+    with np.errstate(invalid="ignore", over="ignore"):
+        pa = np.maximum(f32(0), p[3] - p[1]) * np.maximum(f32(0), p[2] - p[0])
+        qa = np.maximum(f32(0), q[:, 3] - q[:, 1]) * np.maximum(f32(0), q[:, 2] - q[:, 0])
+        iy = np.maximum(f32(0), np.minimum(p[2], q[:, 2]) - np.maximum(p[0], q[:, 0]))
+        ix = np.maximum(f32(0), np.minimum(p[3], q[:, 3]) - np.maximum(p[1], q[:, 1]))
+        inter = ix * iy
+        uni = pa + qa - inter
+    kill, _ = _decide(inter, uni, thr)
+    exact, _ = _decide(inter, uni, thr, divide_all=True)
+    return np.where(uni >= f32(2.0 ** -58), kill, exact)
+
+
+def _walk_pool(boxes, scores, max_det, iou_threshold, score_threshold):
+    """``csrc/nms.cu::nms_large_walk`` on one pool (boxes [K, 4], scores
+    [K]) in numpy: None where a key is below its successor's (the pool
+    goes to the rounds), else the picks' indices and the candidates read:
+    chunks of 32 in index order, each candidate tested against the picks
+    so far, then the chunk's survivors resolved lowest lane first; the walk
+    ends at the max_det-th pick or after the chunk with the first
+    inactive key."""
+    active = (scores >= score_threshold) & (scores > -np.inf)
+    key = np.where(active, scores, -np.inf)
+    if (key[:-1] < key[1:]).any():
+        return None
+    picks, read = [], 0
+    for base in range(0, len(scores), 32):
+        if len(picks) == max_det:
+            break
+        live = active[base:base + 32]
+        alive = live.copy()
+        read = base + len(live)
+        for j in picks:
+            alive &= ~_kills(boxes[j], boxes[base:base + 32], iou_threshold)
+        while alive.any() and len(picks) < max_det:
+            lane = int(np.argmax(alive))
+            picks.append(base + lane)
+            alive[:lane + 1] = False
+            alive &= ~_kills(boxes[base + lane], boxes[base:base + 32], iou_threshold)
+        if not live.all() or len(live) < 32:
+            break
+    return picks, read
+
+
+def _sorted_pools(boxes, scores):
+    """Per-class pools [B, C, K, 4] of a shared box set [B, K, 4], each
+    class's candidates in a stable descending sort of its scores, as
+    ``per_class_candidates`` orders them."""
+    s, idx = torch.sort(torch.from_numpy(scores), dim=-1, descending=True, stable=True)
+    b, c, k = scores.shape
+    bx = torch.gather(torch.from_numpy(boxes)[:, None].expand(b, c, k, 4), 2,
+                      idx[..., None].expand(b, c, k, 4))
+    return bx.contiguous().numpy(), s.contiguous().numpy()
+
+
+@st.composite
+def _pools(draw):
+    """One image's sorted per-class pools: integer boxes on a small grid
+    (overlaps, identical boxes), the pairs of AT_THRESHOLD (IoU 0.5
+    exactly and by rounding) at random places, scores in eighths (ties,
+    -0 beside +0, some negative), and a score threshold that leaves all,
+    some or none of them active."""
+    c, k = draw(st.integers(1, 3)), draw(st.integers(1, 200))
+    seed = draw(st.integers(0, 2 ** 31 - 1))
+    rs = np.random.RandomState(seed)
+    grid = draw(st.sampled_from([4, 12, 40]))
+    yx = rs.randint(0, grid, (1, k, 2)).astype(np.float32)
+    boxes = np.concatenate([yx, yx + rs.randint(1, 9, (1, k, 2))], -1).astype(np.float32)
+    pairs = np.array([q for pair in AT_THRESHOLD for q in pair], np.float32)
+    at = rs.choice(k, min(k, len(pairs)), replace=False)
+    boxes[0, at] = pairs[:len(at)]
+    scores = (rs.randint(-2, 9, (1, c, k)) / 8).astype(np.float32)
+    scores[(scores == 0) & (rs.rand(1, c, k) < 0.5)] = -0.0
+    thr = draw(st.sampled_from([0.0, 0.25, 0.5, 2.0, float("-inf")]))
+    max_det = draw(st.sampled_from([1, 3, 20, 60]))
+    return (*_sorted_pools(boxes, scores), thr, max_det)
+
+
+@settings(max_examples=150, deadline=None, derandomize=True, database=None)
+@given(_pools())
+def test_sorted_pool_needs_only_its_prefix(pool):
+    """On a pool in stable descending order, greedy NMS on the prefix up
+    to the last pick gives what it gives on the whole pool (the fact the
+    walk rests on); the walk's picks are greedy's, and it reads at most
+    the chunk of 32 that holds the last pick, or of the first inactive
+    candidate. Ties, IoU exactly 0.5, no active candidate, fewer picks
+    than max_det."""
+    boxes, scores, thr, max_det = pool
+    kw = dict(max_det=max_det, iou_threshold=IOU_THR, score_threshold=thr)
+    empty = dict(kw, empty_score=float("-inf"))  # empty slots told from picks of score 0
+    for c in range(scores.shape[1]):
+        bx, sc = boxes[:, c:c + 1], scores[:, c:c + 1]
+        want = suppress_plain(torch.from_numpy(bx), torch.from_numpy(sc), **empty)
+        walked = _walk_pool(bx[0, 0], sc[0, 0], **kw)
+        assert walked is not None  # a stable descending sort passes the order test
+        picks, read = walked
+        assert int(torch.isfinite(want[1]).sum()) == len(picks)
+        np.testing.assert_array_equal(want[1][0, 0, :len(picks)].numpy(), sc[0, 0, picks])
+        np.testing.assert_array_equal(want[0][0, 0, :len(picks)].numpy(), bx[0, 0, picks])
+        active = int(((sc[0, 0] >= thr) & (sc[0, 0] > -np.inf)).sum())
+        assert len(picks) <= min(active, max_det)
+        last = picks[-1] + 1 if picks else 0
+        # never past the chunk of the last pick, or of the first inactive candidate
+        end = last if len(picks) == max_det else active + 1
+        assert read <= min(-(-end // 32) * 32, sc.shape[-1])
+        cut = max(last, 1)
+        got = suppress_plain(torch.from_numpy(np.ascontiguousarray(bx[:, :, :cut])),
+                             torch.from_numpy(np.ascontiguousarray(sc[:, :, :cut])), **empty)
+        for g, w in zip(got, want):
+            np.testing.assert_array_equal(g.numpy(), w.numpy())
+            np.testing.assert_array_equal(np.signbit(g.numpy()), np.signbit(w.numpy()))
+        if active == 0:
+            assert picks == [] and read <= 32
+
+
+def _walk_all(boxes, scores, **kw):
+    """``_walk_pool`` over per-class pools [B, C, K, 4], laid out as the
+    kernel's outputs (empty slots: zero box, score 0); None if any pool is
+    unsorted."""
+    b, c, _ = scores.shape
+    out_b = np.zeros((b, c, kw["max_det"], 4), np.float32)
+    out_s = np.zeros((b, c, kw["max_det"]), np.float32)
+    for i in range(b):
+        for j in range(c):
+            walked = _walk_pool(boxes[i, j], scores[i, j], **kw)
+            if walked is None:
+                return None
+            picks = walked[0]
+            out_b[i, j, :len(picks)], out_s[i, j, :len(picks)] = boxes[i, j, picks], scores[i, j, picks]
+    return out_b, out_s
+
+
+@pytest.mark.parametrize("case", ["ties", "distinct", "one_inversion", "shuffled"])
+def test_walk_algorithm_matches_plain(case):
+    """The walk model on sorted large pools (``large_pool_case`` sorted:
+    ties in eighths, pairs at IoU 0.5, an all-negative pool) equals the
+    plain version exactly; one inversion at the last index, or a shuffle,
+    sends the pool to the rounds."""
+    boxes, scores = large_pool_case(700, b=2, c=3, shared=True)
+    if case == "distinct":
+        rs = np.random.RandomState(2)
+        scores = (rs.permutation(scores.size).reshape(scores.shape) / scores.size).astype(
+            np.float32)
+    bx, sc = _sorted_pools(boxes, scores)
+    if case == "one_inversion":
+        sc[0, 1, -1] = sc[0, 1, 0] + 1
+    elif case == "shuffled":
+        perm = np.random.RandomState(3).permutation(sc.shape[-1])
+        bx, sc = bx[:, :, perm], sc[:, :, perm]
+    kw = dict(max_det=NMS_MAX_DET, iou_threshold=IOU_THR, score_threshold=0.25)
+    walked = _walk_all(bx, sc, **kw)
+    if case in ("one_inversion", "shuffled"):
+        assert walked is None
+        return
+    want = suppress_plain(torch.from_numpy(bx), torch.from_numpy(sc), **kw)
+    np.testing.assert_array_equal(walked[1], want[1].numpy())
+    np.testing.assert_array_equal(np.signbit(walked[1]), np.signbit(want[1].numpy()))
+    np.testing.assert_array_equal(walked[0], want[0].numpy())
+    assert (want[1] > 0).any() and ((want[1] == 0).any() or case == "distinct")

@@ -64,21 +64,47 @@
 // nms_large: pools of any size above that (per-class pools, K up to
 // ~58k; a shared pool is the same with class stride 0). The exact-NMS
 // evaluation runs it with the whole grid as each class's pool (6,300
-// candidates at 320x320, 10,647 at 416x416). One CTA per (image, class),
-// 8-32 warps.
-//   What bounds it: the rounds' operations (one IoU per active candidate
-//   per round) and, at the bound, the bytes of scores and boxes read once.
-//   Design: the class's K scores sit in shared memory as order-preserving
-//   integer keys (4 B each, 0 = inactive); candidate k belongs to thread
-//   k mod T in every phase, so a thread reads and writes only its own
-//   keys. Boxes stay in device memory (in L2 after the first round) and
-//   are read only for candidates still active. A round is a strided scan
-//   for the thread's top key (ascending index, strict >: ties to the
-//   lowest index), a warp reduction (__reduce_max_sync on the key, then
-//   __reduce_min_sync on the index among the lanes holding it), one pass
-//   of warp 0 over the warp winners, and one IoU per active candidate
-//   against the pick: two barriers a round. The CTA stops at the first
-//   round with nothing left to pick.
+// candidates at 320x320, 10,647 at 416x416), every pool sorted by score
+// (ops/postprocess.py::per_class_candidates).
+//   What bounds it: bytes. Every score must be read once to know the
+//   pool's order; on a pool whose keys do not increase, greedy's next
+//   pick is the first active candidate in index order, so once the D-th
+//   pick is made no later candidate can change the output, and only the
+//   boxes up to the last pick are needed. On an unsorted pool, the
+//   rounds' operations (one IoU per active candidate per round).
+//   Design: two kernels, launched back to back.
+//   nms_large_walk, one CTA of WALK_WARPS warps per (image, class): the
+//   class's scores are read once, coalesced (WALK_UNROLL 16-byte loads in
+//   flight a thread, from the first 16-byte aligned score), as
+//   order-preserving keys (0 = inactive); the pool is sorted when no key
+//   is below its successor (a group's last key against the next lane's
+//   first by a shuffle; the warp's last lane reads its successor again),
+//   one block-wide AND. The first chunk's boxes are fetched meanwhile.
+//   Sorted (the main path): warp 0 walks the candidates in index order,
+//   32 at a time, one lane each. A chunk loads its own boxes only; each
+//   lane tests its candidate against the picks so far (at most D, in
+//   shared memory); the chunk's own greedy order is resolved lane by lane
+//   (ballot of the survivors, the lowest is picked, its box broadcast by
+//   shuffles, the later lanes test it). The walk stops at the D-th pick
+//   or at the first inactive key (every later key is inactive too):
+//   boxes after that are never read. Unsorted: the CTA flags the pool and
+//   ends.
+//   nms_large_rounds, persistent (as many CTAs as fit on the card, one
+//   pool after another): each flagged pool gets the greedy rounds. Its
+//   keys, and where K x 20 B fit in shared memory also its boxes, are
+//   staged in shared memory for all rounds (above that size the boxes
+//   are read from device memory each round). Candidate k belongs to
+//   thread k mod T, which alone reads and writes its key. A round is a
+//   strided scan for the thread's top key (ascending index, strict >:
+//   ties to the lowest index), a warp reduction (__reduce_max_sync on the
+//   key, __reduce_min_sync on the index), the warp winners into one of
+//   two buffers, one barrier, every warp's own reduction of the winners
+//   (the buffers alternate, so the next round's writes cannot meet this
+//   round's reads), and one IoU per active candidate against the pick.
+//   Both kernels skip the division where inter against thr * (1 +- 2^-18)
+//   * union settles the comparison (a union of at least MIN_AREA keeps
+//   those products normal) and divide exactly as the plain version does
+//   elsewhere.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -88,7 +114,7 @@ namespace {
 
 constexpr int WARPS = 4;  // warps per block of the per-class kernel
 constexpr int MAX_NPL = 16;
-constexpr int MAX_SHARED_WARPS = 32;  // also the most warps of nms_large
+constexpr int MAX_SHARED_WARPS = 32;
 // The variants, in the numbering of ops/nms_kernel.py::VARIANTS.
 constexpr int VARIANT_PER_CLASS = 0, VARIANT_SHARED = 1, VARIANT_LARGE = 2;
 constexpr int SMEM_LIMIT = 232448;  // bytes of shared memory one block may use (sm_90)
@@ -409,91 +435,248 @@ __global__ void __launch_bounds__(MAX_SHARED_WARPS * 32)
   }
 }
 
-// ---- large per-class pools ---------------------------------------------
+// ---- large pools -------------------------------------------------------
 
-// Bytes of dynamic shared memory nms_large lays out: the keys [K] (16-byte
-// rounded), the warp winners' keys and indices [MAX_SHARED_WARPS] each,
-// and the pick (ops/nms_kernel.py::large_smem_bytes computes the same).
-long long large_smem_bytes(int K) { return 16 * ((K + 3LL) / 4) + 8 * MAX_SHARED_WARPS + 16; }
+constexpr int WALK_WARPS = 4;    // warps per CTA of nms_large_walk
+constexpr int WALK_UNROLL = 4;   // 16-byte score loads in flight per thread
+constexpr int ROUNDS_WARPS = 32;         // nms_large_rounds with its boxes staged
+constexpr int ROUNDS_WARPS_GLOBAL = 16;  // and with its boxes in device memory
 
-__global__ void __launch_bounds__(MAX_SHARED_WARPS * 32)
-    nms_large(const float* __restrict__ scores, const float* __restrict__ boxes,
-              float* __restrict__ out_boxes, float* __restrict__ out_scores, int C, int K, int D,
-              long long box_bstride, long long box_cstride, float iou_thr, float score_thr,
-              float empty_score) {
+// Bytes of dynamic shared memory nms_large_rounds lays out for K
+// candidates: with its boxes staged, the boxes [K] (float4), the keys [K]
+// (16-byte rounded) and two buffers of the warp winners' keys and indices
+// [2][ROUNDS_WARPS] each; where that exceeds SMEM_LIMIT, the keys and the
+// winners of ROUNDS_WARPS_GLOBAL warps. ops/nms_kernel.py::
+// large_smem_bytes computes the same.
+long long large_staged_bytes(int K) {
+  return 16LL * K + 16 * ((K + 3LL) / 4) + 16 * ROUNDS_WARPS;
+}
+long long large_smem_bytes(int K) {
+  const long long staged = large_staged_bytes(K);
+  return staged <= SMEM_LIMIT ? staged : 16 * ((K + 3LL) / 4) + 16 * ROUNDS_WARPS_GLOBAL;
+}
+// Bytes of dynamic shared memory nms_large_walk lays out: the picks'
+// boxes and scores [D] (ops/nms_kernel.py::walk_smem_bytes).
+long long walk_smem_bytes(int D) { return 20LL * D; }
+
+__device__ __forceinline__ uint32_t active_key(float v, float score_thr) {
+  return (v >= score_thr && v > -INFINITY) ? order_key(v) : 0u;
+}
+
+__device__ __forceinline__ float box_area(float4 q) {
+  return fmaxf(0.f, q.w - q.y) * fmaxf(0.f, q.z - q.x);
+}
+
+// Box k of a pool (16-byte loads where the pool is 16-byte aligned).
+__device__ __forceinline__ float4 load_box(const float* __restrict__ bx, int k, bool aligned) {
+  if (aligned) return __ldg(reinterpret_cast<const float4*>(bx) + k);
+  return make_float4(__ldg(bx + 4 * k), __ldg(bx + 4 * k + 1), __ldg(bx + 4 * k + 2),
+                     __ldg(bx + 4 * k + 3));
+}
+
+// iou(p, q) > thr as the plain version decides it (p the pick): inter
+// against lo/hi * union where that settles it beyond rounding and the
+// union keeps the products normal, else the division.
+__device__ __forceinline__ bool kills(float4 p, float pa, float4 q, float iou_thr, float lo,
+                                      float hi) {
+  float inter, uni;
+  pair_terms(p, pa, q, box_area(q), inter, uni);
+  if (uni >= MIN_AREA) {
+    if (inter > hi * uni) return true;
+    if (inter < lo * uni) return false;
+  }
+  return (uni != 0.f ? inter / uni : 0.f) > iou_thr;
+}
+
+__global__ void __launch_bounds__(WALK_WARPS * 32)
+    nms_large_walk(const float* __restrict__ scores, const float* __restrict__ boxes,
+                   float* __restrict__ out_boxes, float* __restrict__ out_scores,
+                   int* __restrict__ unsorted, int C, int K, int D, long long box_bstride,
+                   long long box_cstride, float iou_thr, float thr_lo, float thr_hi,
+                   float score_thr, float empty_score) {
   extern __shared__ __align__(16) unsigned char smem[];
-  uint32_t* skey = reinterpret_cast<uint32_t*>(smem);                   // [K]
-  uint32_t* wkey = skey + ((K + 3) & ~3);                               // [MAX_SHARED_WARPS]
-  unsigned* widx = wkey + MAX_SHARED_WARPS;                             // [MAX_SHARED_WARPS]
-  unsigned* pick = widx + MAX_SHARED_WARPS;                             // key, index
+  float4* pbox = reinterpret_cast<float4*>(smem);     // [D]
+  float* pscore = reinterpret_cast<float*>(pbox + D);  // [D]
 
   const int bc = blockIdx.x;
   const int b = bc / C, c = bc - b * C;
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int nthreads = blockDim.x, nwarps = nthreads >> 5;
+  const int tid = threadIdx.x, lane = tid & 31;
+  const int nthreads = blockDim.x;
   const float* sc = scores + size_t(bc) * K;
   const float* bx = boxes + b * box_bstride + c * box_cstride;
 
-  for (int k = tid; k < K; k += nthreads) {
-    const float v = sc[k];
-    skey[k] = (v >= score_thr && v > -INFINITY) ? order_key(v) : 0u;
-  }  // no barrier: a thread reads back only the keys it wrote
+  // Is every key at least its successor's? The scores as a head of h < 4
+  // scalars, n4 16-byte groups (group q is thread q mod T's; the successor
+  // of its last score is the next lane's first, by a shuffle, or read
+  // again) and a tail of scalars.
+  const int h = min(K, int((4u - unsigned((reinterpret_cast<uintptr_t>(sc) >> 2) & 3u)) & 3u));
+  const int n4 = (K - h) >> 2;
+  const float4* body = reinterpret_cast<const float4*>(sc + h);
+  const bool aligned = (reinterpret_cast<uintptr_t>(bx) & 15) == 0;
+  // warp 0's first chunk of boxes, fetched while the scores arrive
+  const float4 first_q = tid < 32 && tid < K ? load_box(bx, tid, aligned)
+                                             : make_float4(0.f, 0.f, 0.f, 0.f);
+  bool sorted = true;
+  if (tid == 0) {
+    for (int k = 0; k < h && k + 1 < K; ++k)
+      sorted &= active_key(__ldg(sc + k), score_thr) >= active_key(__ldg(sc + k + 1), score_thr);
+    for (int k = h + 4 * n4; k + 1 < K; ++k)
+      sorted &= active_key(__ldg(sc + k), score_thr) >= active_key(__ldg(sc + k + 1), score_thr);
+  }
+  for (int base = 0; base < n4; base += WALK_UNROLL * nthreads) {
+    float4 v[WALK_UNROLL];
+    float nx[WALK_UNROLL];
+#pragma unroll
+    for (int u = 0; u < WALK_UNROLL; ++u) {
+      const int q = base + u * nthreads + tid, e = h + 4 * q + 4;
+      v[u] = q < n4 ? __ldg(body + q) : make_float4(-INFINITY, -INFINITY, -INFINITY, -INFINITY);
+      nx[u] = (q < n4 && (lane == 31 || q + 1 >= n4) && e < K) ? __ldg(sc + e) : -INFINITY;
+    }
+#pragma unroll
+    for (int u = 0; u < WALK_UNROLL; ++u) {
+      const int q = base + u * nthreads + tid;
+      const uint32_t k0 = active_key(v[u].x, score_thr), k1 = active_key(v[u].y, score_thr);
+      const uint32_t k2 = active_key(v[u].z, score_thr), k3 = active_key(v[u].w, score_thr);
+      uint32_t next = __shfl_down_sync(FULL, k0, 1);
+      if (lane == 31 || q + 1 >= n4) next = active_key(nx[u], score_thr);  // 0 past the end
+      if (q < n4) sorted &= k0 >= k1 && k1 >= k2 && k2 >= k3 && k3 >= next;
+    }
+  }
+  sorted = __syncthreads_and(sorted);
+  if (tid == 0) unsorted[bc] = sorted ? 0 : 1;
+  if (!sorted || tid >= 32) return;  // an unsorted pool is nms_large_rounds's
 
-  float* ob = out_boxes + size_t(bc) * D * 4;
-  float* os = out_scores + size_t(bc) * D;
-  int r = 0;
-  for (; r < D; ++r) {
-    uint32_t best = 0u;
-    unsigned bi = 0xffffffffu;
-    for (int k = tid; k < K; k += nthreads) {  // ascending index: strict > keeps the lowest
-      const uint32_t key = skey[k];
-      if (key > best) {
-        best = key;
-        bi = unsigned(k);
+  // The walk, warp 0: the picks are the first active candidates that no
+  // earlier pick kills.
+  int np = 0;
+  for (int base = 0; base < K && np < D; base += 32) {
+    const int k = base + lane;
+    const float v = k < K ? __ldg(sc + k) : -INFINITY;
+    const unsigned live = __ballot_sync(FULL, active_key(v, score_thr) != 0u);
+    bool alive = (live >> lane) & 1u;
+    float4 q = make_float4(0.f, 0.f, 0.f, 0.f);
+    if (alive) {
+      q = base == 0 ? first_q : load_box(bx, k, aligned);
+      for (int j = 0; j < np && alive; ++j) {
+        const float4 p = pbox[j];
+        alive = !kills(p, box_area(p), q, iou_thr, thr_lo, thr_hi);
       }
     }
-    const uint32_t wtop = __reduce_max_sync(FULL, best);
-    const unsigned wi = __reduce_min_sync(FULL, best == wtop ? bi : 0xffffffffu);
-    if (lane == 0) {
-      wkey[warp] = wtop;
-      widx[warp] = wi;
-    }
-    __syncthreads();
-    if (warp == 0) {
-      const uint32_t k2 = lane < nwarps ? wkey[lane] : 0u;
-      const unsigned i2 = lane < nwarps ? widx[lane] : 0xffffffffu;
-      const uint32_t top = __reduce_max_sync(FULL, k2);
-      const unsigned ti = __reduce_min_sync(FULL, k2 == top ? i2 : 0xffffffffu);
+    unsigned surv = __ballot_sync(FULL, alive);
+    while (surv != 0u && np < D) {  // the chunk's own greedy order, lowest lane first
+      const int l = __ffs(surv) - 1;
+      const float4 p = make_float4(__shfl_sync(FULL, q.x, l), __shfl_sync(FULL, q.y, l),
+                                   __shfl_sync(FULL, q.z, l), __shfl_sync(FULL, q.w, l));
+      const float ps = __shfl_sync(FULL, v, l);
       if (lane == 0) {
-        pick[0] = top;
-        pick[1] = ti;
+        pbox[np] = p;
+        pscore[np] = ps;
+      }
+      ++np;
+      if (lane <= l || (alive && kills(p, box_area(p), q, iou_thr, thr_lo, thr_hi)))
+        alive = false;
+      surv = __ballot_sync(FULL, alive);
+    }
+    __syncwarp();  // lane 0's picks are visible to the next chunk's tests
+    if (live != FULL) break;  // an inactive key: every later key is inactive too
+  }
+  __syncwarp();
+  float4* ob = reinterpret_cast<float4*>(out_boxes) + size_t(bc) * D;
+  float* os = out_scores + size_t(bc) * D;
+  for (int t = lane; t < D; t += 32) {
+    os[t] = t < np ? pscore[t] : empty_score;
+    ob[t] = t < np ? pbox[t] : make_float4(0.f, 0.f, 0.f, 0.f);
+  }
+}
+
+template <bool STAGED>  // boxes in shared memory for all rounds, or read from device memory
+__global__ void __launch_bounds__((STAGED ? ROUNDS_WARPS : ROUNDS_WARPS_GLOBAL) * 32)
+    nms_large_rounds(const float* __restrict__ scores, const float* __restrict__ boxes,
+                     float* __restrict__ out_boxes, float* __restrict__ out_scores,
+                     const int* __restrict__ unsorted, int BC, int C, int K, int D,
+                     long long box_bstride, long long box_cstride, float iou_thr, float thr_lo,
+                     float thr_hi, float score_thr, float empty_score) {
+  constexpr int NW = STAGED ? ROUNDS_WARPS : ROUNDS_WARPS_GLOBAL;
+  extern __shared__ __align__(16) unsigned char smem[];
+  float4* sbox = reinterpret_cast<float4*>(smem);                        // [K] if STAGED
+  uint32_t* skey = reinterpret_cast<uint32_t*>(sbox + (STAGED ? K : 0));  // [K]
+  uint32_t* wkey = skey + ((K + 3) & ~3);                                 // [2][NW]
+  unsigned* widx = wkey + 2 * NW;                                         // [2][NW]
+
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int nthreads = blockDim.x;
+  // This CTA's pools are blockIdx.x + j * gridDim.x; every warp reads the
+  // flags of 32 of them at once and takes the flagged ones in turn.
+  for (int j0 = 0; blockIdx.x + j0 * gridDim.x < BC; j0 += 32) {
+    const int mine = blockIdx.x + (j0 + lane) * gridDim.x;
+    unsigned todo = __ballot_sync(FULL, mine < BC && unsorted[mine] != 0);
+    while (todo != 0u) {
+      const int bc = blockIdx.x + (j0 + __ffs(todo) - 1) * gridDim.x;
+      todo &= todo - 1;
+      const int b = bc / C, c = bc - b * C;
+      const float* sc = scores + size_t(bc) * K;
+      const float* bx = boxes + b * box_bstride + c * box_cstride;
+      const bool aligned = (reinterpret_cast<uintptr_t>(bx) & 15) == 0;
+      __syncthreads();  // the previous pool's last round has read its boxes and winners
+#pragma unroll 4
+      for (int k = tid; k < K; k += nthreads) {
+        skey[k] = active_key(__ldg(sc + k), score_thr);
+        if (STAGED) sbox[k] = load_box(bx, k, aligned);
+      }  // keys: each thread's own; boxes: read after the first round's barrier
+
+      float4* ob = reinterpret_cast<float4*>(out_boxes) + size_t(bc) * D;
+      float* os = out_scores + size_t(bc) * D;
+      int r = 0;
+      for (; r < D; ++r) {
+        uint32_t best = 0u;
+        unsigned bi = 0xffffffffu;
+        for (int k = tid; k < K; k += nthreads) {  // ascending index: strict > keeps the lowest
+          const uint32_t key = skey[k];
+          if (key > best) {
+            best = key;
+            bi = unsigned(k);
+          }
+        }
+        const uint32_t wtop = __reduce_max_sync(FULL, best);
+        const unsigned wi = __reduce_min_sync(FULL, best == wtop ? bi : 0xffffffffu);
+        const int buf = (r & 1) * NW;
+        if (lane == 0) {
+          wkey[buf + warp] = wtop;
+          widx[buf + warp] = wi;
+        }
+        __syncthreads();
+        const uint32_t k2 = lane < NW ? wkey[buf + lane] : 0u;
+        const unsigned i2 = lane < NW ? widx[buf + lane] : 0xffffffffu;
+        const uint32_t top = __reduce_max_sync(FULL, k2);
+        if (top == 0u) break;  // nothing active is left (every warp reads the same winners)
+        const int p = int(__reduce_min_sync(FULL, k2 == top ? i2 : 0xffffffffu));
+        const float4 pb = STAGED ? sbox[p] : load_box(bx, p, aligned);
+        if (tid == 0) {
+          os[r] = __ldg(sc + p);
+          ob[r] = pb;
+        }
+        const float pa = box_area(pb);
+        for (int k = tid; k < K; k += nthreads) {
+          if (skey[k] == 0u) continue;
+          const float4 q = STAGED ? sbox[k] : load_box(bx, k, aligned);
+          if (k == p || kills(pb, pa, q, iou_thr, thr_lo, thr_hi)) skey[k] = 0u;
+        }
+      }
+      for (int t = r + tid; t < D; t += nthreads) {
+        os[t] = empty_score;
+        ob[t] = make_float4(0.f, 0.f, 0.f, 0.f);
       }
     }
-    __syncthreads();
-    if (pick[0] == 0u) break;  // nothing active is left (the same value in every thread)
-    const int p = int(pick[1]);
-    const float4 pb = make_float4(bx[4 * p + 0], bx[4 * p + 1], bx[4 * p + 2], bx[4 * p + 3]);
-    if (tid == 0) {
-      os[r] = sc[p];
-      ob[4 * r + 0] = pb.x;
-      ob[4 * r + 1] = pb.y;
-      ob[4 * r + 2] = pb.z;
-      ob[4 * r + 3] = pb.w;
-    }
-    const float pa = fmaxf(0.f, pb.w - pb.y) * fmaxf(0.f, pb.z - pb.x);
-    for (int k = tid; k < K; k += nthreads) {
-      if (skey[k] == 0u) continue;
-      const float4 q = make_float4(bx[4 * k + 0], bx[4 * k + 1], bx[4 * k + 2], bx[4 * k + 3]);
-      const float qa = fmaxf(0.f, q.w - q.y) * fmaxf(0.f, q.z - q.x);
-      float inter, uni;
-      pair_terms(pb, pa, q, qa, inter, uni);
-      if (k == p || (uni != 0.f ? inter / uni : 0.f) > iou_thr) skey[k] = 0u;
-    }
   }
-  for (int t = r + tid; t < D; t += nthreads) {
-    os[t] = empty_score;
-    ob[4 * t + 0] = ob[4 * t + 1] = ob[4 * t + 2] = ob[4 * t + 3] = 0.f;
-  }
+}
+
+// The margin test's bounds: thr * (1 -+ 2^-18). Outside [2^-60, 2^60] (or
+// NaN) its products could leave the normal range, so infinite bounds
+// settle nothing and every pair is divided.
+void margin_bounds(float iou_thr, float& lo, float& hi) {
+  const bool fast = iou_thr >= 0x1p-60f && iou_thr <= 0x1p60f;
+  lo = fast ? float(double(iou_thr) * (1.0 - 0x1p-18)) : -INFINITY;
+  hi = fast ? float(double(iou_thr) * (1.0 + 0x1p-18)) : INFINITY;
 }
 
 template <int NPL>
@@ -516,12 +699,8 @@ cudaError_t launch(const void* scores, const void* boxes, void* out_boxes, void*
     if (e != cudaSuccess) return e;
     smem_allowed = SMEM_LIMIT;
   }
-  // The margin test's bounds; outside [2^-60, 2^60] (or NaN) its products
-  // could leave the normal range, so infinite bounds settle nothing and
-  // every pair is divided.
-  const bool fast = iou_thr >= 0x1p-60f && iou_thr <= 0x1p60f;
-  const float lo = fast ? float(double(iou_thr) * (1.0 - 0x1p-18)) : -INFINITY;
-  const float hi = fast ? float(double(iou_thr) * (1.0 + 0x1p-18)) : INFINITY;
+  float lo, hi;
+  margin_bounds(iou_thr, lo, hi);
   nms_shared<NPL><<<B, warps * 32, smem, stream>>>(
       static_cast<const float*>(scores), static_cast<const float*>(boxes),
       static_cast<float*>(out_boxes), static_cast<float*>(out_scores), C, K, D, bstride, cs,
@@ -529,22 +708,62 @@ cudaError_t launch(const void* scores, const void* boxes, void* out_boxes, void*
   return cudaGetLastError();
 }
 
-cudaError_t launch_large(const void* scores, const void* boxes, void* out_boxes,
-                         void* out_scores, int B, int C, int K, int D, long long bstride,
-                         long long cstride, float iou_thr, float score_thr, float empty_score,
-                         int warps, int smem, cudaStream_t stream) {
+template <bool STAGED>
+cudaError_t launch_rounds(const void* scores, const void* boxes, void* out_boxes,
+                          void* out_scores, const int* flags, int B, int C, int K, int D,
+                          long long bstride, long long cstride, float iou_thr, float lo, float hi,
+                          float score_thr, float empty_score, int smem, cudaStream_t stream) {
+  constexpr int threads = (STAGED ? ROUNDS_WARPS : ROUNDS_WARPS_GLOBAL) * 32;
   static int smem_allowed = 48 * 1024;
+  cudaError_t e;
   if (smem > smem_allowed) {
-    const cudaError_t e =
-        cudaFuncSetAttribute(nms_large, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_LIMIT);
+    e = cudaFuncSetAttribute(nms_large_rounds<STAGED>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_LIMIT);
     if (e != cudaSuccess) return e;
     smem_allowed = SMEM_LIMIT;
   }
-  nms_large<<<B * C, warps * 32, smem, stream>>>(
+  int dev = 0, sms = 0, per_sm = 0;
+  if ((e = cudaGetDevice(&dev)) != cudaSuccess ||
+      (e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) != cudaSuccess ||
+      (e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, nms_large_rounds<STAGED>,
+                                                         threads, smem)) != cudaSuccess)
+    return e;
+  const int grid = per_sm < 1 ? 1 : (B * C < per_sm * sms ? B * C : per_sm * sms);
+  nms_large_rounds<STAGED><<<grid, threads, smem, stream>>>(
       static_cast<const float*>(scores), static_cast<const float*>(boxes),
-      static_cast<float*>(out_boxes), static_cast<float*>(out_scores), C, K, D, bstride, cstride,
-      iou_thr, score_thr, empty_score);
+      static_cast<float*>(out_boxes), static_cast<float*>(out_scores), flags, B * C, C, K, D,
+      bstride, cstride, iou_thr, lo, hi, score_thr, empty_score);
   return cudaGetLastError();
+}
+
+// The sorted pools' walk, then the rounds of the pools it flags.
+cudaError_t launch_large(const void* scores, const void* boxes, void* out_boxes,
+                         void* out_scores, int* flags, int B, int C, int K, int D,
+                         long long bstride, long long cstride, float iou_thr, float score_thr,
+                         float empty_score, int warps, int smem, cudaStream_t stream) {
+  float lo, hi;
+  margin_bounds(iou_thr, lo, hi);
+  const int walk_smem = int(walk_smem_bytes(D));
+  static int walk_allowed = 48 * 1024;
+  if (walk_smem > walk_allowed) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        nms_large_walk, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_LIMIT);
+    if (e != cudaSuccess) return e;
+    walk_allowed = SMEM_LIMIT;
+  }
+  nms_large_walk<<<B * C, WALK_WARPS * 32, walk_smem, stream>>>(
+      static_cast<const float*>(scores), static_cast<const float*>(boxes),
+      static_cast<float*>(out_boxes), static_cast<float*>(out_scores), flags, C, K, D, bstride,
+      cstride, iou_thr, lo, hi, score_thr, empty_score);
+  const cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return e;
+  return warps == ROUNDS_WARPS
+             ? launch_rounds<true>(scores, boxes, out_boxes, out_scores, flags, B, C, K, D,
+                                   bstride, cstride, iou_thr, lo, hi, score_thr, empty_score,
+                                   smem, stream)
+             : launch_rounds<false>(scores, boxes, out_boxes, out_scores, flags, B, C, K, D,
+                                    bstride, cstride, iou_thr, lo, hi, score_thr, empty_score,
+                                    smem, stream);
 }
 
 // Bytes of dynamic shared memory nms_shared<npl> lays out (ops/nms_kernel.py
@@ -565,22 +784,27 @@ extern "C" {
 // zero box and empty_score. variant 0 runs the per-class kernel (K <= 512,
 // warps == 4, smem == 0); 1 the shared-pool kernel (K <= 512, box_cstride
 // 0) with that many warps per CTA, scores in passes of cs classes and smem
-// bytes of dynamic shared memory; 2 the large-pool kernel (any K whose
-// keys fit in shared memory) with that many warps per CTA. The plan is
+// bytes of dynamic shared memory; 2 the large-pool kernels (any K whose
+// keys fit in shared memory): the walk, then the rounds with that many
+// warps per CTA and smem bytes, scratch an int32 [B * C] for the flags of
+// unsorted pools (unused by the other variants). The plan is
 // ops/nms_kernel.py::plan_nms's, refused if this file would lay it out
 // differently. Returns the CUDA error of the launch (0 on success).
 int yrt_nms(const void* scores, const void* boxes, void* out_boxes, void* out_scores, int B,
             int C, int K, int D, long long box_bstride, long long box_cstride, float iou_thr,
             float score_thr, float empty_score, int variant, int warps, int cs, int smem,
-            void* stream) {
+            void* scratch, void* stream) {
   if (K < 1 || D < 0 || B < 0 || C < 0) return int(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (variant == VARIANT_LARGE) {
-    if (warps < 1 || warps > MAX_SHARED_WARPS || smem > SMEM_LIMIT || smem != large_smem_bytes(K))
+    const bool staged = large_smem_bytes(K) == large_staged_bytes(K);
+    if (warps != (staged ? ROUNDS_WARPS : ROUNDS_WARPS_GLOBAL) || smem > SMEM_LIMIT ||
+        smem != large_smem_bytes(K) || walk_smem_bytes(D) > SMEM_LIMIT || scratch == nullptr)
       return int(cudaErrorInvalidValue);
     if (B * C == 0 || D == 0) return int(cudaSuccess);
-    return int(launch_large(scores, boxes, out_boxes, out_scores, B, C, K, D, box_bstride,
-                            box_cstride, iou_thr, score_thr, empty_score, warps, smem, s));
+    return int(launch_large(scores, boxes, out_boxes, out_scores, static_cast<int*>(scratch), B,
+                            C, K, D, box_bstride, box_cstride, iou_thr, score_thr, empty_score,
+                            warps, smem, s));
   }
   if (K > MAX_NPL * 32) return int(cudaErrorInvalidValue);
   const int npl = K <= 32 ? 1 : K <= 64 ? 2 : K <= 128 ? 4 : K <= 256 ? 8 : 16;

@@ -4,11 +4,17 @@ Port of the TEST/VALIDATE side of ``yoloret_tpu/data/pipeline.py``
 (``DatasetMode``, ``Dataset``, ``_load_sample``, ``_host_batches``,
 ``_finalize_eval``, ``build``).
 
-A thread pool decodes each batch (PIL: decode, then a bilinear stretch
-to the staging square; the JAX package's native libjpeg loader is not
-ported) and one prefetch thread keeps ``prefetch`` batches ahead of the
-consumer. The uint8 staging images go to the device pinned and
-asynchronous, where ``data/augment.py::eval_batch`` letterboxes them.
+A thread pool decodes each batch, with the decoder the JAX package
+prefers: JPEG files (``.jpg``/``.jpeg``) and every TFRecord payload go
+to the native libjpeg loader (``yoloret_tpu_torch/native``: a
+DCT-scaled decode, then a half-pixel bilinear stretch to the staging
+square; ctypes releases the interpreter lock for each call), other
+files, payloads the loader refuses (a PNG) and every image where the
+loader cannot be built go to PIL (decode, then a bilinear stretch).
+``Dataset.decodes`` counts the decodes by decoder. One prefetch thread
+keeps ``prefetch`` batches ahead of the consumer. The uint8 staging
+images go to the device pinned and asynchronous, where
+``data/augment.py::eval_batch`` letterboxes them.
 The final partial batch is padded to the batch size by repeating its
 last sample and carries ``n_valid``, so no image is dropped and none is
 counted twice.
@@ -24,12 +30,14 @@ import glob as globlib
 import io
 import queue
 import threading
+from collections import Counter
 from concurrent.futures import ThreadPoolExecutor
 from dataclasses import dataclass, field
 from typing import Iterator, List, Optional, Tuple
 
 import numpy as np
 
+from yoloret_tpu_torch import native
 from yoloret_tpu_torch.data.annotations import parse_annotation_line
 from yoloret_tpu_torch.data.augment import AugmentConfig, eval_batch
 from yoloret_tpu_torch.data.tfrecord import Example, index_tfrecord, read_record_at
@@ -49,14 +57,25 @@ def _staging_u8(img, staging: int) -> np.ndarray:
     return np.asarray(img.convert("RGB").resize((staging, staging), Image.BILINEAR), np.uint8)
 
 
-def _decode(source, staging: int) -> Tuple[np.ndarray, Tuple[int, int]]:
+def _decode(source, staging: int) -> Tuple[np.ndarray, Tuple[int, int], str]:
     """An image file path or encoded bytes -> (uint8 [S, S, 3], (H, W) of
-    the original)."""
+    the original, the decoder: "native" or "pil"). The native loader
+    takes JPEG paths and all bytes, as in the JAX package's eval path
+    (``yoloret_tpu/data/pipeline.py::_decode_image`` and the TFRecord
+    branch of ``_load_sample``, quality 0: no re-encode)."""
+    is_bytes = isinstance(source, bytes)
+    if (is_bytes or source.lower().endswith((".jpg", ".jpeg"))) and native.available():
+        try:
+            if is_bytes:
+                return (*native.decode_resize_q_bytes_u8(source, staging, 0), "native")
+            return (*native.decode_resize_q_u8(source, staging, 0), "native")
+        except IOError:
+            pass  # not a JPEG after all (e.g. a PNG payload): PIL below
     from PIL import Image
 
-    with Image.open(io.BytesIO(source) if isinstance(source, bytes) else source) as img:
+    with Image.open(io.BytesIO(source) if is_bytes else source) as img:
         iw, ih = img.size
-        return _staging_u8(img, staging), (ih, iw)
+        return _staging_u8(img, staging), (ih, iw), "pil"
 
 
 class _Failure:
@@ -83,6 +102,7 @@ class Dataset:
     prefetch: int = 2
     device: DeviceLike = "cuda"
     augment: AugmentConfig = field(init=False)
+    decodes: Counter = field(init=False)  # decodes by decoder ("native", "pil")
 
     def __post_init__(self):
         if self.mode == DatasetMode.TRAIN:
@@ -94,6 +114,8 @@ class Dataset:
         self.device = resolve_device(self.device)
         self.staging = self.staging or max(self.input_hw)
         self.augment = AugmentConfig(input_hw=tuple(self.input_hw))
+        self.decodes = Counter()
+        self._decodes_lock = threading.Lock()
         files = (sorted(globlib.glob(self.glob)) if any(c in self.glob for c in "*?[")
                  else [self.glob])
         if not files:
@@ -120,7 +142,7 @@ class Dataset:
         lines first, then TFRecord records."""
         if idx < len(self._parsed):
             path, boxes = self._parsed[idx]
-            img, (ih, iw) = _decode(path, self.staging)
+            img, (ih, iw), decoder = _decode(path, self.staging)
             b = boxes.copy()
             if len(b):
                 b[:, [0, 2]] /= float(iw)
@@ -130,10 +152,12 @@ class Dataset:
             # of the reference's code/voc_annotation.py:31-60)
             shard, off, ln = self._records[idx - len(self._parsed)]
             f = Example.parse(read_record_at(shard, off, ln)).features
-            img, (ih, iw) = _decode(f["image/encoded"], self.staging)
+            img, (ih, iw), decoder = _decode(f["image/encoded"], self.staging)
             cols = [np.asarray(f.get(f"image/object/bbox/{k}", []), np.float32)
                     for k in ("xmin", "ymin", "xmax", "ymax", "label")]
             b = np.stack(cols, axis=-1) if len(cols[0]) else np.zeros((0, 5), np.float32)
+        with self._decodes_lock:
+            self.decodes[decoder] += 1
         t = self.max_boxes
         out = np.zeros((t, 5), np.float32)
         n = min(len(b), t)

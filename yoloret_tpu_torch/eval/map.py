@@ -20,6 +20,7 @@ package's CPU runs).
 from __future__ import annotations
 
 import time
+from collections import Counter
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -155,7 +156,8 @@ def evaluate_map(
     ``pool="per_class"`` with ``num_candidates`` = the grid size is the
     reference's exact per-class NMS. Batch i + 1 is dispatched before
     batch i's detections are read back, so the device works while the
-    host files them. Prints the loop's images/s when ``verbose``."""
+    host files them. Prints the loop's images/s and the dataset's decodes
+    by decoder (native libjpeg or PIL) when ``verbose``."""
     ev = MAPEvaluator(len(class_names), iou_threshold)
     n_images = 0
     kw = dict(score_threshold=score_threshold, iou_threshold=nms_iou,
@@ -173,6 +175,7 @@ def evaluate_map(
             ev.add_image(xyxy, scores[i][m], classes[i][m], gt[i][gt_valid[i]])
         return int(batch["n_valid"])
 
+    decodes_before = Counter(dataset.decodes)
     t0 = time.perf_counter()
     batches = dataset.build(epochs=1)
     pending = None
@@ -190,8 +193,10 @@ def evaluate_map(
         batches.close()
     dt = time.perf_counter() - t0
     if verbose and n_images:
+        decodes = dataset.decodes - decodes_before
         print(f"eval: {n_images} images, {dt / n_images * 1e3:.4f} ms/image, "
-              f"{n_images / dt:.2f} images/s")
+              f"{n_images / dt:.2f} images/s; decoded: native {decodes['native']}, "
+              f"PIL {decodes['pil']}")
 
     aps = ev.compute()
     if verbose:

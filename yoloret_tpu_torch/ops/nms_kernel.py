@@ -15,10 +15,15 @@ the class stride of the boxes:
   warp per (image, class), candidates in registers, one IoU per
   candidate per round.
 - ``per_class_large`` (pools above 512 candidates, per-class or shared;
-  the exact-NMS evaluation's whole-grid pools): one CTA per (image,
-  class), the class's scores as keys in shared memory, boxes read from
-  device memory; a round is a block-wide argmax and one IoU per active
-  candidate.
+  the exact-NMS evaluation's whole-grid pools, sorted by score): two
+  kernels. The walk, one CTA per (image, class), reads the class's scores
+  once and tests whether they are in order; on a sorted pool one warp
+  walks the candidates in index order (the next pick is the first active
+  candidate no earlier pick kills) and stops at the last pick, so only
+  the boxes up to it are read. The rounds, persistent CTAs, take the
+  pools the walk flags as unsorted: keys and boxes staged in shared
+  memory (where they fit), a block-wide argmax with one barrier and one
+  IoU per active candidate a round.
 
 Per (image, class), ``max_det`` rounds: take the highest active score
 (ties to the lowest index), emit it with its box, deactivate the pick and
@@ -41,12 +46,16 @@ from yoloret_tpu_torch.ops.boxes import iou as box_iou
 MAX_CANDIDATES = 512  # of the register kernels: 16 per lane
 SMEM_LIMIT = 232448  # bytes of shared memory one block may use on sm_90
 MAX_WARPS = 32
+# csrc/nms.cu's large-pool kernels: the walk's warps, and the rounds' warps
+# with their boxes staged in shared memory or read from device memory
+WALK_WARPS = 4
+ROUNDS_WARPS, ROUNDS_WARPS_GLOBAL = 32, 16
 VARIANTS = ("per_class", "shared", "per_class_large")  # csrc/nms.cu's numbering
 
 _vp, _ci = ctypes.c_void_p, ctypes.c_int
 _PROTOTYPES = {
     "yrt_nms": ([_vp] * 4 + [_ci] * 4 + [ctypes.c_longlong] * 2 + [ctypes.c_float] * 3
-                + [_ci] * 4 + [_vp], _ci),
+                + [_ci] * 4 + [_vp, _vp], _ci),
     "yrt_error_string": ([_ci], ctypes.c_char_p),
 }
 
@@ -57,8 +66,8 @@ def _lib() -> ctypes.CDLL:
 
 class NMSPlan(NamedTuple):
     variant: str  # one of VARIANTS
-    npl: int  # candidates per lane (1, 2, 4, 8 or 16; per thread in per_class_large)
-    warps: int  # warps per CTA
+    npl: int  # candidates per lane (1, 2, 4, 8 or 16; per thread of the rounds, large)
+    warps: int  # warps per CTA (of the rounds in per_class_large; the walk: WALK_WARPS)
     classes_per_pass: int  # classes whose scores sit in shared memory at once
     smem: int  # bytes of dynamic shared memory
 
@@ -73,17 +82,34 @@ def shared_smem_bytes(npl: int, k: int, classes_per_pass: int, warps: int, max_d
             + 4 * min(warps, classes_per_pass) * max_det)
 
 
+def large_staged_bytes(k: int) -> int:
+    """Dynamic shared memory of the large-pool rounds with the boxes
+    staged: boxes [K] (float4), keys [K] (16-byte rounded), two buffers of
+    the ROUNDS_WARPS warp winners' keys and indices."""
+    return 16 * k + 16 * -(-k // 4) + 16 * ROUNDS_WARPS
+
+
 def large_smem_bytes(k: int) -> int:
-    """Dynamic shared memory of the large-pool kernel: the keys [K]
-    (16-byte rounded), the warp winners' keys and indices and the pick.
+    """Dynamic shared memory of the large-pool rounds: staged where that
+    fits in SMEM_LIMIT, else the keys and the winners of
+    ROUNDS_WARPS_GLOBAL warps (boxes read from device memory).
     ``csrc/nms.cu::large_smem_bytes`` computes the same."""
-    return 16 * -(-k // 4) + 8 * MAX_WARPS + 16
+    staged = large_staged_bytes(k)
+    return staged if staged <= SMEM_LIMIT else 16 * -(-k // 4) + 16 * ROUNDS_WARPS_GLOBAL
+
+
+def walk_smem_bytes(max_det: int) -> int:
+    """Dynamic shared memory of the large-pool walk: the picks' boxes and
+    scores. ``csrc/nms.cu::walk_smem_bytes`` computes the same."""
+    return 20 * max_det
 
 
 def plan_nms(c: int, k: int, max_det: int, shared: bool) -> NMSPlan:
     """Launch plan for ``c`` classes of ``k`` candidates. Pools above
-    ``MAX_CANDIDATES``, shared or not, take the large-pool kernel: one CTA
-    per (image, class), one warp per 256 candidates (8 to 32). A shared
+    ``MAX_CANDIDATES``, shared or not, take the large-pool kernels: the
+    walk (WALK_WARPS warps per (image, class), ``walk_smem_bytes``), then
+    the rounds (ROUNDS_WARPS warps with the boxes staged, else
+    ROUNDS_WARPS_GLOBAL; ``large_smem_bytes``). A shared
     pool takes one CTA per image with enough warps for the mask's 32 x 32
     tiles and one warp per class (8 to 32); its scores sit in shared
     memory in as few passes as fit. Per-class pools (and a shared pool
@@ -96,7 +122,10 @@ def plan_nms(c: int, k: int, max_det: int, shared: bool) -> NMSPlan:
         if smem > SMEM_LIMIT:
             raise ValueError(f"{k} candidates: their keys do not fit in shared memory "
                              f"({smem} > {SMEM_LIMIT} bytes)")
-        warps = min(MAX_WARPS, max(8, -(-k // 256)))
+        if walk_smem_bytes(max_det) > SMEM_LIMIT:
+            raise ValueError(f"max_det {max_det}: the picks do not fit in shared memory "
+                             f"({walk_smem_bytes(max_det)} > {SMEM_LIMIT} bytes)")
+        warps = ROUNDS_WARPS if smem == large_staged_bytes(k) else ROUNDS_WARPS_GLOBAL
         return NMSPlan("per_class_large", -(-k // (32 * warps)), warps, c, smem)
     npl = next(n for n in (1, 2, 4, 8, 16) if 32 * n >= k)
     per_class = NMSPlan("per_class", npl, 4, c, 0)
@@ -170,11 +199,15 @@ def suppress(boxes: torch.Tensor, scores: torch.Tensor, *, max_det: int = 20,
     out_s = torch.empty((b, c, max_det), dtype=torch.float32, device=scores.device)
     if out_s.numel() == 0:
         return out_b, out_s
+    # the large-pool walk's flags of unsorted pools, read by the rounds
+    flags = (torch.empty(b * c, dtype=torch.int32, device=scores.device)
+             if plan.variant == "per_class_large" else None)
     stream = torch.cuda.current_stream(scores.device).cuda_stream
     rc = lib.yrt_nms(scores.data_ptr(), boxes.data_ptr(), out_b.data_ptr(), out_s.data_ptr(),
                      b, c, k, max_det, k * 4 if shared else c * k * 4, 0 if shared else k * 4,
                      iou_threshold, score_threshold, empty_score, VARIANTS.index(plan.variant),
-                     plan.warps, plan.classes_per_pass, plan.smem, stream)
+                     plan.warps, plan.classes_per_pass, plan.smem,
+                     None if flags is None else flags.data_ptr(), stream)
     if rc != 0:
         raise RuntimeError(f"nms kernel launch failed: {lib.yrt_error_string(rc).decode()}")
     suppress.launches += 1
