@@ -58,7 +58,23 @@ Phases (any failure exits non-zero and prints no result):
    shuffled; the bound counts only the boxes a sorted pool needs (up to
    its last pick), and the bound of earlier records (every box) is
    printed beside it.
-7. The paper's two COCO configurations, at full width and depth, 80
+7. Training, flagship at full width: one float32 train step (TF32 off,
+   b8 @320, 20 classes) on the card and on the CPU from the same weights
+   and batch, stage 2 and stage 1 (the loss, the parameters and the
+   running statistics held; in stage 1 the frozen parameters and the
+   backbone's statistics bitwise unchanged on the card); the CLI's
+   ``--mode=TRAIN`` with ``configs/voc_mobilenetv2x75_320.yaml`` (bf16,
+   b32) on 96 seeded JPEGs whose boxes are the CPU's float32
+   detections: stage 1 with a validation loss and the stage-end mAP
+   (its loss must fall), then stage 2 from stage 1's file, the launch
+   counts of both runs' mAP passes, ``--mode=MAP --model=<final file>``
+   giving the trainer's stage-end mAP to 1e-6, and the MBConv kernel
+   against its plain version on the trained weights; then train-step
+   img/s of each shipped config at its own width and batch (x0.75
+   32@320, x1.4 64@224, B3 16@416; bf16, stage 1 and 2), with the
+   profiler's device busy share and the device ms and top kernels of
+   the forward, the backward and the optimizer.
+8. The paper's two COCO configurations, at full width and depth, 80
    classes (``configs/coco_mobilenetv2x14_224.yaml``,
    ``configs/coco_efficientnetb3_416.yaml``; class names and anchors from
    the files they name), each with seeded, calibrated weights: for
@@ -76,7 +92,7 @@ Phases (any failure exits non-zero and prints no result):
    bf16, the CLI's ``--config=... --mode=MAP --exact_nms`` float32), the
    float32 per-class APs within EVAL_AP_TOL of the CPU's; and each
    kernel's time at these shapes.
-8. The rest of the backbone registry at 320, b8 (MobileNetV2 x1.0,
+9. The rest of the backbone registry at 320, b8 (MobileNetV2 x1.0,
    EfficientNet-B0, DarkNet-53, x0.75 with RFCR ``concat`` and ``none``,
    YOLO-Nano, Yolo-Fastest and -XL): one ``detect_arrays`` call each with
    its launch counts, and float32 card vs CPU on 2 images (the raw heads;
@@ -149,7 +165,7 @@ EVAL_AP_TOL = 0.02
 # (1/7 in the seed-0 run): the per-class APs are logged, not held, and
 # their mean over the 20 classes is held to about three such swaps.
 EVAL_BF16_MAP_TOL = 0.02
-# The paper's COCO configurations (phase 7): name -> config file. Their
+# The paper's COCO configurations (phase 8): name -> config file. Their
 # evaluation set is smaller (COCO_EVAL_IMAGES JPEGs, one b128 batch on the
 # card) and the CPU references run at CPU_EVAL_BATCH: the CPU pays for the
 # padded rows of a final batch, and B3 @416 costs ~10x x0.75 @320 a row.
@@ -159,7 +175,7 @@ COCO_CONFIGS = {
 }
 COCO_EVAL_IMAGES = 64
 CPU_EVAL_BATCH = 16
-# The rest of the registry (phase 8), as (backbone, rfcr), at REGISTRY_SIZE
+# The rest of the registry (phase 9), as (backbone, rfcr), at REGISTRY_SIZE
 # and batch REGISTRY_BATCH, NUM_CLASSES classes.
 REGISTRY_RUNS = (("mobilenetv2x10", "weighted_sum"), ("efficientnetb0", "weighted_sum"),
                  ("darknet53", "weighted_sum"), ("mobilenetv2x75", "concat"),
@@ -176,6 +192,43 @@ REGISTRY_BATCH = 8
 # alone: its FCA's global mean is summed in another order and its ~30
 # residual blocks grow that difference some hundredfold.
 HEADS_RTOL = 1e-3
+# The training phase (phase 7). The float32 step card vs CPU: the flagship
+# at full width, TRAIN_CPU_BATCH images, Adam at TRAIN_LR; the loss within
+# TRAIN_LOSS_RTOL relative. The gradients (grad_diffs), against the same
+# step at float64 compute on the CPU, the loss included (float64 targets):
+# the card's float64 step within TRAIN_GRAD64_RTOL of it on every leaf,
+# which holds the backward's every term; and the card's float32 step no
+# more than TRAIN_GRAD_PREC_RATIO times as far from it as the CPU's
+# float32 step, in the median over the leaves, which holds the float32
+# kernels' precision (TF32 or bfloat16 compute would be many times
+# farther). No fixed float32 limit would hold a leaf to much: train-mode
+# BatchNorms cancel most of some leaves' gradients, whose float32
+# rounding then reaches ~1e-2 of them. A leaf whose float64 gradient is
+# below TRAIN_GRAD_NOISE of the largest leaf's (a bias whose shift the
+# next train-mode BatchNorm removes: 0 in exact arithmetic) is left out
+# and named. After the step every running statistic within
+# TRAIN_STATS_RTOL of the larger of its leaf's largest magnitude and
+# TRAIN_STATS_FLOOR of the model's largest statistic of its kind, and
+# TRAIN_PARAM_CLOSE_SHARE of the parameters within 1e-5 + 1e-4 relative.
+TRAIN_CPU_BATCH = 8
+TRAIN_LR = 1e-3
+TRAIN_LOSS_RTOL = 1e-4
+TRAIN_GRAD64_RTOL = 1e-7
+TRAIN_GRAD_PREC_RATIO = 30.0
+TRAIN_GRAD_NOISE = 1e-9
+TRAIN_STATS_RTOL = 1e-3
+TRAIN_STATS_FLOOR = 1e-3
+TRAIN_PARAM_CLOSE_SHARE = 0.99
+# The CLI's TRAIN: the flagship config on TRAIN_IMAGES seeded JPEGs.
+TRAIN_CONFIG = "configs/voc_mobilenetv2x75_320.yaml"
+TRAIN_IMAGES = 96
+TRAIN_E2E_BATCH = 32
+TRAIN_EPOCHS = (3, 1)
+# Train-step throughput: each shipped config at its own size and batch.
+TRAIN_CONFIGS = ("configs/voc_mobilenetv2x75_320.yaml", "configs/coco_mobilenetv2x14_224.yaml",
+                 "configs/coco_efficientnetb3_416.yaml")
+TRAIN_WARMUP = 3
+TRAIN_TIMED = 20
 
 
 def log(*a):
@@ -966,7 +1019,7 @@ def evaluate_cli(argv, class_names):
 def eval_phase(map_pred, state, seed, report, *, n_images=None, config=None,
                mbconv_per_forward=16, flagship=True):
     """The mAP evaluation path through its entry points (phase 5, and for
-    each COCO configuration in phase 7); returns its report, with the
+    each COCO configuration in phase 8); returns its report, with the
     launch counts of its run on the card. ``config``: the YAML file the
     CLI's run takes with ``--config`` (None: the flagship's flags).
     ``flagship``: the CPU references at BATCH with a bf16 one that the
@@ -1300,7 +1353,7 @@ def time_kernels(pred, launches, eval_launches, errs, report):
 
 def coco_phase(name, config, seed, report):
     """One of the paper's COCO configurations through phases 2-6 at its
-    own shapes (phase 7); returns its rows of the kernels line."""
+    own shapes (phase 8); returns its rows of the kernels line."""
     import torch
 
     from yoloret_tpu_torch.configs import load_config
@@ -1355,7 +1408,7 @@ def coco_phase(name, config, seed, report):
 
 
 def registry_phase(seed, report):
-    """The rest of the backbone registry (phase 8): each backbone (and
+    """The rest of the backbone registry (phase 9): each backbone (and
     RFCR variant) of REGISTRY_RUNS at REGISTRY_SIZE with seeded,
     calibrated weights: one ``detect_arrays`` call of REGISTRY_BATCH
     images with the launch counts set to 0 just before and read just
@@ -1400,6 +1453,386 @@ def registry_phase(seed, report):
         del pred
         torch.cuda.empty_cache()
     return {k: v["launches"] for k, v in out.items()}
+
+
+# -- phase 7: training -------------------------------------------------------
+
+
+def train_batch(size, batch, num_classes, anchors, seed, device):
+    """A seeded training batch at ``size``: uniform images and 6 boxes an
+    image (5 of them valid), with the targets the data path builds."""
+    import numpy as np
+    import torch
+
+    from yoloret_tpu_torch.ops.targets import assign_targets_batch, true_corner_boxes
+
+    rs = np.random.RandomState(seed)
+    boxes = np.zeros((batch, 6, 5), np.float32)
+    xy = rs.uniform(0, size * 0.7, (batch, 5, 2))
+    wh = rs.uniform(size * 0.05, size * 0.4, (batch, 5, 2))
+    boxes[:, :5, :2] = xy
+    boxes[:, :5, 2:4] = np.minimum(xy + wh, size - 1)
+    boxes[:, :5, 4] = rs.randint(0, num_classes, (batch, 5))
+    b = torch.from_numpy(boxes).to(device)
+    a = torch.as_tensor(np.asarray(anchors, np.float32), device=device)
+    ys = assign_targets_batch(b, (size, size), a, num_classes)
+    gt, gv = true_corner_boxes(b, (size, size))
+    g = torch.Generator(device=device).manual_seed(seed)
+    out = {"images": torch.rand((batch, size, size, 3), generator=g, device=device),
+           "gt_boxes": gt, "gt_valid": gv}
+    out.update({f"y_true_{l}": y for l, y in enumerate(ys)})
+    return out
+
+
+def grad_diffs(names, card, cpu, card64, ref):
+    """Per-leaf gradients of one step against the CPU's float64 ``ref``,
+    for every leaf above TRAIN_GRAD_NOISE: the card's float64 gradient's
+    largest ||g - ref|| / ||ref|| and its leaf; that distance of the card's
+    and the CPU's float32 gradients, their medians over the leaves and
+    the ratio of the medians, and their largest; and the leaves left out."""
+    norms = [float(r.norm()) for r in ref]
+    top = max(norms)
+    noise, kept, rel64, card_rel, cpu_rel = [], [], [], [], []
+    for n, c, p, c64, r, nr in zip(names, card, cpu, card64, ref, norms):
+        if nr <= TRAIN_GRAD_NOISE * top:
+            noise.append(n)
+            continue
+        kept.append(n)
+        rel64.append(float((c64 - r).norm()) / nr)
+        card_rel.append(float((c.double() - r).norm()) / nr)
+        cpu_rel.append(float((p.double() - r).norm()) / nr)
+
+    def median(v):
+        return sorted(v)[len(v) // 2]
+
+    return dict(grad64_rel=max(rel64), grad64_worst_leaf=kept[rel64.index(max(rel64))],
+                grad_card_median=median(card_rel), grad_cpu_median=median(cpu_rel),
+                grad_median_ratio=median(card_rel) / median(cpu_rel),
+                grad_card_max=max(card_rel), grad_cpu_max=max(cpu_rel),
+                grad_leaves=len(kept), grad_noise_leaves=noise)
+
+
+def state_diffs(card, cpu):
+    """Card-vs-CPU differences after one Adam step: the share of the
+    parameters within 1e-5 + 1e-4 relative (Adam's first step moves an
+    element by lr times the sign of its gradient, so this holds the
+    update, not the gradient's size), and the largest difference of a
+    running statistic over the larger of its leaf's largest magnitude
+    and TRAIN_STATS_FLOOR of the model's largest statistic of its kind."""
+    kinds = ("running_mean", "running_var")
+    tops = {kind: max(float(v.abs().max()) for k, v in cpu.items() if k.endswith(kind))
+            for kind in kinds}
+    close = n = 0
+    stat_rel = 0.0
+    for k, want in cpu.items():
+        d = (card[k].cpu() - want).abs()
+        kind = next((x for x in kinds if k.endswith(x)), None)
+        if kind:
+            scale = max(float(want.abs().max()), TRAIN_STATS_FLOOR * tops[kind])
+            stat_rel = max(stat_rel, float(d.max()) / scale)
+            continue
+        close += int((d <= 1e-5 + 1e-4 * want.abs()).sum())
+        n += want.numel()
+    return dict(param_close_share=close / n, stat_rel=stat_rel)
+
+
+def check_train_step(weights, seed, report):
+    """One float32 train step (TF32 off) of the flagship at full width, b8,
+    on the card and on the CPU from the same weights and batch, and the
+    same step at float64 compute on both (``grad_diffs``): stage 2, then
+    stage 1, where the frozen parameters and the body's statistics must
+    come out bitwise unchanged on the card."""
+    import torch
+
+    from yoloret_tpu_torch.nn.detector import YoloReT
+    from yoloret_tpu_torch.train.freeze import FROZEN, backbone_freeze_mask
+    from yoloret_tpu_torch.train.step import StepConfig, TrainState, cosine_lr_schedule
+    from yoloret_tpu_torch.train.step import step_gradients
+
+    batch = train_batch(SIZE, TRAIN_CPU_BATCH, NUM_CLASSES, ANCHORS, seed, "cpu")
+    out = {}
+    for stage in (2, 1):
+        runs = {}
+        for dev, dtype in (("cpu", torch.float64), ("cpu", torch.float32),
+                           (DEVICE, torch.float64), (DEVICE, torch.float32)):
+            model = YoloReT("mobilenetv2x75", NUM_CLASSES, dtype=dtype)
+            model.load_state_dict(weights)
+            model.to(dev)
+            labels = (backbone_freeze_mask(n for n, _ in model.named_parameters())
+                      if stage == 1 else None)
+            state = TrainState(model, cosine_lr_schedule(TRAIN_LR, 2, 1), labels)
+            before = {k: v.clone() for k, v in model.state_dict().items()}
+            t0 = time.perf_counter()
+            data = {k: v.to(dev, dtype) if k.startswith("y_true") else v.to(dev)
+                    for k, v in batch.items()}
+            grads, m = step_gradients(state, data,
+                                      StepConfig(anchors=tuple(map(tuple, ANCHORS)),
+                                                 backbone_train=stage == 2))
+            state.apply_gradients(grads)
+            loss = float(m["loss"])
+            runs[dev, dtype] = dict(
+                sd={k: v.detach().cpu() for k, v in model.state_dict().items()},
+                grads=[g.detach().cpu() for g in grads], names=state.names, before=before,
+                loss=loss, labels=labels, seconds=time.perf_counter() - t0)
+        ref, cpu, card = (runs["cpu", torch.float64], runs["cpu", torch.float32],
+                          runs[DEVICE, torch.float32])
+        d = grad_diffs(card["names"], card["grads"], cpu["grads"],
+                       runs[DEVICE, torch.float64]["grads"], ref["grads"])
+        d.update(state_diffs(card["sd"], cpu["sd"]))
+        d.update(loss_card=card["loss"], loss_cpu=cpu["loss"],
+                 loss_rel=abs(card["loss"] - cpu["loss"]) / abs(cpu["loss"]),
+                 cpu_seconds=cpu["seconds"], cpu_f64_seconds=ref["seconds"])
+        if stage == 1:
+            frozen = [k for k, lab in card["labels"].items() if lab == FROZEN]
+            stats = [k for k in card["sd"] if k.startswith("body.") and "running" in k]
+            d["frozen_unchanged"] = all(torch.equal(card["sd"][k], card["before"][k].cpu())
+                                        for k in frozen + stats)
+            d["frozen_leaves"], d["body_stats"] = len(frozen), len(stats)
+            assert d["frozen_unchanged"], "stage 1 moved a frozen leaf or a body statistic"
+        log(f"train step f32 card vs CPU, stage {stage}, {NUM_CLASSES} classes b"
+            f"{TRAIN_CPU_BATCH}@{SIZE}: loss {card['loss']:.6f} vs {cpu['loss']:.6f} (rel "
+            f"{d['loss_rel']:.2e}); gradients vs the CPU's float64 step, {d['grad_leaves']} "
+            f"leaves ({len(d['grad_noise_leaves'])} at noise left out): the card's float64 "
+            f"within {d['grad64_rel']:.2e} (limit {TRAIN_GRAD64_RTOL:g}) at "
+            f"{d['grad64_worst_leaf']}; float32 card vs CPU: median leaf "
+            f"{d['grad_card_median']:.2e} vs {d['grad_cpu_median']:.2e} (ratio "
+            f"{d['grad_median_ratio']:.2f}, limit {TRAIN_GRAD_PREC_RATIO:g}), largest "
+            f"{d['grad_card_max']:.2e} vs {d['grad_cpu_max']:.2e}; parameters after the step: "
+            f"{d['param_close_share']:.5%} within 1e-5 + 1e-4 rel; statistics: largest "
+            f"diff/scale {d['stat_rel']:.2e}"
+            + (f"; {d['frozen_leaves']} frozen leaves and {d['body_stats']} body statistics "
+               "bitwise unchanged" if stage == 1 else ""))
+        assert d["loss_rel"] <= TRAIN_LOSS_RTOL, d
+        assert d["grad64_rel"] <= TRAIN_GRAD64_RTOL, d
+        assert d["grad_median_ratio"] <= TRAIN_GRAD_PREC_RATIO, d
+        assert d["stat_rel"] <= TRAIN_STATS_RTOL, d
+        assert d["param_close_share"] >= TRAIN_PARAM_CLOSE_SHARE, d
+        out[f"stage{stage}"] = d
+    report["train_step_check"] = out
+
+
+def train_cli_phase(weights, seed, report):
+    """The CLI's TRAIN on the card, flagship config (bf16, b32 @320): stage 1
+    on a seeded JPEG set with a validation loss and the stage-end mAP, then
+    stage 2 from stage 1's file; then ``--mode=MAP --model=<final file>``
+    on the same test set, and the MBConv kernel on the trained weights.
+    Launch counts set to 0 before the two TRAIN runs and read after."""
+    import numpy as np
+
+    from yoloret_tpu_torch.cli.main import main as cli_main
+    from yoloret_tpu_torch.infer import Predictor
+    from yoloret_tpu_torch.ops.mbconv import fused_mbconv
+    from yoloret_tpu_torch.ops.nms_kernel import suppress
+    from yoloret_tpu_torch.utils.checkpoint import load_params
+
+    out = {}
+    with tempfile.TemporaryDirectory(prefix="yoloret_train_") as root:
+        t0 = time.perf_counter()
+        images = write_eval_images(root, seed + 7, TRAIN_IMAGES)
+        cpu = Predictor(weights=weights, device="cpu", class_names=[
+            f"class_{i}" for i in range(NUM_CLASSES)], anchors=ANCHORS,
+            input_hw=(SIZE, SIZE), score_threshold=0.0, num_candidates=512, bf16=False)
+        gts = eval_ground_truth(cpu, images, root, TRAIN_E2E_BATCH)
+        del cpu
+        lst = os.path.join(root, "train.txt")
+        with open(lst, "w") as f:
+            for (path, _), gt in zip(images, gts):
+                f.write(path + "".join(" {!r},{!r},{!r},{!r},{}".format(
+                    *map(float, g[:4]), int(g[4])) for g in gt) + "\n")
+        out["setup_seconds"] = time.perf_counter() - t0
+        logs = os.path.join(root, "logs")
+        config = os.path.join(HERE, TRAIN_CONFIG)
+        argv = ["--mode=TRAIN", f"--config={config}", f"--train_dataset={lst}",
+                f"--val_dataset={lst}", f"--test_dataset={lst}",
+                f"--batch_size={TRAIN_E2E_BATCH}", "--epochs", *map(str, TRAIN_EPOCHS),
+                f"--log_dir={logs}", f"--seed={seed}"]
+        stage_dirs = [os.path.join(logs, f"mobilenetv2x75_stage{s}") for s in (1, 2)]
+        w1 = os.path.join(stage_dirs[0], "mobilenetv2x75_trained_weights_stage_1.pt")
+        final = os.path.join(stage_dirs[1], "mobilenetv2x75_trained_weights_final.pt")
+        fused_mbconv.launches = suppress.launches = 0
+        t0 = time.perf_counter()
+        for extra in ([], [f"--train_unfreeze={w1}"]):
+            rc, _ = run_printing(cli_main, argv + extra)
+            assert rc == 0, f"the CLI's TRAIN mode returned {rc}"
+        out["train_seconds"] = time.perf_counter() - t0
+        launches = {"mbconv": fused_mbconv.launches, "nms": suppress.launches}
+        stages = []
+        for d in stage_dirs:
+            with open(os.path.join(d, "metrics.jsonl")) as f:
+                recs = [json.loads(line) for line in f]
+            epochs = [r for r in recs if "loss" in r]
+            stages.append(dict(loss=[r["loss"] for r in epochs],
+                               val_loss=[r["val_loss"] for r in epochs],
+                               img_per_s=[r["images_per_sec"] for r in epochs],
+                               map=[r["mAP"] for r in recs if "mAP" in r]))
+        out["stages"] = stages
+        map_batches = -(-len(images) // TRAIN_E2E_BATCH)
+        out["launches"] = launches
+        for i, st in enumerate(stages, start=1):
+            log(f"  TRAIN stage {i}: loss by epoch {[round(v, 4) for v in st['loss']]}, "
+                f"val loss {[round(v, 4) for v in st['val_loss']]}, img/s "
+                f"{st['img_per_s']} (decode and augmentation included), stage-end mAP "
+                f"{st['map'][-1]:.6f}")
+        log(f"  TRAIN launches {launches} over 2 stage-end mAP passes of {map_batches} batches "
+            f"({out['train_seconds']:.1f} s for both stages)")
+        assert launches == {"mbconv": 16 * 2 * map_batches, "nms": 2 * map_batches}, launches
+        loss1 = stages[0]["loss"]
+        assert all(np.isfinite(v) for st in stages for v in st["loss"] + st["val_loss"])
+        assert loss1[-1] < loss1[0], f"stage-1 loss did not fall: {loss1}"
+        rc, text = run_printing(cli_main, [
+            "--mode=MAP", f"--config={config}", f"--model={final}",
+            f"--test_dataset={lst}", f"--batch_size={TRAIN_E2E_BATCH}"])
+        assert rc == 0, f"the CLI's MAP mode returned {rc}"
+        map_cli = float(re.search(r"^mAP: ([\d.]+)$", text, re.M).group(1))
+        out["map_cli"], out["map_trainer"] = map_cli, stages[1]["map"][-1]
+        log(f"  MAP --model=<final file>: mAP {map_cli:.6f} vs the trainer's stage-end "
+            f"{out['map_trainer']:.6f}")
+        assert abs(map_cli - out["map_trainer"]) <= 1e-6, (map_cli, out["map_trainer"])
+        trained = make_predictor(seed, weights=load_params(final))
+        import torch
+
+        with torch.no_grad():
+            out["mbconv_err"] = check_mbconv(trained, report, key="mbconv_trained_check")
+    report["train_cli"] = out
+
+
+def step_kernel_ms(prof):
+    """Device ms of a profiled run's CUDA kernels: in all, and by group
+    and kernel name; and their number. A kernel belongs to the aten op that launched it;
+    the op is the optimizer's if it or an ancestor is a ``_foreach_`` op,
+    the backward's if an ancestor is an autograd engine function (the
+    backward runs on the engine's thread), else the forward's."""
+    from torch.autograd import DeviceType
+
+    events = prof.events()
+    kernels = [e for e in events if e.device_type == DeviceType.CUDA and not e.is_user_annotation]
+    total = sum(e.time_range.elapsed_us() for e in kernels) / 1e3
+    groups = {"forward": {}, "backward": {}, "optimizer": {}}
+    for e in events:
+        if e.device_type != DeviceType.CPU or not e.kernels:
+            continue
+        group, a = "forward", e
+        while a is not None:
+            if a.name.startswith("aten::_foreach_"):
+                group = "optimizer"
+                break
+            if a.name.startswith("autograd::engine::evaluate_function"):
+                group = "backward"
+                break
+            a = a.cpu_parent
+        for k in e.kernels:
+            groups[group][k.name] = groups[group].get(k.name, 0.0) + k.duration / 1e3
+    return total, groups, len(kernels)
+
+
+def train_throughput(report):
+    """Train-step img/s of each shipped config at its own width, input and
+    batch, bf16, stage 1 and stage 2: TRAIN_WARMUP steps, then
+    TRAIN_TIMED steps each between two CUDA events (no readback in the
+    loop). Then 3 steps under the profiler: their device time (every
+    kernel's), over the timed steps' mean time the device busy share (the
+    profiler's own host work slows the profiled steps, so their span
+    would understate it), and the device ms and top kernels of the
+    forward (the loss included), the backward and the optimizer
+    (``step_kernel_ms``)."""
+    import torch
+    import yaml
+    from torch.profiler import ProfilerActivity, profile
+
+    from yoloret_tpu_torch.data import load_anchors, load_classes
+    from yoloret_tpu_torch.nn.detector import YoloReT
+    from yoloret_tpu_torch.nn.layers import init_weights
+    from yoloret_tpu_torch.train.freeze import backbone_freeze_mask
+    from yoloret_tpu_torch.train.step import (StepConfig, TrainState, cosine_lr_schedule,
+                                              train_step)
+
+    def top(d, n=5):
+        return [(k[:80], round(v, 4)) for k, v in sorted(d.items(), key=lambda kv: -kv[1])[:n]]
+
+    out = {}
+    for cfg_path in TRAIN_CONFIGS:
+        with open(os.path.join(HERE, cfg_path)) as f:
+            c = yaml.safe_load(f)
+        size, batch = int(c["input_size"][0]), int(c["batch_size"])
+        names = load_classes(os.path.join(HERE, c["classes_path"]))
+        anchors = load_anchors(os.path.join(HERE, c["anchors_path"]))
+        model = YoloReT(c["backbone"], len(names), dtype=torch.bfloat16)
+        init_weights(model, torch.Generator().manual_seed(0))
+        model.to(DEVICE)
+        data = train_batch(size, batch, len(names), anchors, 1, DEVICE)
+        for stage in (1, 2):
+            labels = (backbone_freeze_mask(n for n, _ in model.named_parameters())
+                      if stage == 1 else None)
+            state = TrainState(model, cosine_lr_schedule(1e-3, 100, 100), labels)
+            scfg = StepConfig(anchors=tuple(map(tuple, anchors.tolist())),
+                              backbone_train=stage == 2)
+            for _ in range(TRAIN_WARMUP):
+                train_step(state, data, scfg)
+            torch.cuda.synchronize()
+            events = [(torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
+                      for _ in range(TRAIN_TIMED)]
+            t0 = time.perf_counter()
+            for a, b in events:
+                a.record()
+                train_step(state, data, scfg)
+                b.record()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            ms = [a.elapsed_time(b) for a, b in events]
+            img_s = batch * TRAIN_TIMED / (sum(ms) / 1e3)
+
+            torch.cuda.synchronize()
+            t_prof = time.perf_counter()
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                t0 = time.perf_counter()
+                for _ in range(3):
+                    train_step(state, data, scfg)
+                torch.cuda.synchronize()
+                span = (time.perf_counter() - t0) * 1e3
+            busy_total, groups, n_kernels = step_kernel_ms(prof)
+            t_prof = time.perf_counter() - t_prof
+            busy = busy_total / 3
+            per = {g: {k: v / 3 for k, v in d.items()} for g, d in groups.items()}
+            fwd, bwd, opt = per["forward"], per["backward"], per["optimizer"]
+            key = f"{os.path.basename(cfg_path)[:-5]} stage{stage}"
+            out[key] = dict(
+                backbone=c["backbone"], size=size, batch=batch, classes=len(names),
+                step_ms=ms, img_per_s=img_s, wall_s=wall, profile_s=t_prof,
+                busy_ms_per_step=busy, kernels_per_step=n_kernels / 3,
+                # the steps' device time over their time by CUDA events, unprofiled
+                busy_share=busy / (sum(ms) / len(ms)) if busy else None,
+                busy_share_profiled=busy_total / span if busy else None,
+                forward_ms=sum(fwd.values()), backward_ms=sum(bwd.values()),
+                optimizer_ms=sum(opt.values()),
+                top={"forward": top(fwd), "backward": top(bwd), "optimizer": top(opt)})
+            r = out[key]
+            r["unsplit_ms"] = busy - r["forward_ms"] - r["backward_ms"] - r["optimizer_ms"]
+            log(f"  train {key} (profiled in {t_prof:.1f} s): {c['backbone']} "
+                f"b{batch}@{size} bf16: {img_s:.1f} img/s "
+                f"(median step {sorted(ms)[len(ms) // 2]:.3f} ms), device busy "
+                + (f"{r['busy_share']:.1%} ({busy:.3f} ms, {n_kernels / 3:.0f} kernels a step)"
+                   if busy else "not measured")
+                + f"; device ms fwd {r['forward_ms']:.3f}, bwd "
+                f"{r['backward_ms']:.3f}, optimizer {r['optimizer_ms']:.3f}, not linked to an op "
+                f"{r['unsplit_ms']:.3f}")
+            for group in ("forward", "backward", "optimizer"):
+                log(f"    top {group}: {r['top'][group][:3]}")
+        del model, state, data
+        torch.cuda.empty_cache()
+    report["train_throughput"] = out
+    return {k: round(v["img_per_s"], 1) for k, v in out.items()}
+
+
+def train_phase(weights, seed, report):
+    """Phase 7: the float32 step card vs CPU, the CLI's TRAIN end to end,
+    the train-step throughput of each shipped config."""
+    t0 = time.perf_counter()
+    check_train_step(weights, seed, report)
+    train_cli_phase(weights, seed, report)
+    rates = train_throughput(report)
+    report["train_phase_seconds"] = time.perf_counter() - t0
+    log(f"training phase done in {report['train_phase_seconds']:.1f} s ({report['nvidia_smi']})")
+    return rates
 
 
 def main(argv=None) -> int:
@@ -1457,6 +1890,8 @@ def main(argv=None) -> int:
     log(f"flagship phases done at {time.perf_counter() - t_start:.1f} s")
     del pred, map_pred
     torch.cuda.empty_cache()
+    train_rates = train_phase(state, args.seed, report)
+    torch.cuda.empty_cache()
 
     for name, config in COCO_CONFIGS.items():
         kernels += coco_phase(name, config, args.seed, report)
@@ -1485,6 +1920,10 @@ def main(argv=None) -> int:
                         main_path_launches=c["main_path"]["launches"])
                         for name, c in report["coco"].items()},
                     "registry_launches": registry,
+                    "train_img_per_s": train_rates,
+                    "train_step_check": report["train_step_check"],
+                    "train_cli": {k: report["train_cli"][k] for k in
+                                  ("map_trainer", "map_cli", "launches", "mbconv_err")},
                     "seconds": report["seconds"],
                     "card": smi}))
     log(json.dumps({"kernels": kernels}))

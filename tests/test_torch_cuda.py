@@ -388,3 +388,102 @@ def test_nms_large_kernel_sorted_ties(cuda, k):
     for max_det in (1, 20, 200):
         for thr in (0.0, 0.25):
             _nms_exact(bt, st, max_det=max_det, iou_threshold=0.5, score_threshold=thr)
+
+
+def _train_pair(stage, device, dtype=torch.float32, size=64, batch=2, classes=4):
+    """One train step (TF32 off) of seeded MobileNetV2 x0.75 with
+    calibrated BatchNorm, on ``device`` at ``dtype`` compute, the loss
+    included (targets at ``dtype``): (metrics, gradients by leaf, state
+    dict before, state dict after, labels)."""
+    from yoloret_tpu_torch.nn.detector import YoloReT
+    from yoloret_tpu_torch.nn.layers import calibrate_bn, init_weights
+    from yoloret_tpu_torch.ops.targets import assign_targets_batch, true_corner_boxes
+    from yoloret_tpu_torch.train.freeze import backbone_freeze_mask
+    from yoloret_tpu_torch.train.step import StepConfig, TrainState, cosine_lr_schedule
+    from yoloret_tpu_torch.train.step import step_gradients
+
+    anchors = np.asarray([[10, 13], [16, 30], [33, 23], [30, 61], [62, 45], [59, 119],
+                          [116, 90], [156, 198], [373, 326]], np.float32)
+    rs = np.random.RandomState(0)
+    x = torch.from_numpy(rs.rand(batch, size, size, 3).astype(np.float32))
+    boxes = np.zeros((batch, 5, 5), np.float32)
+    xy = rs.uniform(0, size * 0.6, (batch, 4, 2))
+    boxes[:, :4, :2], boxes[:, :4, 2:4] = xy, xy + rs.uniform(6, size * 0.4, (batch, 4, 2))
+    boxes[:, :4, 4] = rs.randint(0, classes, (batch, 4))
+    b = torch.from_numpy(boxes)
+    ys = assign_targets_batch(b, (size, size), torch.from_numpy(anchors), classes)
+    gt, gv = true_corner_boxes(b, (size, size))
+    data = {"images": x, "gt_boxes": gt, "gt_valid": gv,
+            **{f"y_true_{l}": y for l, y in enumerate(ys)}}
+    model = YoloReT("mobilenetv2x75", classes)
+    init_weights(model, torch.Generator().manual_seed(0))
+    calibrate_bn(model.eval(), x)
+    model.dtype = dtype
+    model.to(device)
+    labels = (backbone_freeze_mask(n for n, _ in model.named_parameters())
+              if stage == 1 else None)
+    state = TrainState(model, cosine_lr_schedule(1e-3, 2, 1), labels)
+    before = {k: v.detach().cpu().clone() for k, v in model.state_dict().items()}
+    data = {k: v.to(device, dtype) if k.startswith("y_true") else v.to(device)
+            for k, v in data.items()}
+    grads, m = step_gradients(state, data,
+                              StepConfig(anchors=tuple(map(tuple, anchors.tolist())),
+                                         backbone_train=stage == 2))
+    state.apply_gradients(grads)
+    after = {k: v.detach().cpu() for k, v in model.state_dict().items()}
+    grads = {n: g.detach().cpu().double() for n, g in zip(state.names, grads)}
+    return {k: float(v) for k, v in m.items()}, grads, before, after, labels
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("stage", [2, 1])
+def test_train_step_matches_cpu(cuda, stage):
+    """The card's step against the CPU's. The loss within 1e-5 relative.
+    The gradients against the CPU's float64 step: the card's float64 step
+    within 1e-7 relative on every leaf, and the card's float32 step at
+    most 30 times as far from it as the CPU's float32 step, in the median
+    over the leaves (TF32 or bfloat16 compute would be many times farther;
+    train-mode BatchNorms cancel most of some leaves' gradients, so their
+    float32 rounding reaches ~1e-2 of them and no per-leaf float32 limit
+    holds much); a leaf whose float64 gradient is below 1e-9 of the
+    largest leaf's is 0 in exact arithmetic and left out. After the step
+    the running statistics within 1e-4 of the larger of their leaf's
+    largest magnitude and 1e-3 of the model's largest statistic of their
+    kind, and 99.9% of the parameters within 1e-5 + 1e-4 relative. Stage
+    1: the frozen parameters and the backbone's statistics bitwise
+    unchanged on the card."""
+    m_gpu, g_gpu, before, got, labels = _train_pair(stage, "cuda")
+    m_cpu, g_cpu, _, want, _ = _train_pair(stage, "cpu")
+    _, g64_gpu, _, _, _ = _train_pair(stage, "cuda", torch.float64)
+    _, ref, _, _, _ = _train_pair(stage, "cpu", torch.float64)
+    assert abs(m_gpu["loss"] - m_cpu["loss"]) <= 1e-5 * abs(m_cpu["loss"])
+    top = max(float(r.norm()) for r in ref.values())
+    kept = [n for n, r in ref.items() if float(r.norm()) > 1e-9 * top]
+
+    def rel(g):
+        return {n: float((g[n] - ref[n]).norm() / ref[n].norm()) for n in kept}
+
+    def median(r):
+        return sorted(r.values())[len(r) // 2]
+
+    rel64 = rel(g64_gpu)
+    worst = max(rel64, key=rel64.get)
+    assert rel64[worst] <= 1e-7, (worst, rel64[worst])
+    card, cpu = median(rel(g_gpu)), median(rel(g_cpu))
+    assert card <= 30 * cpu, (card, cpu)
+    tops = {kind: max(float(v.abs().max()) for k, v in want.items() if k.endswith(kind))
+            for kind in ("running_mean", "running_var")}
+    close = n = 0
+    for k, w in want.items():
+        d = (got[k] - w).abs()
+        kind = next((x for x in tops if k.endswith(x)), None)
+        if kind:
+            assert float(d.max()) <= 1e-4 * max(float(w.abs().max()), 1e-3 * tops[kind]), k
+            continue
+        close += int((d <= 1e-5 + 1e-4 * w.abs()).sum())
+        n += w.numel()
+    assert close >= 0.999 * n, (close, n)
+    if stage == 1:
+        for k, v in before.items():
+            if k.startswith("body.") and (labels.get(k) == "frozen" or "running" in k):
+                assert torch.equal(got[k], v), k

@@ -291,8 +291,11 @@ def test_png_payload_goes_to_pil(tmp_path):
 
 def test_dataset_errors_and_early_close(tmp_path):
     pattern = _write_dataset(str(tmp_path))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(ValueError, match="anchors and num_classes"):
         Dataset(pattern, 2, mode=DatasetMode.TRAIN, device="cpu")
+    with pytest.raises(NotImplementedError, match="ROADMAP"):  # online mosaic waits
+        Dataset(pattern, 2, mode=DatasetMode.TRAIN, device="cpu", anchors=np.ones((9, 2)),
+                num_classes=2, augment_config=AugmentConfig(mosaic_prob=0.5))
     with pytest.raises(FileNotFoundError):
         Dataset(str(tmp_path / "missing_*.txt"), 2, device="cpu")
     # an error in the prefetch thread is raised in the consumer

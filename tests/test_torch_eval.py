@@ -248,9 +248,9 @@ def test_cli_map_prints_the_same_map(eval_setup, exact, tmp_path, capsys):
     assert f"decoded: native {n_native}, PIL {6 - n_native}" in out
 
 
-def test_cli_refuses_what_is_not_ported(capsys):
-    for argv in (["--mode=TRAIN"], ["--mode=IMAGE"], ["--mode=MAP", "--int8"],
-                 ["--mode=MAP", "--mesh_data=4"], ["--mode=MAP", "--use_ema"],
-                 ["--mode=bogus"]):
+def test_cli_refuses_what_is_not_ported(capsys, tmp_path):
+    for argv in (["--mode=IMAGE"], ["--mode=MAP", "--int8"],
+                 ["--mode=MAP", "--mesh_data=4"], ["--mode=MAP", f"--model={tmp_path}"],
+                 ["--mode=TRAIN", "--multi_scale", "288", "320"], ["--mode=bogus"]):
         assert cli_main(argv) == 2
         assert "ROADMAP.md" in capsys.readouterr().err

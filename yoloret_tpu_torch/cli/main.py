@@ -1,28 +1,44 @@
 """Command line of the port, with the JAX package's flags
-(``yoloret_tpu/cli/main.py``) for the one mode ported so far, MAP:
+(``yoloret_tpu/cli/main.py``) for the modes ported so far, TRAIN and MAP.
+
+Training runs two stages, the second from the first's weight file:
+
+    python -m yoloret_tpu_torch.cli.main --mode=TRAIN \
+        --config=configs/voc_mobilenetv2x75_320.yaml --train_dataset='voc_train_*.txt' \
+        --val_dataset='voc_val_*.txt' --test_dataset='voc_test_*.txt' \
+        --classes_path=voc_classes.txt --anchors_path=yolo_anchors.txt --epochs 100 150
+    python -m yoloret_tpu_torch.cli.main --mode=TRAIN ... \
+        --train_unfreeze=logs/mobilenetv2x75_stage1/mobilenetv2x75_trained_weights_stage_1.pt
+
+and writes ``logs/<backbone>_stage{1,2}/`` (``metrics.jsonl``,
+TensorBoard scalars, checkpoints, the stage-end weight file). mAP:
 
     python -m yoloret_tpu_torch.cli.main --mode=MAP --model=weights.pt \
         --test_dataset='voc_test_*.txt' --classes_path=voc_classes.txt \
         --anchors_path=yolo_anchors.txt [--exact_nms] [--no-bf16] [--device=cuda]
 
-``--model`` is a port state dict (``torch.save(model.state_dict())``;
-without it the weights are a seeded init). ``--config`` overlays a YAML
-file onto the flags. ``--exact_nms`` takes per-class pools of the whole
-grid, the reference's exact NMS. ``--device`` (default ``cuda``) is the
-port's own; ``--device=cpu`` runs every kernel's plain version.
-``--backbone`` takes every name of the detector registry and ``--rfcr``
-every fusion; the shipped configs run as they are, e.g.
+``--model`` is a port weight file (the trainer's, or
+``torch.save(model.state_dict())``; ``--use_ema`` reads its EMA
+weights; without it the weights are a seeded init). ``--config``
+overlays a YAML file onto the flags. ``--exact_nms`` takes per-class
+pools of the whole grid, the reference's exact NMS. ``--device``
+(default ``cuda``) is the port's own; ``--device=cpu`` runs every
+kernel's plain version. ``--backbone`` takes every name of the detector
+registry and ``--rfcr`` every fusion; the shipped configs run as they
+are, e.g.
 
     python -m yoloret_tpu_torch.cli.main --config=configs/coco_efficientnetb3_416.yaml \
         --mode=MAP --test_dataset='coco_val_*.txt' --exact_nms
 
-The other modes, ``--int8``, ``--use_ema`` and ``--mesh_data`` above 1
-stop with a message that names their place in ROADMAP.md.
+The other modes, ``--int8``, ``--mesh_data`` above 1 and the training
+options not ported yet stop with a message that names their place in
+ROADMAP.md.
 """
 
 from __future__ import annotations
 
 import argparse
+import os
 import sys
 
 from yoloret_tpu_torch.configs import RunConfig, load_config
@@ -30,8 +46,6 @@ from yoloret_tpu_torch.nn.detector import BACKBONES
 
 # What each mode that is not ported waits for (ROADMAP.md, queue 1).
 NOT_PORTED = {
-    "TRAIN": "training, item 4",
-    "TRAIN_BACKBONE": "training, item 4",
     "IMAGE": "the other CLI modes, item 7",
     "VIDEO": "the other CLI modes, item 7",
     "ANCHORS": "the other CLI modes, item 7",
@@ -58,17 +72,47 @@ def build_parser() -> argparse.ArgumentParser:
                                 argument_default=argparse.SUPPRESS)
     d = RunConfig()
     p.add_argument("--mode", type=str, default="IMAGE",
-                   help="MAP (the others are not ported yet)")
+                   help="TRAIN or MAP (the others are not ported yet)")
     p.add_argument("--config", type=str, default=None, help="YAML config overlay")
     p.add_argument("--backbone", type=str,
                    help=f"default {d.backbone}; any of {', '.join(sorted(BACKBONES))}")
     p.add_argument("--input_size", type=_parse_size,
                    help="single int or 'h,w', multiples of 32")
-    p.add_argument("--model", type=str, help="port state dict (torch.save)")
+    p.add_argument("--model", type=str, help="port weight file (or torch.save state dict)")
+    p.add_argument("--train_dataset", type=str, help="glob of text lists and .tfrecord shards")
+    p.add_argument("--val_dataset", type=str)
     p.add_argument("--test_dataset", type=str, help="glob of text lists and .tfrecord shards")
     p.add_argument("--classes_path", type=str)
     p.add_argument("--anchors_path", type=str)
     p.add_argument("--batch_size", type=int)
+    p.add_argument("--epochs", type=int, nargs=2, metavar=("STAGE1", "STAGE2"))
+    p.add_argument("--learning_rate", type=float, nargs=2, metavar=("LR1", "LR2"))
+    p.add_argument("--freeze", action="store_true")
+    p.add_argument("--no-freeze", dest="freeze", action="store_false")
+    p.add_argument("--train_unfreeze", type=str,
+                   help="stage-1 weight file; implies stage 2 (unfrozen)")
+    p.add_argument("--truncate_block", type=float,
+                   help="freeze only backbone blocks up to this depth index")
+    p.add_argument("--box_loss", type=str, choices=["giou", "mse"])
+    p.add_argument("--class_loss", type=str, choices=["bce", "focal"])
+    p.add_argument("--use_adv", action="store_true")
+    p.add_argument("--ema_decay", type=float)
+    p.add_argument("--remat", action="store_true",
+                   help="recompute the backbone's forward in the backward pass")
+    p.add_argument("--resume", action="store_true",
+                   help="restore the latest periodic checkpoint and continue")
+    p.add_argument("--early_stopping", action="store_true")
+    p.add_argument("--early_stopping_patience", type=int)
+    p.add_argument("--map_every", type=int,
+                   help="VOC mAP on --test_dataset every N epochs (0: stage end only)")
+    p.add_argument("--log_dir", type=str)
+    p.add_argument("--seed", type=int)
+    # training options that are not ported yet: refused with their ROADMAP item
+    p.add_argument("--autoaugment_policy", type=str, choices=["v0", "v1", "v2", "v3"])
+    p.add_argument("--multi_scale", type=int, nargs="+", metavar="SIZE")
+    p.add_argument("--tb_images", type=int)
+    p.add_argument("--mosaic", type=float)
+    p.add_argument("--mixup", type=float)
     p.add_argument("--nms_iou", type=float)
     p.add_argument("--exact_nms", action="store_true",
                    help="MAP: reference-exact full-grid per-class NMS (slower)")
@@ -87,8 +131,22 @@ def args_to_config(args) -> RunConfig:
     if getattr(args, "config", None):
         cfg = load_config(args.config, cfg)
     overrides = {f: getattr(args, f) for f in (
-        "backbone input_size model test_dataset classes_path anchors_path batch_size nms_iou "
-        "exact_nms bf16 use_ema rfcr mesh_data int8").split() if hasattr(args, f)}
+        "backbone input_size model train_dataset val_dataset test_dataset classes_path "
+        "anchors_path batch_size nms_iou exact_nms bf16 use_ema rfcr mesh_data int8 freeze "
+        "train_unfreeze truncate_block box_loss class_loss use_adv ema_decay remat resume "
+        "early_stopping early_stopping_patience map_every log_dir seed autoaugment_policy "
+        "tb_images").split() if hasattr(args, f)}
+    for f in ("epochs", "learning_rate", "multi_scale"):
+        if hasattr(args, f):
+            overrides[f] = (list if f == "multi_scale" else tuple)(getattr(args, f))
+    if getattr(args, "train_unfreeze", None) and "freeze" not in overrides:
+        overrides["freeze"] = False
+    aug = dict(cfg.augment or {})
+    for flag, key in (("mosaic", "mosaic_prob"), ("mixup", "mixup_prob")):
+        if getattr(args, flag, None) is not None:
+            aug[key] = float(getattr(args, flag))
+    if aug:
+        overrides["augment"] = aug
     return cfg.replace(**overrides)
 
 
@@ -101,7 +159,12 @@ def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
     mode = args.mode.upper()
     cfg = args_to_config(args)
-    if mode != "MAP":
+    if mode == "TRAIN_BACKBONE":
+        # as the JAX package answers it
+        print("TRAIN_BACKBONE: pretraining the backbone alone is handled by the "
+              "truncated-transfer weight import; see docs/parity.md")
+        return 2
+    if mode not in ("MAP", "TRAIN"):
         if mode in NOT_PORTED:
             return _refuse(f"--mode={mode} is not ported to yoloret_tpu_torch yet: it waits for "
                            f"{NOT_PORTED[mode]}")
@@ -110,11 +173,23 @@ def main(argv=None) -> int:
         return _refuse("--int8: the W8A8 backbone is not ported yet: it waits for side paths, "
                        "item 5")
     if cfg.mesh_data and cfg.mesh_data > 1:
-        return _refuse("--mesh_data above 1: data-parallel evaluation is not ported yet: it "
+        return _refuse("--mesh_data above 1: data parallelism is not ported yet: it "
                        "waits for parallelism, item 6")
-    if cfg.use_ema:
-        return _refuse("--use_ema: a port state dict holds one set of weights; convert the EMA "
-                       "weights with weights.from_flax instead")
+    for path in (cfg.model, cfg.train_unfreeze):
+        if path and os.path.isdir(path):
+            return _refuse(f"{path} is a directory (an Orbax checkpoint?): reading Orbax "
+                           "weight files is not ported yet: it waits for side paths, item 5")
+
+    if mode == "TRAIN":
+        from yoloret_tpu_torch.train.trainer import train
+
+        try:
+            train(cfg, device=args.device)
+        except (NotImplementedError, ValueError) as e:
+            print(e, file=sys.stderr)
+            return 2
+        return 0
+
     if not (cfg.test_dataset and cfg.classes_path and cfg.anchors_path):
         print("MAP needs --test_dataset, --classes_path and --anchors_path", file=sys.stderr)
         return 2
@@ -127,7 +202,7 @@ def main(argv=None) -> int:
     anchors = load_anchors(cfg.anchors_path)
     pred = Predictor(
         backbone=cfg.backbone, weights=cfg.model, class_names=class_names, anchors=anchors,
-        input_hw=cfg.input_size, bf16=cfg.bf16, rfcr=cfg.rfcr,
+        input_hw=cfg.input_size, bf16=cfg.bf16, rfcr=cfg.rfcr, use_ema=cfg.use_ema,
         score_threshold=0.0,  # the reference sets score=0 for MAP, main.py:172
         device=args.device,
     )

@@ -33,6 +33,7 @@ from yoloret_tpu_torch.nn.layers import init_weights
 from yoloret_tpu_torch.ops.letterbox import letterbox_numpy_u8
 from yoloret_tpu_torch.ops.nms import NMSResult
 from yoloret_tpu_torch.ops.postprocess import detect_batch
+from yoloret_tpu_torch.utils.checkpoint import load_params
 from yoloret_tpu_torch.weights import from_flax
 
 
@@ -48,10 +49,12 @@ Weights = Union[str, Mapping[str, Any], None]
 
 
 class Predictor:
-    """``weights``: None (seeded init from ``seed``), a path to a saved
-    port state dict (``torch.save(model.state_dict())``), a port state
-    dict, or Flax variables ``{'params', 'batch_stats'}`` as numpy
-    arrays (converted by ``weights.from_flax``). ``backbone`` is any name
+    """``weights``: None (seeded init from ``seed``), a path to a port
+    weight file (``utils.checkpoint.save_params``, the trainer's
+    stage-end file, or ``torch.save(model.state_dict())``; with
+    ``use_ema`` its EMA parameters), a port state dict, or Flax variables
+    ``{'params', 'batch_stats'}`` as numpy arrays (converted by
+    ``weights.from_flax``). ``backbone`` is any name
     of ``nn.detector.BACKBONES``; ``rfcr`` the RFCR fusion the weights
     were trained with (``weighted_sum``, ``concat`` or ``none``)."""
 
@@ -73,6 +76,7 @@ class Predictor:
         inflight_chunks: int = 2,
         rfcr: str = "weighted_sum",
         device: DeviceLike = "cuda",
+        use_ema: bool = False,
     ):
         self.device = resolve_device(device)
         if class_names is None:
@@ -102,7 +106,7 @@ class Predictor:
             init_weights(self.model, torch.Generator().manual_seed(seed))
         else:
             if isinstance(weights, str):
-                weights = torch.load(weights, map_location="cpu", weights_only=True)
+                weights = load_params(weights, use_ema)
             elif "params" in weights:
                 weights = from_flax(weights, self.model)
             self.model.load_state_dict(weights, strict=True)

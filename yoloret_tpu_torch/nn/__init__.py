@@ -1,4 +1,4 @@
-"""The detector as ``torch.nn`` modules (NHWC, inference)."""
+"""The detector as ``torch.nn`` modules (NHWC, inference and training)."""
 
 from yoloret_tpu_torch.nn.detector import YoloReT, build_detector
 

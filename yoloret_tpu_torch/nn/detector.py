@@ -1,19 +1,26 @@
 """YOLO-ReT detector: backbone taps -> RFCR -> FPN/PANet neck -> per-scale
-[B, gh, gw, A, 5+C] raw heads. Port of ``yoloret_tpu/nn/detector.py``,
-inference only: every backbone of the JAX registry and every RFCR fusion
-(``weighted_sum``, ``concat``, ``none``)."""
+[B, gh, gw, A, 5+C] raw heads. Port of ``yoloret_tpu/nn/detector.py``:
+every backbone of the JAX registry and every RFCR fusion
+(``weighted_sum``, ``concat``, ``none``), at inference and in training."""
 
 from __future__ import annotations
 
-from typing import Dict, Tuple
+import contextlib
+from typing import Dict, Optional, Tuple
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from yoloret_tpu_torch.device import DeviceLike, resolve_device
 from yoloret_tpu_torch.nn import darknet, efficientnet
 from yoloret_tpu_torch.nn.heads import DetectionNeck
-from yoloret_tpu_torch.nn.layers import init_weights, make_divisible, maxpool_downsample
+from yoloret_tpu_torch.nn.layers import (
+    init_weights,
+    keep_stats,
+    make_divisible,
+    maxpool_downsample,
+)
 from yoloret_tpu_torch.nn.legacy import YoloFastest, YoloNano
 from yoloret_tpu_torch.nn.mobilenetv2 import MobileNetV2
 from yoloret_tpu_torch.nn.rfcr import RFCR
@@ -54,11 +61,17 @@ class YoloReT(nn.Module):
     """``forward(images)`` with images [B, H, W, 3] (H, W multiples of 32,
     RGB in [0, 1]) returns (y1, y2, y3): [B, H/32, W/32, A, 5+C],
     [B, H/16, ...], [B, H/8, ...], in the compute dtype (float32 for the
-    full legacy bodies, which cast their heads as the JAX ones do)."""
+    full legacy bodies, which cast their heads as the JAX ones do); the
+    loss casts them to float32.
+
+    ``remat`` recomputes the backbone's forward in the backward pass
+    (``torch.utils.checkpoint``, the JAX package's ``nn.remat``) instead
+    of keeping its activations; the recompute does not update the
+    BatchNorm statistics a second time."""
 
     def __init__(self, backbone: str = "mobilenetv2x75", num_classes: int = 20,
                  num_anchors: int = 3, dtype: torch.dtype = torch.float32,
-                 rfcr: str = "weighted_sum"):
+                 rfcr: str = "weighted_sum", remat: bool = False):
         super().__init__()
         if backbone not in BACKBONES:
             raise ValueError(f"unknown backbone {backbone!r}; options: {sorted(BACKBONES)}")
@@ -72,6 +85,7 @@ class YoloReT(nn.Module):
         self.num_classes = num_classes
         self.num_anchors = num_anchors
         self.dtype = dtype
+        self.remat = remat
         self.body, taps = _body(kind, kw, num_classes, num_anchors)
         if kind == "fullbody":
             return
@@ -89,27 +103,48 @@ class YoloReT(nn.Module):
                 f"input spatial size ({h}, {w}) must be a multiple of 32 "
                 "(three stride-2 stages feed the /8,/16,/32 pyramid)")
 
-    def neck_heads(self, feats) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    def neck_heads(self, feats, train: bool = False
+                   ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
         """RFCR (unless ``none``) + neck + head split over the backbone taps."""
         if self.rfcr_fusion != "none":
             b4 = maxpool_downsample(feats["c2"], 4)
-            b1, b2, b3 = self.rfcr(feats["c5"], feats["c4"], feats["c3"], b4)
+            b1, b2, b3 = self.rfcr(feats["c5"], feats["c4"], feats["c3"], b4, train)
         else:
             b1, b2, b3 = feats["c5"], feats["c4"], feats["c3"]
-        return tuple(self.split(y) for y in self.neck(b1, b2, b3))
+        return tuple(self.split(y) for y in self.neck(b1, b2, b3, train))
 
     def split(self, y: torch.Tensor) -> torch.Tensor:
         """[B, gh, gw, A*(5+C)] -> [B, gh, gw, A, 5+C] (the NHWC reshape
-        of the JAX package; the heads keep the compute dtype)."""
+        of the JAX package)."""
         b, gh, gw, _ = y.shape
         return y.reshape(b, gh, gw, self.num_anchors, 5 + self.num_classes)
 
-    def forward(self, images: torch.Tensor):
+    def _features(self, x: torch.Tensor, train: bool, drop_seed: Optional[int]):
+        if self.kind == "efficientnet":
+            return self.body(x, train, drop_seed)
+        return self.body(x, train)
+
+    def forward(self, images: torch.Tensor, train: bool = False,
+                backbone_train: Optional[bool] = None, drop_seed: Optional[int] = None):
+        """``train`` runs every BatchNorm on batch statistics and updates
+        its running statistics. ``backbone_train=False`` with
+        ``train=True`` is stage 1 of truncated transfer: the backbone runs
+        on its running statistics and leaves them as they are, while the
+        RFCR and neck BatchNorms train. ``drop_seed`` seeds EfficientNet's
+        drop-connect in training."""
         self.check_input(images)
+        if backbone_train is None:
+            backbone_train = train
         x = images.to(self.dtype)
         if self.kind == "fullbody":
-            return self.body(x)
-        return self.neck_heads(self.body(x))
+            return self.body(x, train)
+        if self.remat and torch.is_grad_enabled():
+            feats = checkpoint(self._features, x, backbone_train, drop_seed, use_reentrant=False,
+                               context_fn=lambda: (contextlib.nullcontext(),
+                                                   keep_stats(self.body)))
+        else:
+            feats = self._features(x, backbone_train, drop_seed)
+        return self.neck_heads(feats, train)
 
 
 def build_detector(

@@ -1,12 +1,16 @@
-"""EfficientNet B0-B7 backbone, NHWC, inference. Port of
+"""EfficientNet B0-B7 backbone, NHWC. Port of
 ``yoloret_tpu/nn/efficientnet.py``: a copy of its stage tables and width
 and depth rounding, and the network on the port's ``MBConv`` (swish,
 squeeze-excite) from ``nn/layers.py``.
 
 The detector taps the ends of stages 1/2/4/5 (/4, /8, /16, /32); stages
 past the last tap are not built unless ``include_top_features``, which
-also builds the 1x1 ``top`` conv. Drop-connect is the identity at
-inference and holds no parameters, so it is not built.
+also builds the 1x1 ``top`` conv. Every BatchNorm has momentum 0.99.
+Drop-connect holds no parameters: in training, block i of n (1-based,
+over every stage of the table) drops at ``drop_connect_rate * i / n``,
+with draws from a generator seeded by the ``drop_seed`` that
+``forward`` takes, so that a forward run again with the same seed (a
+recomputed checkpoint, FGSM's three forwards) draws the same masks.
 
 EfficientNet's block has no fused kernel: its squeeze-excite takes a
 global mean between the depthwise and the project conv, so the block
@@ -108,13 +112,16 @@ class EfficientNet(nn.Module):
     """Returns the pyramid features {"c2", "c3", "c4", "c5"} (+ "top"
     when ``include_top_features``)."""
 
-    def __init__(self, variant: str = "b3", include_top_features: bool = False):
+    def __init__(self, variant: str = "b3", include_top_features: bool = False,
+                 drop_connect_rate: float = 0.2):
         super().__init__()
         width, _, _, _ = EFFICIENTNET_PARAMS[variant]
         stages, _ = decode_block_args(variant)
         self.include_top_features = include_top_features
+        drop_dx = (drop_connect_rate or 0.0) / sum(s.num_repeat for s in stages)
+        block_idx = 1
         ch = round_filters(32, width)
-        self.stem = ConvBN(3, ch, 3, stride=2, act=swish)
+        self.stem = ConvBN(3, ch, 3, stride=2, act=swish, momentum=0.99)
         last_tap = max(_TAP_STAGES)
         self.stage_blocks = []  # [(stage index, [block names])]
         for si, stage in enumerate(stages):
@@ -127,21 +134,26 @@ class EfficientNet(nn.Module):
                     stage.input_filters if r == 0 else stage.output_filters,
                     stage.output_filters, stage.kernel_size,
                     stage.strides[0] if r == 0 else 1, stage.expand_ratio, stage.se_ratio,
-                    stage.id_skip))
+                    stage.id_skip, drop_connect_rate=drop_dx * block_idx))
+                block_idx += 1
                 ch = stage.output_filters
                 names.append(name)
             self.stage_blocks.append((si, names))
         if include_top_features:
-            self.top = ConvBN(ch, round_filters(1280, width), 1, act=swish)
+            self.top = ConvBN(ch, round_filters(1280, width), 1, act=swish, momentum=0.99)
 
-    def forward(self, x: torch.Tensor) -> Dict[str, torch.Tensor]:
-        x = self.stem(x)
+    def forward(self, x: torch.Tensor, train: bool = False,
+                drop_seed: Optional[int] = None) -> Dict[str, torch.Tensor]:
+        gen = None
+        if train and drop_seed is not None:
+            gen = torch.Generator(device=x.device).manual_seed(drop_seed)
+        x = self.stem(x, train)
         feats: Dict[str, torch.Tensor] = {}
         for si, names in self.stage_blocks:
             for name in names:
-                x = getattr(self, name)(x)
+                x = getattr(self, name)(x, train, gen)
             if si in _TAP_STAGES:
                 feats[_TAP_STAGES[si]] = x
         if self.include_top_features:
-            feats["top"] = self.top(x)
+            feats["top"] = self.top(x, train)
         return feats

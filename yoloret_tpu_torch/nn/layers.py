@@ -1,14 +1,18 @@
 """Building blocks of the detector, NHWC in and out.
 
-Port of ``yoloret_tpu/nn/layers.py`` for inference. Every module takes
+Port of ``yoloret_tpu/nn/layers.py``. Every module takes
 and returns NHWC tensors, as the JAX package does; a kxk convolution
 runs ``F.conv2d`` on the NCHW view of the same storage (channels-last
 strides, so no copy is made), and a 1x1 convolution is ``F.linear`` over
 the channel axis. Parameters stay float32 and are cast to the input's
 dtype at use, as Flax does with ``dtype=bfloat16`` modules.
 
-Inference only: BatchNorm runs folded into the conv before it, with
-running statistics. Parameter names follow the Flax tree (``conv``,
+Every block's ``forward(x, train=False)`` has two branches, as the Flax
+modules' ``train`` argument does. At inference (``train=False``) the
+BatchNorm runs folded into the conv before it, with running statistics.
+In training (``train=True``) the conv, the BatchNorm on batch statistics
+and the activation run unfolded, and the BatchNorm updates its running
+statistics as Flax's does (see ``BatchNorm``). Parameter names follow the Flax tree (``conv``,
 ``bn``, ``dwconv``, ``depthwise``, ``pointwise``, ``expand``, ``se``,
 ``project``), so that ``yoloret_tpu_torch.weights.from_flax`` maps one
 onto the other.
@@ -16,7 +20,8 @@ onto the other.
 
 from __future__ import annotations
 
-from typing import Callable, Optional, Sequence, Tuple
+import contextlib
+from typing import Callable, Iterator, Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -26,6 +31,14 @@ Act = Optional[Callable[[torch.Tensor], torch.Tensor]]
 
 
 def relu6(x: torch.Tensor) -> torch.Tensor:
+    """min(max(x, 0), 6). Under autograd the gradient at the kinks is
+    JAX's, half on each side (``torch.clamp`` passes all of it); exact
+    zeros are common there: a dead channel normalised by BatchNorm in
+    training is exactly 0. Without autograd one ``torch.clamp``: the
+    serving batch is host-bound, and the two kernels of the other form
+    cost it 7.5% on an H100 (``tools/activation_ab.py``)."""
+    if x.requires_grad:
+        return torch.minimum(torch.maximum(x, x.new_zeros(())), x.new_full((), 6.0))
     return torch.clamp(x, 0.0, 6.0)
 
 
@@ -35,8 +48,9 @@ def swish(x: torch.Tensor) -> torch.Tensor:
 
 
 def leaky(x: torch.Tensor) -> torch.Tensor:
-    """LeakyReLU(0.1), the darknet family's activation."""
-    return F.leaky_relu(x, 0.1)
+    """LeakyReLU(0.1), the darknet family's activation, with gradient 1
+    at 0 as ``jax.nn.leaky_relu`` gives it."""
+    return torch.where(x >= 0, x, 0.1 * x)
 
 
 def make_divisible(v: float, divisor: int = 8, min_value: Optional[int] = None) -> int:
@@ -110,32 +124,79 @@ class Conv2dSame(nn.Module):
 
 
 class BatchNorm(nn.Module):
-    """Inference BatchNorm statistics and affine over the channel axis,
-    eps 1e-3. It is not called on activations: the conv before it takes
-    it folded in (``fold_bn``)."""
+    """BatchNorm over the channel axis (the last), eps 1e-3, Flax's
+    ``nn.BatchNorm`` in both of its modes.
 
-    def __init__(self, ch: int, eps: float = 1e-3):
+    At inference it is not called on activations: the conv before it
+    takes it folded in (``fold_bn``). Called (``forward``), it is the
+    training mode, ``use_running_average=False``: the statistics of the
+    batch are computed in float32 at least (float64 stays float64), the
+    variance as E[x^2] - E[x]^2 clipped at 0 (biased, as Flax computes
+    it, not the unbiased one ``F.batch_norm`` keeps), the input is
+    normalised with them in that dtype and cast back to its own, and the
+    running statistics move to ``momentum * old + (1 - momentum) *
+    batch`` (Flax's momentum m, PyTorch's 1 - m) unless
+    ``update_stats`` is False (``keep_stats``)."""
+
+    def __init__(self, ch: int, eps: float = 1e-3, momentum: float = 0.9):
         super().__init__()
         self.eps = eps
+        self.momentum = momentum
+        self.update_stats = True
         self.weight = nn.Parameter(torch.ones(ch))
         self.bias = nn.Parameter(torch.zeros(ch))
         self.register_buffer("running_mean", torch.zeros(ch))
         self.register_buffer("running_var", torch.ones(ch))
 
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        xf = x.to(torch.promote_types(x.dtype, torch.float32))
+        axes = tuple(range(x.dim() - 1))
+        mean = xf.mean(axes)
+        var = torch.clamp((xf * xf).mean(axes) - mean * mean, min=0.0)
+        if self.update_stats:
+            with torch.no_grad():
+                m = self.momentum
+                self.running_mean.copy_(m * self.running_mean + (1 - m) * mean)
+                self.running_var.copy_(m * self.running_var + (1 - m) * var)
+        y = (xf - mean) * (torch.rsqrt(var + self.eps) * self.weight) + self.bias
+        return y.to(x.dtype)
+
+
+@contextlib.contextmanager
+def keep_stats(model: nn.Module) -> Iterator[None]:
+    """Inside, no BatchNorm of ``model`` updates its running statistics
+    (a forward whose statistics are thrown away, as the JAX train step
+    throws away all but the clean forward's)."""
+    bns = [m for m in model.modules() if isinstance(m, BatchNorm)]
+    before = [m.update_stats for m in bns]
+    for m in bns:
+        m.update_stats = False
+    try:
+        yield
+    finally:
+        for m, b in zip(bns, before):
+            m.update_stats = b
+
 
 def fold_bn(weight: torch.Tensor, bn: BatchNorm) -> Tuple[torch.Tensor, torch.Tensor]:
     """Fold inference BatchNorm into a conv: (weight * s, t) with
     s = gamma / sqrt(var + eps), t = beta - mean * s, per output channel
-    (dim 0 of ``weight``), float32."""
-    s = bn.weight / torch.sqrt(bn.running_var + bn.eps)
-    return weight * s.reshape(-1, *([1] * (weight.dim() - 1))), bn.bias - bn.running_mean * s
+    (dim 0 of ``weight``), in ``weight``'s dtype, float32 at least."""
+    dtype = torch.promote_types(weight.dtype, torch.float32)
+    s = bn.weight.to(dtype) / torch.sqrt(bn.running_var.to(dtype) + bn.eps)
+    return (weight.to(dtype) * s.reshape(-1, *([1] * (weight.dim() - 1))),
+            bn.bias.to(dtype) - bn.running_mean.to(dtype) * s)
 
 
-def conv_bn(x: torch.Tensor, conv: Conv2dSame, bn: BatchNorm) -> torch.Tensor:
-    """bn(conv(x)) as one conv with the BN folded into kernel and bias:
-    the activation is read and written once instead of three more times
-    for the normalisation (equal up to float rounding)."""
-    w, t = fold_bn(conv.weight, bn)
+def conv_bn(x: torch.Tensor, conv: Conv2dSame, bn: BatchNorm, train: bool = False
+            ) -> torch.Tensor:
+    """bn(conv(x)). At inference one conv with the BN folded into kernel
+    and bias: the activation is read and written once instead of three
+    more times for the normalisation (equal up to float rounding). In
+    training the conv, then the BatchNorm on batch statistics."""
+    if train:
+        return bn(conv(x))
+    w, t = fold_bn(conv.weight.to(torch.promote_types(x.dtype, torch.float32)), bn)
     return conv2d_same(x, w, t, conv.stride, conv.groups)
 
 
@@ -143,41 +204,45 @@ class ConvBN(nn.Module):
     """Conv (no bias) + BatchNorm + optional activation."""
 
     def __init__(self, in_ch: int, features: int, kernel_size: int = 1,
-                 stride: int = 1, act: Act = relu6):
+                 stride: int = 1, act: Act = relu6, momentum: float = 0.9):
         super().__init__()
         self.act = act
         self.conv = Conv2dSame(in_ch, features, kernel_size, stride)
-        self.bn = BatchNorm(features)
+        self.bn = BatchNorm(features, momentum=momentum)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        x = conv_bn(x, self.conv, self.bn)
+    def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
+        x = conv_bn(x, self.conv, self.bn, train)
         return x if self.act is None else self.act(x)
 
 
 class DepthwiseConvBN(nn.Module):
     """Depthwise kxk conv (no bias) + BatchNorm + optional activation."""
 
-    def __init__(self, ch: int, kernel_size: int, stride: int = 1, act: Act = relu6):
+    def __init__(self, ch: int, kernel_size: int, stride: int = 1, act: Act = relu6,
+                 momentum: float = 0.9):
         super().__init__()
         self.act = act
         self.dwconv = Conv2dSame(ch, ch, kernel_size, stride, groups=ch)
-        self.bn = BatchNorm(ch)
+        self.bn = BatchNorm(ch, momentum=momentum)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        x = conv_bn(x, self.dwconv, self.bn)
+    def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
+        x = conv_bn(x, self.dwconv, self.bn, train)
         return x if self.act is None else self.act(x)
 
 
 class SeparableConvBN(nn.Module):
-    """Depthwise kxk + BN + ReLU6, then pointwise 1x1 + BN + ReLU6."""
+    """Depthwise kxk + BN + ReLU6, then pointwise 1x1 + BN + ReLU6
+    (BN momentum 0.99, the Flax module's default)."""
 
-    def __init__(self, in_ch: int, features: int, kernel_size: int = 5, stride: int = 1):
+    def __init__(self, in_ch: int, features: int, kernel_size: int = 5, stride: int = 1,
+                 momentum: float = 0.99):
         super().__init__()
-        self.depthwise = DepthwiseConvBN(in_ch, kernel_size, stride, act=relu6)
-        self.pointwise = ConvBN(in_ch, features, 1, act=relu6)
+        self.depthwise = DepthwiseConvBN(in_ch, kernel_size, stride, act=relu6,
+                                         momentum=momentum)
+        self.pointwise = ConvBN(in_ch, features, 1, act=relu6, momentum=momentum)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self.pointwise(self.depthwise(x))
+    def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
+        return self.pointwise(self.depthwise(x, train), train)
 
 
 class WeightedSum(nn.Module):
@@ -213,31 +278,52 @@ class SqueezeExcite(nn.Module):
         return x * s
 
 
+def drop_connect(x: torch.Tensor, rate: float, generator: torch.Generator) -> torch.Tensor:
+    """Per-sample stochastic depth (the JAX package's ``DropConnect`` in
+    training): keep each sample with probability 1 - rate, scaled by
+    1 / (1 - rate); the uniform draw comes from ``generator``."""
+    keep = 1.0 - rate
+    u = torch.rand((x.shape[0],) + (1,) * (x.dim() - 1), generator=generator,
+                   device=x.device, dtype=x.dtype)
+    return (x / keep) * torch.floor(keep + u)
+
+
 class MBConv(nn.Module):
-    """EfficientNet mobile inverted bottleneck with SE, inference only:
-    expand 1x1 (skipped at expand_ratio 1) -> depthwise kxk (swish) ->
-    SE -> project 1x1; residual when stride 1 and in == out filters."""
+    """EfficientNet mobile inverted bottleneck with SE: expand 1x1
+    (skipped at expand_ratio 1) -> depthwise kxk (swish) -> SE -> project
+    1x1; residual when stride 1 and in == out filters, in training behind
+    drop-connect at ``drop_connect_rate``, drawn from the ``generator``
+    passed to ``forward``."""
 
     def __init__(self, input_filters: int, output_filters: int, kernel_size: int = 3,
                  stride: int = 1, expand_ratio: int = 6, se_ratio: Optional[float] = 0.25,
-                 id_skip: bool = True):
+                 id_skip: bool = True, momentum: float = 0.99, drop_connect_rate: float = 0.0):
         super().__init__()
         filters = input_filters * expand_ratio
         self.residual = id_skip and stride == 1 and input_filters == output_filters
-        self.expand = (ConvBN(input_filters, filters, 1, act=swish)
+        self.drop_connect_rate = drop_connect_rate
+        self.expand = (ConvBN(input_filters, filters, 1, act=swish, momentum=momentum)
                        if expand_ratio != 1 else None)
-        self.depthwise = DepthwiseConvBN(filters, kernel_size, stride, act=swish)
+        self.depthwise = DepthwiseConvBN(filters, kernel_size, stride, act=swish,
+                                         momentum=momentum)
         self.se = (SqueezeExcite(max(1, int(input_filters * se_ratio)), filters)
                    if se_ratio is not None and 0.0 < se_ratio <= 1.0 else None)
-        self.project = ConvBN(filters, output_filters, 1, act=None)
+        self.project = ConvBN(filters, output_filters, 1, act=None, momentum=momentum)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        y = x if self.expand is None else self.expand(x)
-        y = self.depthwise(y)
+    def forward(self, x: torch.Tensor, train: bool = False,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        y = x if self.expand is None else self.expand(x, train)
+        y = self.depthwise(y, train)
         if self.se is not None:
             y = self.se(y)
-        y = self.project(y)
-        return y + x if self.residual else y
+        y = self.project(y, train)
+        if not self.residual:
+            return y
+        if train and self.drop_connect_rate > 0:
+            if generator is None:
+                raise ValueError("drop-connect in training needs a generator")
+            y = drop_connect(y, self.drop_connect_rate, generator)
+        return y + x
 
 
 def maxpool_downsample(x: torch.Tensor, stride: int = 2) -> torch.Tensor:

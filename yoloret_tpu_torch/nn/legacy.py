@@ -1,4 +1,4 @@
-"""Legacy detector bodies, NHWC, inference. Port of
+"""Legacy detector bodies, NHWC. Port of
 ``yoloret_tpu/nn/legacy.py``.
 
 * ``YoloNano`` (EP/PEP/FCA modules) and ``YoloFastest`` (``xl`` for
@@ -9,7 +9,9 @@
   is not in the detector registry (its one /8 map does not fit the
   3-scale pipeline), as in the JAX package.
 
-Every module takes its input channels, where Flax infers them.
+Every module takes its input channels, where Flax infers them, and
+``forward(x, train=False)``; the BatchNorms keep the Flax modules'
+default momenta (0.9, 0.99 in the separable convs).
 """
 
 from __future__ import annotations
@@ -43,8 +45,8 @@ class _SepConv(nn.Module):
         super().__init__()
         self.sep = SeparableConvBN(in_ch, features, 3, stride)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self.sep(x)
+    def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
+        return self.sep(x, train)
 
 
 class EP(nn.Module):
@@ -55,8 +57,8 @@ class EP(nn.Module):
         self.residual = stride == 1 and in_ch == features
         self.conv = _SepConv(in_ch, features, stride)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        out = self.conv(x)
+    def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
+        out = self.conv(x, train)
         return x + out if self.residual else out
 
 
@@ -69,8 +71,8 @@ class PEP(nn.Module):
         self.proj = ConvBN(in_ch, mid, 1, act=relu6)
         self.conv = _SepConv(mid, features)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        out = self.conv(self.proj(x))
+    def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
+        out = self.conv(self.proj(x, train), train)
         return x + out if self.residual else out
 
 
@@ -138,29 +140,28 @@ class YoloNano(nn.Module):
         self.n13_e = EP(189, 462)
         self.head_13 = Conv2dSame(462, pred)
 
-    def forward(self, x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-        x = self.stem_b(self.stem_a(x))
-        x = self.p3(self.p2(self.e1(self.p1(x))))
-        x = self.c_mid(self.p4(self.e2(x)))
+    def forward(self, x: torch.Tensor, train: bool = False
+                ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+        def run(x, *names):
+            for name in names:
+                x = getattr(self, name)(x, train)
+            return x
+
+        x = run(x, "stem_a", "stem_b", "p1", "e1", "p2", "p3", "e2", "p4", "c_mid")
         x = self.fca(x)
-        out52 = self.p7(self.p6(self.p5(x)))  # /8
-        x = self.e3(out52)
-        for i in range(len(self.p8_mids)):
-            x = getattr(self, f"p8_{i}")(x)
-        out26 = self.p9(x)  # /16
-        x = self.c_down(self.p10(self.e4(out26)))
-        out13 = self.p11(self.e5(x))  # /32
+        out52 = run(x, "p5", "p6", "p7")  # /8
+        out26 = run(out52, "e3", *(f"p8_{i}" for i in range(len(self.p8_mids))), "p9")  # /16
+        out13 = run(out26, "e4", "p10", "c_down", "e5", "p11")  # /32
         # neck (top-down)
-        x1 = self.n13_a(out13)
-        x = self.n13_b(x1)
-        x = self.n26_b(self.n26_a(torch.cat([upsample2x(x), out26], dim=-1)))
-        x2 = self.n26_c(x)
-        x = self.n26_d(x2)
-        x = torch.cat([upsample2x(x), out52], dim=-1)
-        x = self.n52_c(self.n52_b(self.n52_a(x)))
+        x1 = self.n13_a(out13, train)
+        x = self.n13_b(x1, train)
+        x = run(torch.cat([upsample2x(x), out26], dim=-1), "n26_a", "n26_b")
+        x2 = self.n26_c(x, train)
+        x = self.n26_d(x2, train)
+        x = run(torch.cat([upsample2x(x), out52], dim=-1), "n52_a", "n52_b", "n52_c")
         y3 = self.head_52(x)
-        y2 = self.head_26(self.n26_e(x2))
-        y1 = self.head_13(self.n13_e(x1))
+        y2 = self.head_26(self.n26_e(x2, train))
+        y1 = self.head_13(self.n13_e(x1, train))
         return tuple(_split(y, self.num_anchors, self.num_classes) for y in (y1, y2, y3))
 
 
@@ -176,8 +177,8 @@ class _FastestBlock(nn.Module):
         self.depthwise = DepthwiseConvBN(exp_features, 3, stride, act=leaky)
         self.project = ConvBN(exp_features, features, 1, act=leaky)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        out = self.project(self.depthwise(self.expand(x)))
+    def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
+        out = self.project(self.depthwise(self.expand(x, train), train), train)
         return x + out if self.residual else out
 
 
@@ -249,19 +250,25 @@ class YoloFastest(nn.Module):
         self.head_32 = Conv2dSame(128, pred, bias=True)
         self.head_8 = Conv2dSame(routes["route2"], pred, bias=True)
 
-    def forward(self, x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-        x = self.stem_proj(self.stem_dw(self.stem_pw(self.stem_conv(x))))
+    def forward(self, x: torch.Tensor, train: bool = False
+                ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+        def run(x, *names):
+            for name in names:
+                x = getattr(self, name)(x, train)
+            return x
+
+        x = run(x, "stem_conv", "stem_pw", "stem_dw", "stem_proj")
         routes = {}
         for step in self.steps:
             if step.startswith("route"):
                 routes[step] = x
             else:
-                x = getattr(self, step)(x)
-        x = self.bridge(x)
+                x = getattr(self, step)(x, train)
+        x = self.bridge(x, train)
         b1 = torch.cat([routes["route1"], upsample2x(x)], dim=-1)
-        b1 = self.h16_c(self.h16_dw2(self.h16_b(self.h16_dw1(self.h16_a(b1)))))
+        b1 = run(b1, "h16_a", "h16_dw1", "h16_b", "h16_dw2", "h16_c")
         y2 = self.head_16(b1)
-        b2 = self.h32_b(self.h32_dw2(self.h32_a(self.h32_dw1(x))))
+        b2 = run(x, "h32_dw1", "h32_a", "h32_dw2", "h32_b")
         y1 = self.head_32(b2)
         y3 = self.head_8(routes["route2"])
         return tuple(_split(y, self.num_anchors, self.num_classes) for y in (y1, y2, y3))
@@ -289,11 +296,11 @@ class SkyNet(nn.Module):
         self.s6 = SeparableConvBN(4 * 192 + 512, 96, 3)
         self.head = Conv2dSame(96, num_anchors * (5 + num_classes))
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        x = maxpool_downsample(self.s1(x))
-        x = maxpool_downsample(self.s2(x))
-        x = self.s3(x)
+    def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
+        x = maxpool_downsample(self.s1(x, train))
+        x = maxpool_downsample(self.s2(x, train))
+        x = self.s3(x, train)
         short = space_to_depth(x)  # /8, 768 channels
-        x = self.s5(self.s4(maxpool_downsample(x)))
-        x = self.s6(torch.cat([short, x], dim=-1))
+        x = self.s5(self.s4(maxpool_downsample(x), train), train)
+        x = self.s6(torch.cat([short, x], dim=-1), train)
         return _split(self.head(x), self.num_anchors, self.num_classes)

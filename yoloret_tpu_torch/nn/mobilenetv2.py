@@ -1,8 +1,9 @@
-"""MobileNetV2 backbone (width multiplier alpha), NHWC, inference.
+"""MobileNetV2 backbone (width multiplier alpha), NHWC.
 
 Port of ``yoloret_tpu/nn/mobilenetv2.py``: the stock, unfused network.
 The detector taps the four stage ends c2/c3/c4/c5 at Keras blocks
-2/5/12/15; blocks past the last tap are not built. The serving path runs
+2/5/12/15; blocks past the last tap are not built. Every BatchNorm has
+Flax's momentum 0.9. The serving path runs
 the same weights through ``nn/fused_infer.py`` instead, one fused kernel
 per block.
 """
@@ -62,9 +63,9 @@ class InvertedResidual(nn.Module):
         self.depthwise = DepthwiseConvBN(ce, 3, stride, act=relu6)
         self.project = ConvBN(ce, features, 1, act=None)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        y = x if self.expand is None else self.expand(x)
-        y = self.project(self.depthwise(y))
+    def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
+        y = x if self.expand is None else self.expand(x, train)
+        y = self.project(self.depthwise(y, train), train)
         return y + x if self.residual else y
 
 
@@ -80,11 +81,11 @@ class MobileNetV2(nn.Module):
             self.add_module(name, InvertedResidual(in_ch, out_ch, stride, t))
             self.block_names.append(name)
 
-    def forward(self, x: torch.Tensor) -> Dict[str, torch.Tensor]:
-        x = self.stem(x)
+    def forward(self, x: torch.Tensor, train: bool = False) -> Dict[str, torch.Tensor]:
+        x = self.stem(x, train)
         feats: Dict[str, torch.Tensor] = {}
         for block_id, name in enumerate(self.block_names):
-            x = getattr(self, name)(x)
+            x = getattr(self, name)(x, train)
             if block_id in _TAP_BLOCKS:
                 feats[_TAP_BLOCKS[block_id]] = x
         return feats

@@ -49,7 +49,8 @@ class RFCR(nn.Module):
             fused_in = collect_channels
         self.fuse_conv = SeparableConvBN(fused_in, fuse_channels, 5)
 
-    def forward(self, b1, b2, b3, b4) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    def forward(self, b1, b2, b3, b4, train: bool = False
+                ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
         collected = [
             upsample2x(self.collect_1(b1)),
             self.collect_2(b2),
@@ -57,9 +58,9 @@ class RFCR(nn.Module):
             self.collect_4(b4),
         ]
         if self.fusion == "concat":
-            bc = self.fuse_conv(torch.cat(collected, dim=-1))
+            bc = self.fuse_conv(torch.cat(collected, dim=-1), train)
         else:
-            bc = self.fuse_conv(self.fuse_weights(collected))
+            bc = self.fuse_conv(self.fuse_weights(collected), train)
         out1 = torch.cat([b1, maxpool_downsample(bc)], dim=-1)
         out2 = torch.cat([b2, bc], dim=-1)
         out3 = torch.cat([b3, upsample2x(bc)], dim=-1)

@@ -1,6 +1,7 @@
 """YOLO head decode helpers. Port of ``yoloret_tpu/ops/decode.py``
-(``make_grid``, ``correct_boxes``) and of the anchor masks of
-``yoloret_tpu/ops/targets.py``."""
+(``make_grid``, ``decode_boxes``, ``xywh_to_corners``, ``correct_boxes``;
+differentiable, the loss decodes through them) and of the anchor masks
+of ``yoloret_tpu/ops/targets.py``."""
 
 from __future__ import annotations
 
@@ -28,6 +29,33 @@ def make_grid(gh: int, gw: int, device=None) -> torch.Tensor:
     gy, gx = torch.meshgrid(torch.arange(gh, device=device), torch.arange(gw, device=device),
                             indexing="ij")
     return torch.stack([gx, gy], dim=-1).float()[:, :, None, :]
+
+
+def decode_boxes(feats: torch.Tensor, anchors: torch.Tensor, input_hw: Tuple[int, int]
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Box centres and sizes of one scale's raw head.
+
+    feats [..., gh, gw, A, 5+C] raw logits; anchors [A, 2] (w, h) in
+    network-input pixels; input_hw (H_in, W_in). Returns (box_xy,
+    box_wh), each [..., gh, gw, A, 2], normalised to the network input:
+    xy = (sigmoid(t_xy) + cell) / (gw, gh), wh = exp(t_wh) * anchor /
+    (W_in, H_in)."""
+    gh, gw = feats.shape[-4], feats.shape[-3]
+    dev, dt = feats.device, feats.dtype
+    grid = make_grid(gh, gw, dev).to(dt)
+    anchors = anchors.to(device=dev, dtype=dt).reshape(1, 1, -1, 2)
+    wh_in = pair(input_hw[1], input_hw[0], dev).to(dt)
+    gwh = pair(gw, gh, dev).to(dt)
+    box_xy = (torch.sigmoid(feats[..., :2]) + grid) / gwh
+    box_wh = torch.exp(feats[..., 2:4]) * anchors / wh_in
+    return box_xy, box_wh
+
+
+def xywh_to_corners(box_xy: torch.Tensor, box_wh: torch.Tensor) -> torch.Tensor:
+    """(x, y) centres + (w, h) -> [..., 4] = (ymin, xmin, ymax, xmax)."""
+    mins = box_xy - box_wh / 2.0
+    maxes = box_xy + box_wh / 2.0
+    return torch.cat([mins[..., 1:2], mins[..., 0:1], maxes[..., 1:2], maxes[..., 0:1]], dim=-1)
 
 
 def correct_boxes(box_xy: torch.Tensor, box_wh: torch.Tensor, input_hw: Tuple[int, int],
