@@ -58,7 +58,14 @@ Phases (any failure exits non-zero and prints no result):
    shuffled; the bound counts only the boxes a sorted pool needs (up to
    its last pick), and the bound of earlier records (every box) is
    printed beside it.
-7. Training, flagship at full width: one float32 train step (TF32 off,
+7. IMAGE, the CLI's default mode: ``--mode=IMAGE`` on the port's
+   ``assets/demo.jpg`` with the flagship weights (bf16; the launch counts
+   set to 0 just before and read just after: 16 MBConv + 1 NMS), the
+   float32 Predictor's detections on it card vs CPU, the MBConv kernel
+   against its plain version at batch 1, the batch-1 latency
+   (``detect_arrays`` by the host clock, ``infer`` by CUDA events) and
+   the MBConv kernel's times at b1.
+8. Training, flagship at full width: one float32 train step (TF32 off,
    b8 @320, 20 classes) on the card and on the CPU from the same weights
    and batch, stage 2 and stage 1 (the loss, the parameters and the
    running statistics held; in stage 1 the frozen parameters and the
@@ -69,12 +76,22 @@ Phases (any failure exits non-zero and prints no result):
    (its loss must fall), then stage 2 from stage 1's file, the launch
    counts of both runs' mAP passes, ``--mode=MAP --model=<final file>``
    giving the trainer's stage-end mAP to 1e-6, and the MBConv kernel
-   against its plain version on the trained weights; then train-step
+   against its plain version on the trained weights; ``--mode=ANCHORS``
+   on the train list (its file equal to ``kmeans_anchors``' in this
+   process); the CLI's TRAIN with the options of ROADMAP item 4c
+   (AutoAugment v0, mosaic and mixup 0.5, ``--multi_scale 288 352``,
+   ``--tb_images 4``: one stage-1 epoch per size from the flagship
+   weights; the losses finite, 8 image summaries of the epochs' sizes,
+   the launch counts of its detection passes and mAP), the MBConv kernel
+   against its plain version on its weights at [4, 288] and [4, 352],
+   the host stream's cost of AutoAugment, ``mix_batch`` on the card
+   against the CPU with the same draws, and the MBConv times at both
+   shapes; then train-step
    img/s of each shipped config at its own width and batch (x0.75
    32@320, x1.4 64@224, B3 16@416; bf16, stage 1 and 2), with the
    profiler's device busy share and the device ms and top kernels of
    the forward, the backward and the optimizer.
-8. The paper's two COCO configurations, at full width and depth, 80
+9. The paper's two COCO configurations, at full width and depth, 80
    classes (``configs/coco_mobilenetv2x14_224.yaml``,
    ``configs/coco_efficientnetb3_416.yaml``; class names and anchors from
    the files they name), each with seeded, calibrated weights: for
@@ -92,7 +109,7 @@ Phases (any failure exits non-zero and prints no result):
    bf16, the CLI's ``--config=... --mode=MAP --exact_nms`` float32), the
    float32 per-class APs within EVAL_AP_TOL of the CPU's; and each
    kernel's time at these shapes.
-9. The rest of the backbone registry at 320, b8 (MobileNetV2 x1.0,
+10. The rest of the backbone registry at 320, b8 (MobileNetV2 x1.0,
    EfficientNet-B0, DarkNet-53, x0.75 with RFCR ``concat`` and ``none``,
    YOLO-Nano, Yolo-Fastest and -XL): one ``detect_arrays`` call each with
    its launch counts, and float32 card vs CPU on 2 images (the raw heads;
@@ -229,6 +246,22 @@ TRAIN_CONFIGS = ("configs/voc_mobilenetv2x75_320.yaml", "configs/coco_mobilenetv
                  "configs/coco_efficientnetb3_416.yaml")
 TRAIN_WARMUP = 3
 TRAIN_TIMED = 20
+# The CLI's TRAIN with the training options on (ROADMAP item 4c): one
+# stage-1 epoch at each multi-scale size, TB_IMAGES detection rows an
+# epoch; the MBConv kernel held at those shapes on the trained weights,
+# and mix_batch on the card against the CPU (images MIX_TOL, boxes
+# MIX_BOX_TOL px, valid equal).
+OPTIONS_SIZES = (288, 352)
+TB_IMAGES = 4
+MIX_TOL = 1e-5
+MIX_BOX_TOL = 1e-4
+# IMAGE: the demo photo through the CLI (bf16, the user's default) and
+# the float32 Predictor card vs CPU (class, score rtol 1e-4, box atol
+# IMAGE_BOX_TOL px); the batch-1 latency over IMAGE_TIMED calls.
+IMAGE_SCORE = 0.3
+IMAGE_BOX_TOL = 0.05
+IMAGE_WARMUP = 10
+IMAGE_TIMED = 100
 
 
 def log(*a):
@@ -309,16 +342,18 @@ def cuda_time_ms(fn, iters=10, warmup=2, flush=None):
 # -- phase 2/4 helpers ---------------------------------------------------
 
 
-def block_inputs(pred, batch, seed):
-    """Input of each of the 16 blocks for ``batch`` seeded images, run
-    through the kernel path itself (real activation statistics)."""
+def block_inputs(pred, batch, seed, size=None):
+    """Input of each of the 16 blocks for ``batch`` seeded images at
+    ``size`` (default: the Predictor's), run through the kernel path
+    itself (real activation statistics)."""
     import torch
 
     from yoloret_tpu_torch.nn.layers import conv2d_same, relu6
     from yoloret_tpu_torch.ops.mbconv import fused_mbconv
 
+    hw = (size, size) if size else pred.input_hw
     g = torch.Generator(device=DEVICE).manual_seed(seed)
-    x = torch.rand((batch, *pred.input_hw, 3), generator=g, device=DEVICE).to(pred.model.dtype)
+    x = torch.rand((batch, *hw, 3), generator=g, device=DEVICE).to(pred.model.dtype)
     ks, bs = pred._fused.stem
     x = relu6(conv2d_same(x, ks, bs, stride=2)).contiguous()
     ins = []
@@ -517,29 +552,35 @@ def check_mbconv(pred, report, key="mbconv_check"):
     return max(worst.values())
 
 
-def candidates_at_b128(pred, k, seed, per_class=False):
-    """The NMS inputs of BATCH seeded images through the kernel path: the
-    shared pool of ``k`` (boxes [B, k, 4]) or, with ``per_class``, per-class
-    pools of ``k`` (boxes [B, C, k, 4]); scores [B, C, k]."""
+def model_candidates(pred, k, seed, per_class=False, batch=BATCH, size=None, images=None,
+                     image_hw=None):
+    """The NMS inputs of ``batch`` seeded images at ``size`` (default: the
+    Predictor's) through the kernel path, or of ``images`` (uint8
+    [B, H, W, 3] on the card, of original sizes ``image_hw`` [B, 2]): the
+    shared pool of ``k`` (boxes [B, k, 4]) or, with ``per_class``,
+    per-class pools of ``k`` (boxes [B, C, k, 4]); scores [B, C, k]."""
     import torch
 
     from yoloret_tpu_torch.nn.fused_infer import fused_detector_apply
     from yoloret_tpu_torch.ops.postprocess import per_class_candidates, shared_pool_candidates
 
-    g = torch.Generator(device=DEVICE).manual_seed(seed)
-    images = torch.randint(0, 256, (BATCH, *pred.input_hw, 3), generator=g, device=DEVICE,
-                           dtype=torch.uint8)
-    hw = torch.full((BATCH, 2), float(pred.input_hw[0]), device=DEVICE)
+    if images is None:
+        hw = (size, size) if size else pred.input_hw
+        g = torch.Generator(device=DEVICE).manual_seed(seed)
+        images = torch.randint(0, 256, (batch, *hw, 3), generator=g, device=DEVICE,
+                               dtype=torch.uint8)
+        image_hw = torch.tensor([hw], dtype=torch.float32, device=DEVICE).repeat(batch, 1)
     pool = per_class_candidates if per_class else shared_pool_candidates
     with torch.inference_mode():
         outs = fused_detector_apply(pred.model, images.float() / 255.0, pred._fused)
-        return pool(outs, pred._anchors_t, len(pred.class_names), hw, num_candidates=k)
+        return pool(outs, pred._anchors_t, len(pred.class_names), image_hw, num_candidates=k)
 
 
 def nms_cases(pred, synthetic=True):
     """(name, boxes, scores, score threshold, empty score) of every NMS
-    check: model candidates of the serving and the MAP-grade shape at
-    B=128, 8 and 1; the exact evaluation's per-class pools of the whole
+    check: model candidates of the serving (M=64) and the MAP-grade shape
+    (M=512) at B=128, 8 and 1, and of the IMAGE mode's and --tb_images'
+    (M=256, t=0.3) at B=128, TB_IMAGES and 1; the exact evaluation's per-class pools of the whole
     grid (large-pool kernels, empty slots -inf as on that path) at B=128
     and 1; with ``synthetic``, also those pools shuffled, with one
     inversion at the last index, and doubled beyond the rounds' staging
@@ -553,14 +594,15 @@ def nms_cases(pred, synthetic=True):
         return torch.from_numpy(np.ascontiguousarray(a, np.float32)).to(DEVICE)
 
     cases = []
-    for m, thr in ((64, 0.3), (512, 0.0)):
-        boxes, scores = candidates_at_b128(pred, m, seed=m)
-        for b in (BATCH, 8, 1):
+    for m, thr, batches in ((64, 0.3, (BATCH, 8, 1)), (256, 0.3, (BATCH, TB_IMAGES, 1)),
+                            (512, 0.0, (BATCH, 8, 1))):
+        boxes, scores = model_candidates(pred, m, seed=m)
+        for b in batches:
             cases.append((f"shared b{b} C={scores.shape[1]} M={m} t={thr} (model candidates)",
                           boxes[:b].contiguous(), scores[:b].contiguous(), thr, 0.0))
     del boxes, scores
     big_k = exact_k(pred.input_hw[0])
-    boxes, scores = candidates_at_b128(pred, big_k, seed=7, per_class=True)
+    boxes, scores = model_candidates(pred, big_k, seed=7, per_class=True)
     c = scores.shape[1]
     for b in (BATCH, 1):
         cases.append((f"per-class b{b} C={c} K={big_k} t=0 (model candidates, "
@@ -618,22 +660,30 @@ def nms_cases(pred, synthetic=True):
     return cases
 
 
-def check_nms(pred, report, synthetic=True):
+def nms_exact(boxes, scores, thr, empty=0.0):
+    """``suppress`` against ``suppress_plain`` on one pool (max_det 20, IoU
+    0.5, threshold ``thr``): returns (equal, max abs err, detections)."""
     import torch
 
-    from yoloret_tpu_torch.ops.nms_kernel import plan_nms, suppress, suppress_plain
+    from yoloret_tpu_torch.ops.nms_kernel import suppress, suppress_plain
+
+    kw = dict(max_det=20, iou_threshold=0.5, score_threshold=thr, empty_score=empty)
+    got = suppress(boxes, scores, **kw)
+    want = suppress_plain(boxes, scores, **kw)
+    torch.cuda.synchronize()
+    same = all(torch.equal(g, w) for g, w in zip(got, want))
+    err = 0.0 if same else max(max_err(torch.nan_to_num(g), torch.nan_to_num(w))
+                               for g, w in zip(got, want))
+    return same, err, int((got[1] > 0).sum())
+
+
+def check_nms(pred, report, synthetic=True):
+    from yoloret_tpu_torch.ops.nms_kernel import plan_nms
 
     rows, worst = [], {"small": 0.0, "large": 0.0}
     for name, boxes, scores, thr, empty in nms_cases(pred, synthetic):
         plan = plan_nms(scores.shape[1], scores.shape[2], 20, boxes.dim() == 3)
-        kw = dict(max_det=20, iou_threshold=0.5, score_threshold=thr, empty_score=empty)
-        got = suppress(boxes, scores, **kw)
-        want = suppress_plain(boxes, scores, **kw)
-        torch.cuda.synchronize()
-        same = all(torch.equal(g, w) for g, w in zip(got, want))
-        err = 0.0 if same else max(max_err(torch.nan_to_num(g), torch.nan_to_num(w))
-                                   for g, w in zip(got, want))
-        dets = int((got[1] > 0).sum())
+        same, err, dets = nms_exact(boxes, scores, thr, empty)
         rows.append(dict(case=name, plan=plan._asdict(), max_abs_err=err, exact=same,
                          detections=dets))
         how = {"shared": f"shared-pool kernel ({plan.warps} warps, {plan.classes_per_pass} "
@@ -1192,16 +1242,17 @@ def make_flush():
     return flush
 
 
-def time_mbconv(pred, flush):
-    """Each block's kernel, plain and cuDNN times at b128 and its bound and
-    tile plan; returns (rows, sums)."""
+def time_mbconv(pred, flush, batch=BATCH, size=None):
+    """Each block's kernel, plain and cuDNN times at ``batch`` and
+    ``size`` (default: the Predictor's) and its bound and tile plan;
+    returns (rows, sums)."""
     import torch
 
     from yoloret_tpu_torch.ops.mbconv import fused_mbconv, plan_tile, reference_mbconv
 
     rows, tot = [], dict(ms=0.0, plain_ms=0.0, library_ms=0.0, bound_ms=0.0)
     with torch.inference_mode():
-        ins = block_inputs(pred, BATCH, seed=12)
+        ins = block_inputs(pred, batch, seed=12, size=size)
         for meta, x in zip(pred._fused.blocks, ins):
             a = dict(stride=meta.stride, residual=meta.residual)
             ms = cuda_time_ms(lambda: fused_mbconv(x, *meta.args, packed=meta.packed, **a),
@@ -1242,38 +1293,68 @@ def time_nms(pred, flush):
     sorted as the path gives them and the same pools shuffled; returns
     (serving row, MAP-grade row, large-pool row, shuffled large-pool
     row). Bounds by ``nms_bound_ms`` on this run's picks."""
-    import torch
-
-    from yoloret_tpu_torch.ops.nms_kernel import plan_nms, suppress, suppress_plain
-
     rows = []
     big_k = exact_k(pred.input_hw[0])
     for m, thr, per_class, order in ((64, 0.3, False, None), (512, 0.0, False, None),
                                      (big_k, 0.0, True, "sorted"),
                                      (big_k, 0.0, True, "shuffled")):
-        boxes, scores = candidates_at_b128(pred, m, seed=100 + m, per_class=per_class)
+        boxes, scores = model_candidates(pred, m, seed=100 + m, per_class=per_class)
         if order == "shuffled":
             boxes, scores = shuffle_pools(boxes, scores, seed=1)
-        c = scores.shape[1]
-        kw = dict(max_det=20, iou_threshold=0.5, score_threshold=thr)
-        plan = plan_nms(c, m, 20, shared=not per_class)
-        ms = cuda_time_ms(lambda: suppress(boxes, scores, **kw), 10, 2, flush)
-        plain = cuda_time_ms(lambda: suppress_plain(boxes, scores, **kw), 3, 1, flush)
-        out_b, out_s = suppress(boxes, scores, empty_score=float("-inf"), **kw)
-        bound, by, work = nms_bound_ms(boxes, scores, out_b, out_s, 20, thr)
-        rows.append(dict(m=m, classes=c, score_threshold=thr, order=order, plan=plan._asdict(),
-                         ms=ms, plain_ms=plain, bound_ms=bound, bound_by=by,
-                         detections=int(torch.isfinite(out_s).sum()), **work))
         pool = f"per-class K={m} {order}" if per_class else f"shared M={m}"
-        log(f"  nms {pool} b{BATCH} C={c} t={thr} ({plan.variant} kernel, {plan.warps} warps, "
-            f"{plan.smem} B shared memory): kernel {ms:.4f} ms, plain {plain:.4f}, bound "
-            f"{bound:.5f} ({by}; {work['distinct_picks']} distinct picks, {work['rounds']} "
-            f"rounds, {work['bytes']} bytes, {work['sorted_pools']} of {work['pools']} pools "
-            f"sorted, {work['boxes_needed']} boxes needed); bound counting every box "
-            f"{work['bound_ms_all_boxes']:.5f}, per-class count "
-            f"{work['bound_ms_per_class_count']:.5f}")
+        rows.append(dict(m=m, order=order, **time_nms_case(boxes, scores, thr, flush, pool)))
         del boxes, scores
     return rows
+
+
+def time_nms_case(boxes, scores, thr, flush, pool):
+    """Kernel and plain times of ``suppress`` on one pool (max_det 20, IoU
+    0.5, threshold ``thr``; ``pool`` names it in the log) and its bound by
+    ``nms_bound_ms`` on this run's picks."""
+    import torch
+
+    from yoloret_tpu_torch.ops.nms_kernel import plan_nms, suppress, suppress_plain
+
+    b, c, m = scores.shape
+    kw = dict(max_det=20, iou_threshold=0.5, score_threshold=thr)
+    plan = plan_nms(c, m, 20, shared=boxes.dim() == 3)
+    ms = cuda_time_ms(lambda: suppress(boxes, scores, **kw), 10, 2, flush)
+    plain = cuda_time_ms(lambda: suppress_plain(boxes, scores, **kw), 3, 1, flush)
+    out_b, out_s = suppress(boxes, scores, empty_score=float("-inf"), **kw)
+    bound, by, work = nms_bound_ms(boxes, scores, out_b, out_s, 20, thr)
+    log(f"  nms {pool} b{b} C={c} t={thr} ({plan.variant} kernel, {plan.warps} warps, "
+        f"{plan.smem} B shared memory): kernel {ms:.4f} ms, plain {plain:.4f}, bound "
+        f"{bound:.5f} ({by}; {work['distinct_picks']} distinct picks, {work['rounds']} "
+        f"rounds, {work['bytes']} bytes, {work['sorted_pools']} of {work['pools']} pools "
+        f"sorted, {work['boxes_needed']} boxes needed); bound counting every box "
+        f"{work['bound_ms_all_boxes']:.5f}, per-class count "
+        f"{work['bound_ms_per_class_count']:.5f}")
+    return dict(batch=b, classes=c, score_threshold=thr, plan=plan._asdict(), ms=ms,
+                plain_ms=plain, bound_ms=bound, bound_by=by,
+                detections=int(torch.isfinite(out_s).sum()), **work)
+
+
+def nms_entry(pred, suffix, boxes, scores, launches, where, flush):
+    """The kernels line's ``nms_shared`` row of one shape of the main path:
+    ``suppress`` held exactly against ``suppress_plain`` on the shared pool
+    (boxes, scores) of t=0.3 and timed; ``launches`` the count of the run
+    ``where`` names."""
+    b, c, m = scores.shape
+    same, err, dets = nms_exact(boxes, scores, 0.3)
+    log(f"  nms kernel vs plain, shared b{b} C={c} M={m} t=0.3 ({where}): max abs err {err} "
+        f"(tolerance 0: exact), {dets} detections")
+    if not same or dets == 0:
+        raise AssertionError(f"nms b{b} M={m}: kernel differs from plain by {err}, "
+                             f"{dets} detections")
+    t = time_nms_case(boxes, scores, 0.3, flush, f"shared M={m}")
+    return dict(
+        name="nms" + suffix, route="cuda", source="yoloret_tpu_torch/csrc/nms.cu",
+        replaces="yoloret_tpu/ops/nms_pallas.py:36",
+        also_replaces=["yoloret_tpu/ops/postprocess.py:361"],
+        shapes=f"shared pool b{b} C={c} M={m} t=0.3 ({pred.model.backbone} "
+               f"@{pred.input_hw[0]}); launches: {where}",
+        launches=launches, max_abs_err=err, ms=t["ms"], plain_ms=t["plain_ms"],
+        bound_ms=t["bound_ms"], bound_by=t["bound_by"], library_ms=None)
 
 
 def shuffle_pools(boxes, scores, seed):
@@ -1285,26 +1366,67 @@ def shuffle_pools(boxes, scores, seed):
     return boxes[:, :, perm].contiguous(), scores[:, :, perm].contiguous()
 
 
+def check_mbconv_at(pred, size, batch, report, key):
+    """The bf16 MBConv kernel (the packed weights of the main path) against
+    its plain version at all 16 blocks for ``batch`` seeded images at
+    ``size``; returns the largest error."""
+    import torch
+
+    from yoloret_tpu_torch.ops.mbconv import fused_mbconv, reference_mbconv
+
+    rows, tol = [], MBCONV_TOL["bfloat16"]
+    with torch.no_grad():
+        for meta, x in zip(pred._fused.blocks, block_inputs(pred, batch, seed=13, size=size)):
+            kw = dict(stride=meta.stride, residual=meta.residual)
+            got = fused_mbconv(x, *meta.args, packed=meta.packed, **kw)
+            want = reference_mbconv(x, *meta.args, **kw)
+            torch.cuda.synchronize()
+            err = max_err(got, want)
+            rows.append(dict(block=meta.block_id, shape=list(x.shape), max_abs_err=err,
+                             max_abs_ref=want.float().abs().max().item()))
+            if not torch.allclose(got.float(), want.float(), atol=tol, rtol=tol):
+                raise AssertionError(f"mbconv block {meta.block_id} bf16 [{batch}, {size}]: "
+                                     f"max err {err}")
+    report[key] = rows
+    worst = max(r["max_abs_err"] for r in rows)
+    scale = min(r["max_abs_ref"] for r in rows)
+    log(f"  mbconv kernel vs plain, {pred.model.backbone} bf16 [{batch}, {size}, {size}, 3], 16 "
+        f"blocks (last map {rows[-1]['shape'][1]}x{rows[-1]['shape'][2]}): max abs err "
+        f"{worst:.3g} (tolerance atol=rtol {tol}; smallest block max |out| {scale:.3g})")
+    if scale < 0.1:
+        raise AssertionError(f"block outputs too small ({scale}) for the check to mean much")
+    return worst
+
+
+def mbconv_entry(pred, suffix, launches, err, mbconv, batch, size, where):
+    """The kernels line's MBConv row of one shape: ``mbconv`` is
+    ``time_mbconv``'s (rows, sums); ``launches`` the count of the run
+    ``where`` names."""
+    rows, tot = mbconv
+    return dict(
+        name="mbconv" + suffix, route="cuda", source="yoloret_tpu_torch/csrc/mbconv.cu",
+        replaces="yoloret_tpu/ops/mbconv_pallas.py:76",
+        also_replaces=["yoloret_tpu/ops/mbconv_pallas.py:109",
+                       "yoloret_tpu/ops/mbconv_pallas2.py:86"],
+        shapes=f"the {len(rows)} blocks of one {pred.model.backbone} forward at b{batch}@{size} "
+               f"bf16 (times summed); launches: {where}",
+        launches=launches, max_abs_err=err, ms=tot["ms"], plain_ms=tot["plain_ms"],
+        bound_ms=tot["bound_ms"],
+        bound_by=max(("bytes", "operations"),
+                     key=lambda by: sum(r["bound_ms"] for r in rows if r["bound_by"] == by)),
+        library_ms=tot["library_ms"])
+
+
 def kernel_entries(pred, suffix, launches, eval_launches, errs, mbconv, nms):
     """The kernels line's rows of one configuration: ``mbconv`` is
     ``time_mbconv``'s (rows, sums) or None, ``nms`` ``time_nms``'s rows."""
     size, c = pred.input_hw[0], len(pred.class_names)
     out = []
     if mbconv is not None:
-        rows, tot = mbconv
-        out.append(dict(
-            name="mbconv" + suffix, route="cuda", source="yoloret_tpu_torch/csrc/mbconv.cu",
-            replaces="yoloret_tpu/ops/mbconv_pallas.py:76",
-            also_replaces=["yoloret_tpu/ops/mbconv_pallas.py:109",
-                           "yoloret_tpu/ops/mbconv_pallas2.py:86"],
-            shapes=f"the {len(rows)} blocks of one {pred.model.backbone} forward at "
-                   f"b{BATCH}@{size} bf16 (times summed)",
-            launches=launches["mbconv"], eval_launches=eval_launches["mbconv"],
-            max_abs_err=errs["mbconv"], ms=tot["ms"],
-            plain_ms=tot["plain_ms"], bound_ms=tot["bound_ms"],
-            bound_by=max(("bytes", "operations"),
-                         key=lambda by: sum(r["bound_ms"] for r in rows if r["bound_by"] == by)),
-            library_ms=tot["library_ms"]))
+        row = mbconv_entry(pred, suffix, launches["mbconv"], errs["mbconv"], mbconv, BATCH, size,
+                           "the main path's drive")
+        row["eval_launches"] = eval_launches["mbconv"]
+        out.append(row)
     serving, mapg, large, shuffled = nms
     out.append(dict(
         name="nms" + suffix, route="cuda", source="yoloret_tpu_torch/csrc/nms.cu",
@@ -1693,7 +1815,279 @@ def train_cli_phase(weights, seed, report):
 
         with torch.no_grad():
             out["mbconv_err"] = check_mbconv(trained, report, key="mbconv_trained_check")
+        del trained
+        out["anchors"] = anchors_cli(root, lst)
+        warm = os.path.join(root, "flagship.pt")
+        torch.save(weights, warm)
+        report["train_options"] = train_options_phase(root, lst, config, warm, seed, report,
+                                                      stages[0]["img_per_s"], map_batches)
     report["train_cli"] = out
+
+
+def anchors_cli(root, lst):
+    """The CLI's ANCHORS on the train list; its file must equal the one
+    ``kmeans_anchors`` writes from the same boxes in this process."""
+    from yoloret_tpu_torch.cli.main import main as cli_main
+    from yoloret_tpu_torch.tools.kmeans import boxes_wh_from_lists, kmeans_anchors, write_anchors
+
+    got, want = os.path.join(root, "anchors_cli.txt"), os.path.join(root, "anchors_ref.txt")
+    rc, text = run_printing(cli_main, ["--mode=ANCHORS", f"--train_dataset={lst}",
+                                       f"--output={got}"])
+    assert rc == 0, f"the CLI's ANCHORS mode returned {rc}"
+    anchors, _ = kmeans_anchors(boxes_wh_from_lists(lst))
+    write_anchors(want, anchors)
+    with open(got) as f, open(want) as g:
+        line, ref = f.read(), g.read()
+    log(f"  ANCHORS on the train list: {text.strip().splitlines()[0]}; {line.strip()}")
+    assert line == ref, (line, ref)
+    return line.strip()
+
+
+def tb_image_sizes(log_dir):
+    """(tag, PNG size) of each image summary in the event files under
+    ``log_dir``, in the order written."""
+    from PIL import Image
+
+    from yoloret_tpu_torch.data.tfrecord import index_tfrecord, read_record_at
+
+    out = []
+    for name in sorted(os.listdir(log_dir)):
+        path = os.path.join(log_dir, name)
+        for off, ln in index_tfrecord(path):
+            rec = read_record_at(path, off, ln)
+            if b"\x89PNG" in rec:
+                tag = re.search(rb"train_input/\d+", rec).group().decode()
+                with Image.open(io.BytesIO(rec[rec.index(b"\x89PNG"):])) as im:
+                    out.append((tag, im.size))
+    return out
+
+
+def train_options_phase(root, lst, config, warm, seed, report, plain, map_batches):
+    """The CLI's TRAIN with the options of ROADMAP item 4c (AutoAugment v0,
+    mosaic and mixup 0.5, multi-scale OPTIONS_SIZES, TB_IMAGES detection
+    rows an epoch), one stage-1 epoch per size from the weight file
+    ``warm`` (the calibrated flagship weights, so that the frozen
+    backbone's activations are not the seeded init's vanishing ones), on
+    the same data as the plain run (whose stage-1 epoch img/s are
+    ``plain``), with the validation loss and the stage-end mAP
+    (``map_batches`` batches); launch counts set to 0 just before and read
+    just after (16 MBConv + 1 NMS for each epoch's detection pass and each
+    mAP batch). Then the MBConv kernel against its plain version on the
+    trained weights at [TB_IMAGES, size] for each size, the host stream's
+    cost of AutoAugment (one epoch, decode included, with and without
+    it), mix_batch on the card against the CPU on one batch with the same
+    draws and its device time, and at each size the MBConv kernel's times
+    and the NMS kernel held exactly against its plain version on a pool
+    of 256 of TB_IMAGES seeded images and timed. Returns the report's
+    entry; the kernel rows (their launches: the whole options run's) go to
+    ``report["options_kernels"]``."""
+    import numpy as np
+    import torch
+
+    from yoloret_tpu_torch.cli.main import main as cli_main
+    from yoloret_tpu_torch.data import Dataset, DatasetMode
+    from yoloret_tpu_torch.data.augment import AugmentConfig, draw_mix, mix_batch
+    from yoloret_tpu_torch.ops.mbconv import fused_mbconv
+    from yoloret_tpu_torch.ops.nms_kernel import suppress
+    from yoloret_tpu_torch.utils.checkpoint import load_params
+
+    t_phase = time.perf_counter()
+    out = {}
+    logs = os.path.join(root, "logs_options")
+    argv = ["--mode=TRAIN", f"--config={config}", f"--train_dataset={lst}",
+            f"--val_dataset={lst}", f"--test_dataset={lst}",
+            f"--batch_size={TRAIN_E2E_BATCH}", f"--model={warm}", "--epochs",
+            str(len(OPTIONS_SIZES)), "1", f"--log_dir={logs}", f"--seed={seed}",
+            "--autoaugment_policy=v0", "--mosaic=0.5", "--mixup=0.5", "--multi_scale",
+            *map(str, OPTIONS_SIZES), f"--tb_images={TB_IMAGES}"]
+    fused_mbconv.launches = suppress.launches = 0
+    t0 = time.perf_counter()
+    rc, text = run_printing(cli_main, argv)
+    out["seconds"] = time.perf_counter() - t0
+    launches = out["launches"] = {"mbconv": fused_mbconv.launches, "nms": suppress.launches}
+    assert rc == 0, f"the CLI's TRAIN mode with the options returned {rc}"
+    stage = os.path.join(logs, "mobilenetv2x75_stage1")
+    with open(os.path.join(stage, "metrics.jsonl")) as f:
+        epochs = [r for r in map(json.loads, f) if "loss" in r]
+    sizes = [int(m) for m in re.findall(r"^epoch \d+: input size \((\d+), \d+\)$", text, re.M)]
+    images = tb_image_sizes(os.path.join(stage, "tb"))
+    out.update(loss=[r["loss"] for r in epochs], val_loss=[r["val_loss"] for r in epochs],
+               img_per_s=[r["images_per_sec"] for r in epochs], plain_img_per_s=plain,
+               sizes=sizes, tb_images=images)
+    log(f"  TRAIN with AutoAugment v0, mosaic 0.5, mixup 0.5, multi-scale {sizes}, tb_images "
+        f"{TB_IMAGES}: loss by epoch {[round(v, 4) for v in out['loss']]}, val loss "
+        f"{[round(v, 4) for v in out['val_loss']]}, img/s {out['img_per_s']} (the plain run's "
+        f"stage-1 epochs at {SIZE}: {plain}); {len(images)} image summaries "
+        f"{sorted(set(images), key=images.index)}; launches {launches}; {out['seconds']:.1f} s")
+    assert sizes == list(OPTIONS_SIZES), sizes
+    assert all(np.isfinite(v) for v in out["loss"] + out["val_loss"]), out
+    assert [size for _, size in images] == [(s, s) for s in OPTIONS_SIZES
+                                            for _ in range(TB_IMAGES)], images
+    forwards = len(OPTIONS_SIZES) + map_batches  # the detection passes and the stage-end mAP
+    assert launches == {"mbconv": 16 * forwards, "nms": forwards}, launches
+
+    trained = make_predictor(seed, weights=load_params(
+        os.path.join(stage, "mobilenetv2x75_trained_weights_stage_1.pt")))
+    errs = {size: check_mbconv_at(trained, size, TB_IMAGES, report,
+                                  f"mbconv_trained_check_{size}_b{TB_IMAGES}")
+            for size in OPTIONS_SIZES}
+    out["mbconv_err"] = errs
+
+    host = {}
+    for policy in (None, "v0"):
+        ds = Dataset(lst, TRAIN_E2E_BATCH, input_hw=(SIZE, SIZE), mode=DatasetMode.TRAIN,
+                     device=DEVICE, anchors=ANCHORS, num_classes=NUM_CLASSES, seed=seed,
+                     aa_policy=policy)
+        t0 = time.perf_counter()
+        n = sum(len(b["images"]) for b in ds._host_batches(epochs=1))
+        host[policy or "none"] = (time.perf_counter() - t0) * 1e3 / n
+    out["host_ms_per_image"] = host
+    log(f"  host stream alone, one epoch of {n} images at {SIZE} (8 decode threads): "
+        f"{host['none']:.3f} ms/image plain, {host['v0']:.3f} with AutoAugment v0")
+
+    rs = np.random.RandomState(seed)
+    b, size, t = TRAIN_E2E_BATCH, OPTIONS_SIZES[-1], 20
+    lo = rs.uniform(0, size * 0.8, (b, t, 2))
+    cpu_in = (torch.from_numpy(rs.rand(b, size, size, 3).astype(np.float32)),
+              torch.from_numpy(np.concatenate([lo, lo + rs.uniform(1, size * 0.4, (b, t, 2)),
+                                               rs.randint(0, NUM_CLASSES, (b, t, 1))], -1)
+                               .astype(np.float32)),
+              torch.from_numpy(rs.rand(b, t) < 0.6))
+    cfg = AugmentConfig(input_hw=(size, size), mosaic_prob=0.5, mixup_prob=0.5)
+    draws = draw_mix(b, cfg, torch.Generator().manual_seed(seed), torch.device("cpu"))
+    want = mix_batch(*cpu_in, cfg, draws)
+    card_in = [v.to(DEVICE) for v in cpu_in]
+    card_draws = {k: v.to(DEVICE) for k, v in draws.items()}
+    got = [v.cpu() for v in mix_batch(*card_in, cfg, card_draws)]
+    mix = dict(image_err=max_err(got[0], want[0]), box_err=max_err(got[1], want[1]),
+               valid_equal=torch.equal(got[2], want[2]),
+               mosaic_rows=int(draws["do_mosaic"].sum()), mixup_rows=int(draws["do_mixup"].sum()),
+               ms=cuda_time_ms(lambda: mix_batch(*card_in, cfg, card_draws), 10, 2))
+    out["mix_batch"] = mix
+    log(f"  mix_batch card vs CPU, b{b}@{size}, {mix['mosaic_rows']} mosaic and "
+        f"{mix['mixup_rows']} mixup rows: images max abs err {mix['image_err']:.3g} (tolerance "
+        f"{MIX_TOL:g}), boxes {mix['box_err']:.3g} px ({MIX_BOX_TOL:g}), valid equal "
+        f"{mix['valid_equal']}; {mix['ms']:.4f} ms on the card (CUDA events)")
+    assert mix["image_err"] <= MIX_TOL and mix["box_err"] <= MIX_BOX_TOL and mix["valid_equal"]
+    assert 0 < mix["mosaic_rows"] < b and mix["mixup_rows"] > 0, mix
+
+    flush = make_flush()
+    where = (f"the whole options run: {len(OPTIONS_SIZES)} --tb_images passes at b{TB_IMAGES} "
+             f"(one at each of {list(OPTIONS_SIZES)}; NMS M=256) and {map_batches} stage-end mAP "
+             f"batches at {SIZE} (NMS M=512)")
+    report["options_kernels"] = []
+    for size in OPTIONS_SIZES:
+        report["options_kernels"] += [
+            mbconv_entry(trained, f"@{size}_b{TB_IMAGES}", launches["mbconv"], errs[size],
+                         time_mbconv(trained, flush, batch=TB_IMAGES, size=size), TB_IMAGES,
+                         size, where),
+            nms_entry(trained, f"@{size}_b{TB_IMAGES}",
+                      *model_candidates(trained, 256, seed=14, batch=TB_IMAGES, size=size),
+                      launches["nms"], where, flush)]
+    out["phase_seconds"] = time.perf_counter() - t_phase
+    log(f"  TRAIN options phase done in {out['phase_seconds']:.1f} s")
+    return out
+
+
+def image_phase(state, seed, report):
+    """The CLI's IMAGE on the port's demo photo with the flagship weights
+    (bf16, the user's default; launch counts set to 0 just before and read
+    just after: 16 MBConv + 1 NMS), the float32 Predictor's detections on
+    it card vs CPU, the MBConv kernel against its plain version at batch
+    1, the batch-1 latency of ``detect_arrays`` (host clock, letterbox and
+    readback included) and of ``infer`` (CUDA events), the MBConv
+    kernel's times at b1, and the NMS kernel held exactly against its plain
+    version on the demo photo's pool of 256 and timed. Returns the kernels
+    line's two rows."""
+    import numpy as np
+    import torch
+    from PIL import Image
+
+    from yoloret_tpu_torch.cli.main import demo_image
+    from yoloret_tpu_torch.cli.main import main as cli_main
+    from yoloret_tpu_torch.infer import Predictor
+    from yoloret_tpu_torch.ops.letterbox import letterbox_numpy_u8
+    from yoloret_tpu_torch.ops.mbconv import fused_mbconv
+    from yoloret_tpu_torch.ops.nms_kernel import suppress
+
+    t_phase = time.perf_counter()
+    out = {}
+    names = [f"class_{i}" for i in range(NUM_CLASSES)]
+    demo = demo_image()
+    with tempfile.TemporaryDirectory(prefix="yoloret_image_") as root:
+        weights = os.path.join(root, "flagship.pt")
+        torch.save(state, weights)
+        with open(os.path.join(root, "classes.txt"), "w") as f:
+            f.write("\n".join(names) + "\n")
+        with open(os.path.join(root, "anchors.txt"), "w") as f:
+            f.write(", ".join(f"{w},{h}" for w, h in ANCHORS) + "\n")
+        png = os.path.join(root, "demo_out.png")
+        fused_mbconv.launches = suppress.launches = 0
+        rc, text = run_printing(cli_main, [
+            "--mode=IMAGE", f"--model={weights}", f"--classes_path={root}/classes.txt",
+            f"--anchors_path={root}/anchors.txt", f"--score={IMAGE_SCORE}", f"--output={png}"])
+        launches = out["launches"] = {"mbconv": fused_mbconv.launches, "nms": suppress.launches}
+        assert rc == 0, f"the CLI's IMAGE mode returned {rc}"
+        lines = text.strip().splitlines()
+        with Image.open(png) as im, Image.open(demo) as src:
+            assert im.size == src.size, (im.size, src.size)
+        out["cli_lines"] = lines
+    log(f"IMAGE (CLI, bf16, score {IMAGE_SCORE}) on {os.path.relpath(demo, HERE)}: {lines[0]}, "
+        f"{len(lines) - 2} detections, {lines[-1].split('/')[-1]} written; launches {launches}")
+    assert lines[-1].startswith("wrote ") and launches == {"mbconv": 16, "nms": 1}, launches
+
+    kw = dict(class_names=names, anchors=ANCHORS, input_hw=(SIZE, SIZE),
+              score_threshold=IMAGE_SCORE, bf16=False)
+    with contextlib.redirect_stdout(io.StringIO()):
+        got = Predictor(weights=state, device=DEVICE, **kw).detect_image(demo, draw=False)[1]
+        want = Predictor(weights=state, device="cpu", **kw).detect_image(demo, draw=False)[1]
+
+    def same(g, w):
+        return (g.class_id == w.class_id and abs(g.score - w.score) <= 1e-4 * abs(w.score)
+                and max(abs(a - b) for a, b in zip(g.box, w.box)) <= IMAGE_BOX_TOL)
+
+    assert len(got) == len(want) > 0, (len(got), len(want))
+    free = list(want)
+    for g in got:
+        hit = next((w for w in free if same(g, w)), None)
+        assert hit is not None, f"no CPU detection matches {g}"
+        free.remove(hit)
+    out["float32_detections"] = len(got)
+    log(f"  IMAGE float32 card vs CPU: {len(got)} detections agree (class, score rtol 1e-4, box "
+        f"atol {IMAGE_BOX_TOL} px)")
+
+    pred = make_predictor(seed, weights=state, score_threshold=IMAGE_SCORE)
+    err = check_mbconv_at(pred, SIZE, 1, report, "mbconv_check_320_b1")
+    arr = np.asarray(Image.open(demo).convert("RGB"))
+    for _ in range(IMAGE_WARMUP):
+        pred.detect_arrays([arr])
+    wall = []
+    for _ in range(IMAGE_TIMED):
+        t0 = time.perf_counter()
+        pred.detect_arrays([arr])
+        wall.append((time.perf_counter() - t0) * 1e3)
+    wall.sort()
+    x = torch.from_numpy(letterbox_numpy_u8(arr, pred.input_hw)[None]).to(DEVICE)
+    hw = torch.tensor([arr.shape[:2]], dtype=torch.float32, device=DEVICE)
+    with torch.inference_mode():
+        infer_ms = cuda_time_ms(lambda: pred.infer(x, hw), 20, 3)
+    out["latency_ms"] = dict(median=wall[len(wall) // 2], p90=wall[int(len(wall) * 0.9)],
+                             mean=sum(wall) / len(wall), infer_cuda_events=infer_ms)
+    lat = out["latency_ms"]
+    log(f"  IMAGE batch-1 latency, bf16 @{SIZE}, score {IMAGE_SCORE}, M={pred.num_candidates}: "
+        f"detect_arrays median {lat['median']:.3f} ms, p90 {lat['p90']:.3f}, mean "
+        f"{lat['mean']:.3f} over {IMAGE_TIMED} calls (host clock: letterbox, upload, forward, "
+        f"NMS, readback); infer {infer_ms:.3f} ms (CUDA events)")
+    flush = make_flush()
+    rows = [mbconv_entry(pred, f"@{SIZE}_b1", launches["mbconv"], err,
+                         time_mbconv(pred, flush, batch=1), 1, SIZE, "the CLI's IMAGE run"),
+            nms_entry(pred, f"@{SIZE}_b1",
+                      *model_candidates(pred, pred.num_candidates, 0, images=x, image_hw=hw),
+                      launches["nms"], "the CLI's IMAGE run (pool: the demo photo's)", flush)]
+    out["seconds"] = time.perf_counter() - t_phase
+    log(f"IMAGE phase done in {out['seconds']:.1f} s")
+    report["image"] = out
+    return rows
 
 
 def step_kernel_ms(prof):
@@ -1890,7 +2284,9 @@ def main(argv=None) -> int:
     log(f"flagship phases done at {time.perf_counter() - t_start:.1f} s")
     del pred, map_pred
     torch.cuda.empty_cache()
+    kernels += image_phase(state, args.seed, report)
     train_rates = train_phase(state, args.seed, report)
+    kernels += report["options_kernels"]
     torch.cuda.empty_cache()
 
     for name, config in COCO_CONFIGS.items():
@@ -1924,6 +2320,11 @@ def main(argv=None) -> int:
                     "train_step_check": report["train_step_check"],
                     "train_cli": {k: report["train_cli"][k] for k in
                                   ("map_trainer", "map_cli", "launches", "mbconv_err")},
+                    "train_options": {k: report["train_options"][k] for k in
+                                      ("img_per_s", "plain_img_per_s", "host_ms_per_image",
+                                       "launches", "mbconv_err", "mix_batch")},
+                    "image": {k: report["image"][k] for k in
+                              ("launches", "float32_detections", "latency_ms")},
                     "seconds": report["seconds"],
                     "card": smi}))
     log(json.dumps({"kernels": kernels}))

@@ -1,6 +1,7 @@
 """Shared set-up of the port's backbone parity tests
-(tests/test_torch_backbones.py, tests/test_torch_legacy.py): one JAX
-init per model, its variables carried into the port by ``from_flax``
+(tests/test_torch_backbones.py, tests/test_torch_legacy.py): one init per
+model (``jax_variables``, or ``port_variables``: the port's seeded init
+written into the Flax tree's structure), its variables carried into the port by ``from_flax``
 with a strict key match, BatchNorm statistics calibrated on the inputs
 and written back into the Flax tree, so both sides run the same weights
 on unit-scale activations (the seeded fan-out init alone shrinks them
@@ -18,7 +19,8 @@ import jax.numpy as jnp
 import numpy as np
 import torch
 
-from yoloret_tpu_torch.nn.layers import BatchNorm, calibrate_bn
+from yoloret_tpu_torch.nn.detector import YoloReT
+from yoloret_tpu_torch.nn.layers import BatchNorm, calibrate_bn, init_weights
 from yoloret_tpu_torch.weights import from_flax
 
 SIZE = 64
@@ -30,6 +32,50 @@ TOL = dict(atol=2e-4, rtol=2e-4)  # as tests/test_torch_layers.py holds the forw
 def _map(tree, fn, path=()):
     return {k: _map(v, fn, path + (k,)) if isinstance(v, dict) else fn(path + (k,), v)
             for k, v in tree.items()}
+
+
+def to_flax(shapes, state):
+    """A port state dict as the Flax variables whose structure
+    ``shapes`` (``jax.eval_shape`` of the init) gives: the inverse of
+    ``weights.from_flax``."""
+    names = {"kernel": "weight", "scale": "weight", "bias": "bias", "alpha": "alpha",
+             "mean": "running_mean", "var": "running_var"}
+
+    def fn(path, _):
+        v = state[".".join(path[1:-1] + (names[path[-1]],))].detach().double().numpy()
+        if path[-1] == "kernel":
+            v = v.transpose(2, 3, 1, 0) if v.ndim == 4 else v.T
+        return np.ascontiguousarray(v, np.float32)
+
+    return _map(jax.tree.map(lambda a: a, shapes), fn)
+
+
+def jax_variables(jax_model, port_model=None):
+    """Flax variables of the JAX init (``port_model`` unused: the same
+    signature as ``port_variables``)."""
+    # jitted: one compile beats dispatching every op of the init eagerly
+    return jax.device_get(jax.jit(lambda k: jax_model.init(
+        k, jnp.zeros((1, SIZE, SIZE, 3)), False))(jax.random.PRNGKey(0)))
+
+
+def port_variables(jax_model, port_model, seed=0):
+    """Flax variables of ``port_model``'s seeded init, in the structure of
+    ``jax_model``'s tree: ``jax.eval_shape`` traces the JAX init without
+    compiling it, which spares most of a model's set-up on a CPU."""
+    init_weights(port_model, torch.Generator().manual_seed(seed))
+    shapes = jax.eval_shape(lambda k: jax_model.init(k, jnp.zeros((1, SIZE, SIZE, 3)), False),
+                            jax.random.PRNGKey(0))
+    return to_flax({k: dict(t) for k, t in shapes.items()}, port_model.state_dict())
+
+
+def peaked_variables(jax_model, num_classes, seed=3):
+    """Flax variables of a MobileNetV2 x0.75 detector from the port's
+    seeded init (``port_variables``), with the head kernels amplified x4,
+    so that scores form distinct input-dependent peaks instead of ties at
+    0.25."""
+    v = port_variables(jax_model, YoloReT("mobilenetv2x75", num_classes=num_classes), seed)
+    return _map(v, lambda path, a: a * 4.0 if path[-1] == "kernel" and any(
+        "head" in p for p in path) else a)
 
 
 def perturb_params(params, seed=1):
@@ -48,14 +94,13 @@ def perturb_params(params, seed=1):
     return _map(params, fn)
 
 
-def make_pair(jax_model, port_model, seed=0, batch=2):
+def make_pair(jax_model, port_model, init, seed=0, batch=2):
     """(inputs [batch, SIZE, SIZE, 3], calibrated Flax variables, the JAX
     forward's outputs as numpy, the port model holding the same weights).
-    Module paths are the same in both trees."""
+    Module paths are the same in both trees. ``init`` (``jax_variables``
+    or ``port_variables``) gives the weights from the two models."""
     x = np.random.RandomState(seed).rand(batch, SIZE, SIZE, 3).astype(np.float32)
-    # jitted: one compile beats dispatching every op of the init eagerly
-    variables = jax.device_get(
-        jax.jit(lambda k: jax_model.init(k, jnp.asarray(x), False))(jax.random.PRNGKey(0)))
+    variables = init(jax_model, port_model)
     variables = {"params": perturb_params(variables["params"]),
                  "batch_stats": variables["batch_stats"]}
     port_model.load_state_dict(from_flax(variables, port_model), strict=True)

@@ -4,9 +4,9 @@ fused path, whose kernels take their plain versions on the CPU), the
 EfficientNet stage tables, and ``Predictor.detect_arrays`` at 80 classes
 for the two COCO backbones (``configs/coco_*.yaml``).
 
-Float32 on the CPU at 64x64, batch 2, inputs from a numpy seed; one JAX
-init per backbone (``tests/_torch_parity.py``), heads within atol = rtol
-= 2e-4.
+Float32 on the CPU at 64x64, batch 2, inputs from a numpy seed; one set-up
+per backbone, the port's seeded init in the Flax tree
+(``tests/_torch_parity.py``), heads within atol = rtol = 2e-4.
 """
 
 import dataclasses
@@ -15,7 +15,7 @@ import numpy as np
 import pytest
 import torch
 
-from _torch_parity import ANCHORS, SIZE, assert_heads_close, make_pair
+from _torch_parity import ANCHORS, SIZE, assert_heads_close, make_pair, port_variables
 from yoloret_tpu.infer import Predictor as JaxPredictor
 from yoloret_tpu.nn import build_detector as jax_build_detector
 from yoloret_tpu.nn import detector as jax_detector
@@ -34,14 +34,14 @@ BACKBONES = {"mobilenetv2x14": COCO_CLASSES, "mobilenetv2x10": 3,
 
 @pytest.fixture(scope="module")
 def pairs():
-    """One JAX init and forward per backbone, made on first use."""
+    """One set-up and JAX forward per backbone, made on first use."""
     cache = {}
 
     def get(name):
         if name not in cache:
             nc = BACKBONES[name]
             cache[name] = make_pair(jax_build_detector(name, num_classes=nc),
-                                    YoloReT(name, num_classes=nc)) + (nc,)
+                                    YoloReT(name, num_classes=nc), port_variables) + (nc,)
         return cache[name]
 
     return get

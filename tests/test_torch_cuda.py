@@ -74,6 +74,11 @@ MBCONV_CASES += [s + (1,) for s in X14_BLOCK_SHAPES] + [
     s + (128,) for s in X14_BLOCK_SHAPES[-3:]] + [
     (10, 10, 160, 960, 160, 1, True, True, 8),  # x1.0 @320, blocks 14-15
 ]
+# Multi-scale training's detection passes (--tb_images): x0.75 at 288 and
+# 352 (last maps 9x9 and 11x11), batch 4. IMAGE runs 320 at batch 1
+# (BLOCK_SHAPES above).
+MBCONV_CASES += [(s[0] * size // 320, s[1] * size // 320) + s[2:] + (4,)
+                 for size in (288, 352) for s in BLOCK_SHAPES]
 
 
 @pytest.fixture
@@ -487,3 +492,30 @@ def test_train_step_matches_cpu(cuda, stage):
         for k, v in before.items():
             if k.startswith("body.") and (labels.get(k) == "frozen" or "running" in k):
                 assert torch.equal(got[k], v), k
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mosaic,mixup", [(0.5, 0.5), (0.0, 0.7)])
+def test_mix_batch_matches_cpu(cuda, mosaic, mixup):
+    """The online mosaic and mixup on the card against the same call on
+    the CPU with the same draws: images within 1e-5 (float32, TF32 off),
+    boxes within 1e-4 px, ``valid`` equal."""
+    from yoloret_tpu_torch.data.augment import AugmentConfig, draw_mix, mix_batch
+
+    rs = np.random.RandomState(2)
+    b, t = 8, 20
+    images = torch.from_numpy(rs.rand(b, 352, 352, 3).astype(np.float32))
+    lo = rs.uniform(0, 300, (b, t, 2))
+    boxes = torch.from_numpy(np.concatenate(
+        [lo, lo + rs.uniform(1, 120, (b, t, 2)), rs.randint(0, 20, (b, t, 1))], -1)
+        .astype(np.float32))
+    valid = torch.from_numpy(rs.rand(b, t) < 0.6)
+    cfg = AugmentConfig(input_hw=(352, 352), mosaic_prob=mosaic, mixup_prob=mixup)
+    draws = draw_mix(b, cfg, torch.Generator().manual_seed(0), torch.device("cpu"))
+    want = mix_batch(images, boxes, valid, cfg, draws)
+    got = mix_batch(images.to(cuda), boxes.to(cuda), valid.to(cuda), cfg,
+                    {k: v.to(cuda) for k, v in draws.items()})
+    torch.testing.assert_close(got[0].cpu(), want[0], atol=1e-5, rtol=0)
+    torch.testing.assert_close(got[1].cpu(), want[1], atol=1e-4, rtol=0)
+    assert torch.equal(got[2].cpu(), want[2])
+

@@ -3,9 +3,10 @@ per-class candidate pool, ``evaluate_map`` end to end and the CLI's MAP
 mode.
 
 Float32 on the CPU, inputs made with numpy from a seed. The detector's
-weights come from one JAX init with the head kernels amplified (as in
-tests/test_export.py::_peaked_checkpoint), so scores form distinct peaks
-and no NMS tie-break depends on the backend; the ground truth is the
+weights come from the port's seeded init carried into the Flax tree
+(``_torch_parity.peaked_variables``), with the head kernels amplified (as
+in tests/test_export.py::_peaked_checkpoint), so scores form distinct
+peaks and no NMS tie-break depends on the backend; the ground truth is the
 port's own detections on the dataset, so APs are not zero.
 """
 
@@ -19,6 +20,7 @@ import torch
 from PIL import Image
 
 import yoloret_tpu_torch.native
+from _torch_parity import peaked_variables
 from test_torch_data import pinned_decoder
 from test_torch_slice import ANCHORS, _heads
 from yoloret_tpu.data.pipeline import Dataset as JaxDataset
@@ -130,15 +132,7 @@ def test_detect_batch_refuses_what_is_not_ported():
 
 def _peaked_variables():
     model = jax_build_detector("mobilenetv2x75", num_classes=len(CLASSES))
-    v = jax.device_get(model.init(jax.random.PRNGKey(3), jnp.zeros((1, SIZE, SIZE, 3)), False))
-
-    def amplify(tree, path=()):
-        return {k: amplify(val, path + (k,)) if isinstance(val, dict)
-                else (np.asarray(val) * 4.0 if k == "kernel" and any("head" in p for p in path)
-                      else np.asarray(val))
-                for k, val in tree.items()}
-
-    return model, {"params": amplify(v["params"]), "batch_stats": amplify(v["batch_stats"])}
+    return model, peaked_variables(model, len(CLASSES))
 
 
 def _write_images(root, n, rs):
@@ -249,8 +243,8 @@ def test_cli_map_prints_the_same_map(eval_setup, exact, tmp_path, capsys):
 
 
 def test_cli_refuses_what_is_not_ported(capsys, tmp_path):
-    for argv in (["--mode=IMAGE"], ["--mode=MAP", "--int8"],
+    for argv in (["--mode=VIDEO"], ["--mode=MAP", "--int8"],
                  ["--mode=MAP", "--mesh_data=4"], ["--mode=MAP", f"--model={tmp_path}"],
-                 ["--mode=TRAIN", "--multi_scale", "288", "320"], ["--mode=bogus"]):
+                 ["--mode=TRAIN", "--mesh_data=2"], ["--mode=bogus"]):
         assert cli_main(argv) == 2
         assert "ROADMAP.md" in capsys.readouterr().err

@@ -14,7 +14,7 @@ import numpy as np
 import pytest
 import torch
 
-from _torch_parity import assert_heads_close, make_pair
+from _torch_parity import assert_heads_close, jax_variables, make_pair
 from yoloret_tpu.nn import build_detector as jax_build_detector
 from yoloret_tpu.nn import legacy as jax_legacy
 from yoloret_tpu_torch.nn import legacy
@@ -51,7 +51,7 @@ def pairs():
 
     def get(name):
         if name not in cache:
-            cache[name] = make_pair(*MODELS[name]())
+            cache[name] = make_pair(*MODELS[name](), jax_variables)
         return cache[name]
 
     return get

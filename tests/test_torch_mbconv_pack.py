@@ -143,6 +143,13 @@ def test_tile_plan_fits_shared_memory_and_wgmma_granularity(size, batch):
     _check_plans(_block_shapes(size), batch)
 
 
+@pytest.mark.parametrize("size", [288, 352])  # last maps 9x9, 11x11
+def test_tile_plan_at_the_multi_scale_sizes(size):
+    """Multi-scale training's TensorBoard detections run the blocks at
+    288 and 352 with a batch of tb_images rows (4 on the card)."""
+    _check_plans(_block_shapes(size), 4)
+
+
 @pytest.mark.parametrize("alpha,size", [(1.4, 224), (1.0, 320)])
 @pytest.mark.parametrize("batch", [1, 8, 128])
 def test_tile_plan_other_widths(alpha, size, batch):

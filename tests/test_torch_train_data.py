@@ -49,7 +49,7 @@ def test_host_stream_bitwise(tmp_path, decoder):
             for g, w in zip(got, want):
                 for k in ("images", "boxes", "valid", "image_hw", "n_valid"):
                     np.testing.assert_array_equal(g[k], w[k], err_msg=k)
-        qualities = [q for _, _, qs in ds.host_plan(epochs=3) for q in qs]
+        qualities = [q for _, _, qs, _ in ds.host_plan(epochs=3) for q in qs]
         assert len(set(qualities)) > 1 and all(80 <= q <= 100 for q in qualities)
         assert ds.decodes[decoder] > 0 and sum(ds.decodes.values()) == ds.decodes[decoder]
 

@@ -110,7 +110,9 @@ def test_loss_and_gradient_match_jax(box_loss, class_loss):
                                 **kw)
         return total, parts
 
-    (jtotal, jparts), jgrad = jax.value_and_grad(jfn, has_aux=True)([jnp.asarray(h) for h in hs])
+    # jitted: one compile beats dispatching every op of the loss eagerly
+    (jtotal, jparts), jgrad = jax.jit(jax.value_and_grad(jfn, has_aux=True))(
+        [jnp.asarray(h) for h in hs])
     th = [torch.from_numpy(h).requires_grad_(True) for h in hs]
     total, parts = yolo_loss(th, [torch.from_numpy(y) for y in ys], torch.from_numpy(gt),
                              torch.from_numpy(gv), torch.from_numpy(ANCHORS), **kw)

@@ -33,7 +33,7 @@ import optax
 import pytest
 import torch
 
-from _torch_parity import ANCHORS, SIZE, _map, perturb_params
+from _torch_parity import ANCHORS, SIZE, perturb_params, to_flax
 from yoloret_tpu.nn import build_detector as jax_build
 from yoloret_tpu.nn import detector as jax_detector
 from yoloret_tpu.ops.targets import assign_targets_batch as jax_assign
@@ -75,22 +75,6 @@ def make_batch(x, seed=0):
     jbatch = {"images": jnp.asarray(x), "gt_boxes": gt, "gt_valid": gv,
               **{f"y_true_{l}": ys[l] for l in range(3)}}
     return jbatch, {k: torch.from_numpy(np.array(v)) for k, v in jbatch.items()}
-
-
-def to_flax(shapes, state):
-    """A port state dict as the Flax variables whose structure
-    ``shapes`` (``jax.eval_shape`` of the init) gives: the inverse of
-    ``weights.from_flax``."""
-    names = {"kernel": "weight", "scale": "weight", "bias": "bias", "alpha": "alpha",
-             "mean": "running_mean", "var": "running_var"}
-
-    def fn(path, _):
-        v = state[".".join(path[1:-1] + (names[path[-1]],))].detach().double().numpy()
-        if path[-1] == "kernel":
-            v = v.transpose(2, 3, 1, 0) if v.ndim == 4 else v.T
-        return np.ascontiguousarray(v, np.float32)
-
-    return _map(jax.tree.map(lambda a: a, shapes), fn)
 
 
 def build(backbone):
@@ -172,6 +156,11 @@ def f64(request):
             state, m = step(state, jbatch, jax.random.PRNGKey(1))
             states.append(jax.device_get(state))
             metrics.append(jax.device_get(m))
+            # the float64 forward turns the float32 statistics float64; the
+            # next step starts from them at float32, as the port's buffers
+            # hold them, and so reuses the first step's compile
+            state = state.replace(batch_stats=jax.tree.map(lambda a: a.astype(jnp.float32),
+                                                           state.batch_stats))
     yield dict(backbone=request.param, jm=jm, variables=variables, pm=pm, x=x, batch=tbatch,
                jbatch=jbatch, states=states, metrics=metrics,
                grads=from_flax({"params": states[0].opt_state[0]["g"]}))

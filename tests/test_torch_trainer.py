@@ -5,7 +5,8 @@ stage-end mAP, stage 2 from stage 1's weight file, ``--mode=MAP
 interrupted after a checkpoint and ``--resume``d ending with the weights
 of the uninterrupted run (the data stream continues at the batch where
 it stopped); and each option that is not ported yet stopping with its
-ROADMAP.md item."""
+ROADMAP.md item. The training options of item 4c are held in
+tests/test_torch_train_options.py."""
 
 import json
 import os
@@ -148,11 +149,6 @@ def test_resume_continues_at_the_same_batch(data, tmp_path, monkeypatch):
 
 
 @pytest.mark.parametrize("flags,item", [
-    (["--autoaugment_policy=v0"], "AutoAugment"),
-    (["--mosaic=0.5"], "mosaic"),
-    (["--mixup=0.5"], "mixup"),
-    (["--multi_scale", "288", "320"], "multi-scale"),
-    (["--tb_images=2"], "TensorBoard images"),
     (["--mesh_data=2"], "item 6"),
     (["--model={root}"], "item 5"),
     (["--train_unfreeze={root}"], "item 5"),
@@ -173,7 +169,10 @@ def test_train_backbone_answers_as_the_jax_package(capsys):
 NEW_MODULES = ("yoloret_tpu_torch.train", "yoloret_tpu_torch.train.freeze",
                "yoloret_tpu_torch.train.losses", "yoloret_tpu_torch.train.step",
                "yoloret_tpu_torch.train.trainer", "yoloret_tpu_torch.ops.targets",
-               "yoloret_tpu_torch.utils.checkpoint", "yoloret_tpu_torch.utils.tensorboard")
+               "yoloret_tpu_torch.utils.checkpoint", "yoloret_tpu_torch.utils.tensorboard",
+               "yoloret_tpu_torch.tools.autoaugment", "yoloret_tpu_torch.tools.kmeans",
+               "yoloret_tpu_torch.data.pipeline", "yoloret_tpu_torch.infer.predictor",
+               "yoloret_tpu_torch.cli.main")
 
 
 def test_training_modules_import_no_jax():

@@ -1,5 +1,13 @@
 """Command line of the port, with the JAX package's flags
-(``yoloret_tpu/cli/main.py``) for the modes ported so far, TRAIN and MAP.
+(``yoloret_tpu/cli/main.py``) for the modes ported so far: IMAGE (the
+default), TRAIN, MAP, ANCHORS and PRUNE.
+
+Detection on one image, written with its boxes drawn (the default image
+is the port's ``assets/demo.jpg``, the default output ``demo_out.png``):
+
+    python -m yoloret_tpu_torch.cli.main --mode=IMAGE --image=photo.jpg \
+        --classes_path=voc_classes.txt --anchors_path=yolo_anchors.txt \
+        [--model=weights.pt] [--score=0.3] [--output=out.png]
 
 Training runs two stages, the second from the first's weight file:
 
@@ -11,7 +19,11 @@ Training runs two stages, the second from the first's weight file:
         --train_unfreeze=logs/mobilenetv2x75_stage1/mobilenetv2x75_trained_weights_stage_1.pt
 
 and writes ``logs/<backbone>_stage{1,2}/`` (``metrics.jsonl``,
-TensorBoard scalars, checkpoints, the stage-end weight file). mAP:
+TensorBoard scalars, checkpoints, the stage-end weight file). The
+training options ``--autoaugment_policy v0``, ``--mosaic 0.5``,
+``--mixup 0.5``, ``--multi_scale 288 320 352`` and ``--tb_images 4``
+(TensorBoard images of the augmented inputs with detections) take the
+JAX package's meaning. mAP:
 
     python -m yoloret_tpu_torch.cli.main --mode=MAP --model=weights.pt \
         --test_dataset='voc_test_*.txt' --classes_path=voc_classes.txt \
@@ -30,9 +42,14 @@ are, e.g.
     python -m yoloret_tpu_torch.cli.main --config=configs/coco_efficientnetb3_416.yaml \
         --mode=MAP --test_dataset='coco_val_*.txt' --exact_nms
 
-The other modes, ``--int8``, ``--mesh_data`` above 1 and the training
-options not ported yet stop with a message that names their place in
-ROADMAP.md.
+Anchors by k-means over a training list's boxes, written to ``--output``
+(default ``yolo_anchors.txt``):
+
+    python -m yoloret_tpu_torch.cli.main --mode=ANCHORS --train_dataset='voc_train_*.txt'
+
+The other modes (VIDEO, EXPORT, TFLITE, SERVING, TFJS), ``--int8`` and
+``--mesh_data`` above 1 stop with a message that names their place in
+ROADMAP.md. PRUNE answers as the JAX package does (exit code 2).
 """
 
 from __future__ import annotations
@@ -46,15 +63,14 @@ from yoloret_tpu_torch.nn.detector import BACKBONES
 
 # What each mode that is not ported waits for (ROADMAP.md, queue 1).
 NOT_PORTED = {
-    "IMAGE": "the other CLI modes, item 7",
-    "VIDEO": "the other CLI modes, item 7",
-    "ANCHORS": "the other CLI modes, item 7",
+    "VIDEO": "VIDEO (OpenCV capture and trackers), item 7",
     "EXPORT": "side paths, item 5",
     "TFLITE": "side paths, item 5",
     "SERVING": "side paths, item 5",
     "TFJS": "side paths, item 5",
-    "PRUNE": "the other CLI modes, item 7",
 }
+PRUNE_MESSAGE = ("PRUNE: model pruning is not implemented (the reference declares the mode "
+                 "without a handler); --quantize is likewise threaded but inert for parity")
 
 
 def _parse_size(v: str):
@@ -72,7 +88,8 @@ def build_parser() -> argparse.ArgumentParser:
                                 argument_default=argparse.SUPPRESS)
     d = RunConfig()
     p.add_argument("--mode", type=str, default="IMAGE",
-                   help="TRAIN or MAP (the others are not ported yet)")
+                   help="IMAGE (default), TRAIN, MAP, ANCHORS or PRUNE (the others are not "
+                        "ported yet)")
     p.add_argument("--config", type=str, default=None, help="YAML config overlay")
     p.add_argument("--backbone", type=str,
                    help=f"default {d.backbone}; any of {', '.join(sorted(BACKBONES))}")
@@ -107,12 +124,15 @@ def build_parser() -> argparse.ArgumentParser:
                    help="VOC mAP on --test_dataset every N epochs (0: stage end only)")
     p.add_argument("--log_dir", type=str)
     p.add_argument("--seed", type=int)
-    # training options that are not ported yet: refused with their ROADMAP item
-    p.add_argument("--autoaugment_policy", type=str, choices=["v0", "v1", "v2", "v3"])
-    p.add_argument("--multi_scale", type=int, nargs="+", metavar="SIZE")
-    p.add_argument("--tb_images", type=int)
-    p.add_argument("--mosaic", type=float)
-    p.add_argument("--mixup", type=float)
+    p.add_argument("--autoaugment_policy", type=str, choices=["v0", "v1", "v2", "v3"],
+                   help="online AutoAugment-for-detection during training")
+    p.add_argument("--multi_scale", type=int, nargs="+", metavar="SIZE",
+                   help="train each epoch at a size cycled from this list (multiples of 32)")
+    p.add_argument("--tb_images", type=int,
+                   help="write N augmented inputs with detections per epoch to TensorBoard")
+    p.add_argument("--mosaic", type=float, help="online 4-image mosaic probability per sample")
+    p.add_argument("--mixup", type=float, help="online mixup probability per sample")
+    p.add_argument("--score", dest="score_threshold", type=float)
     p.add_argument("--nms_iou", type=float)
     p.add_argument("--exact_nms", action="store_true",
                    help="MAP: reference-exact full-grid per-class NMS (slower)")
@@ -121,6 +141,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--rfcr", type=str, choices=["weighted_sum", "concat", "none"])
     p.add_argument("--mesh_data", type=int)
     p.add_argument("--int8", action="store_true")
+    p.add_argument("--image", type=str, help="image path (IMAGE mode)")
+    p.add_argument("--output", type=str, help="output path (IMAGE, ANCHORS)")
     p.add_argument("--device", type=str, default="cuda",
                    help="cuda (default) or cpu (every kernel's plain version)")
     return p
@@ -135,7 +157,7 @@ def args_to_config(args) -> RunConfig:
         "anchors_path batch_size nms_iou exact_nms bf16 use_ema rfcr mesh_data int8 freeze "
         "train_unfreeze truncate_block box_loss class_loss use_adv ema_decay remat resume "
         "early_stopping early_stopping_patience map_every log_dir seed autoaugment_policy "
-        "tb_images").split() if hasattr(args, f)}
+        "tb_images score_threshold image output").split() if hasattr(args, f)}
     for f in ("epochs", "learning_rate", "multi_scale"):
         if hasattr(args, f):
             overrides[f] = (list if f == "multi_scale" else tuple)(getattr(args, f))
@@ -164,7 +186,10 @@ def main(argv=None) -> int:
         print("TRAIN_BACKBONE: pretraining the backbone alone is handled by the "
               "truncated-transfer weight import; see docs/parity.md")
         return 2
-    if mode not in ("MAP", "TRAIN"):
+    if mode == "PRUNE":
+        print(PRUNE_MESSAGE)  # as the JAX package answers it
+        return 2
+    if mode not in ("IMAGE", "MAP", "TRAIN", "ANCHORS"):
         if mode in NOT_PORTED:
             return _refuse(f"--mode={mode} is not ported to yoloret_tpu_torch yet: it waits for "
                            f"{NOT_PORTED[mode]}")
@@ -179,6 +204,18 @@ def main(argv=None) -> int:
         if path and os.path.isdir(path):
             return _refuse(f"{path} is a directory (an Orbax checkpoint?): reading Orbax "
                            "weight files is not ported yet: it waits for side paths, item 5")
+
+    if mode == "ANCHORS":
+        from yoloret_tpu_torch.tools.kmeans import kmeans_anchors_cli
+
+        if not cfg.train_dataset:
+            print("ANCHORS needs --train_dataset", file=sys.stderr)
+            return 2
+        kmeans_anchors_cli(cfg.train_dataset, cfg.output or "yolo_anchors.txt")
+        return 0
+
+    if mode == "IMAGE":
+        return _image(cfg, args.device)
 
     if mode == "TRAIN":
         from yoloret_tpu_torch.train.trainer import train
@@ -215,6 +252,35 @@ def main(argv=None) -> int:
                   num_candidates=sum((h // s) * (w // s) * 3 for s in (32, 16, 8)))
     evaluate_map(pred, ds, class_names, nms_iou=cfg.nms_iou, **kw)
     return 0
+
+
+def _image(cfg: RunConfig, device: str) -> int:
+    """IMAGE: detections on ``--image`` (default: the port's demo photo),
+    drawn and saved to ``--output`` (default ``demo_out.png``); one line
+    per detection, then ``wrote <path>``."""
+    from yoloret_tpu_torch.infer import Predictor
+
+    if not (cfg.classes_path and cfg.anchors_path):
+        print("IMAGE needs --classes_path and --anchors_path", file=sys.stderr)
+        return 2
+    pred = Predictor(
+        backbone=cfg.backbone, weights=cfg.model, classes_path=cfg.classes_path,
+        anchors_path=cfg.anchors_path, input_hw=cfg.input_size,
+        score_threshold=cfg.score_threshold, iou_threshold=cfg.nms_iou, bf16=cfg.bf16,
+        use_ema=cfg.use_ema, rfcr=cfg.rfcr, device=device)
+    img, dets = pred.detect_image(cfg.image or demo_image())
+    out = cfg.output or "demo_out.png"
+    img.save(out)
+    for d in dets:
+        print(f"{d.class_name} {d.score:.3f} {tuple(round(v, 1) for v in d.box)}")
+    print(f"wrote {out}")
+    return 0
+
+
+def demo_image() -> str:
+    """The port's copy of the demo photo (a VOC frame)."""
+    return os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+                        "assets", "demo.jpg")
 
 
 if __name__ == "__main__":

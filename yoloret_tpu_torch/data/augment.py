@@ -1,8 +1,7 @@
 """Augmentation on the device. Port of ``yoloret_tpu/data/augment.py``:
-``AugmentConfig``, the training chain (``augment_batch``) and the
-evaluation letterbox (``eval_batch``), batched over B instead of
-vmapped. The online mosaic and mixup (``mix_batch``) are not ported:
-ROADMAP.md, queue 1.
+``AugmentConfig``, the training chain (``augment_batch``), the online
+mosaic and mixup (``mix_batch``) and the evaluation letterbox
+(``eval_batch``), batched over B instead of vmapped.
 
 The host stretches each image to a staging square [S, S, 3]; here each
 one is resampled into the network input with its aspect ratio kept and
@@ -23,7 +22,8 @@ gamma, contrast, noise, blur) elementwise. Its random draws are the
 JAX package's, per sample and with its distributions (``draw_augment``),
 from a ``torch.Generator`` instead of JAX keys: the transform
 (``augment_batch``) takes them as tensors, so the same draws give the
-JAX package's images and boxes.
+JAX package's images and boxes. The same holds for the mixing draws
+(``draw_mix``, ``mix_batch``).
 """
 
 from __future__ import annotations
@@ -54,8 +54,8 @@ class AugmentConfig:
     noise: float = 0.0  # additive uniform noise amplitude (off by default)
     blur: bool = False  # 5x5 gaussian blur (off by default)
     max_boxes: int = 20
-    mosaic_prob: float = 0.0  # online mosaic: not ported (ROADMAP.md, queue 1, item 4c)
-    mixup_prob: float = 0.0  # online mixup: not ported (ROADMAP.md, queue 1, item 4c)
+    mosaic_prob: float = 0.0  # online 2x2 mosaic, per sample (mix_batch)
+    mixup_prob: float = 0.0  # online mixup, per sample; mosaic wins when both fire
 
 
 def to_unit_float(images: torch.Tensor) -> torch.Tensor:
@@ -92,15 +92,15 @@ def weight_matrix(in_size: int, out_size: int, scale: torch.Tensor,
 
 def resample(images: torch.Tensor, out_hw: Tuple[int, int], scale_yx: Tuple[torch.Tensor, ...],
              trans_yx: Tuple[torch.Tensor, ...]) -> torch.Tensor:
-    """[B, S, S, 3] float32 -> [B, H, W, 3]: each image scaled by
+    """[B, Sh, Sw, 3] float32 -> [B, H, W, 3]: each image scaled by
     (scale_y, scale_x) [B] and translated by (dy, dx) [B], with the
     linear antialiased filter of ``weight_matrix``, zero outside."""
-    b, s = images.shape[0], images.shape[1]
+    b, sh, sw = images.shape[:3]
     out_h, out_w = out_hw
-    wy = weight_matrix(s, out_h, scale_yx[0], trans_yx[0])  # [B, S, H]
-    wx = weight_matrix(s, out_w, scale_yx[1], trans_yx[1])  # [B, S, W]
-    rows = torch.bmm(wy.transpose(1, 2), images.reshape(b, s, s * 3))  # [B, H, S * 3]
-    rows = rows.reshape(b, out_h, s, 3).transpose(2, 3).reshape(b, out_h * 3, s)
+    wy = weight_matrix(sh, out_h, scale_yx[0], trans_yx[0])  # [B, Sh, H]
+    wx = weight_matrix(sw, out_w, scale_yx[1], trans_yx[1])  # [B, Sw, W]
+    rows = torch.bmm(wy.transpose(1, 2), images.reshape(b, sh, sw * 3))  # [B, H, Sw * 3]
+    rows = rows.reshape(b, out_h, sw, 3).transpose(2, 3).reshape(b, out_h * 3, sw)
     return torch.bmm(rows, wx).reshape(b, out_h, 3, out_w).transpose(2, 3)
 
 
@@ -243,6 +243,100 @@ def augment_batch(images: torch.Tensor, boxes: torch.Tensor, valid: torch.Tensor
     new_boxes = torch.stack([x1, y1, x2, y2, boxes[..., 4]], dim=-1)
     new_boxes = torch.where(keep[..., None], new_boxes, torch.zeros_like(new_boxes))
     return out, new_boxes, keep
+
+
+def draw_mix(batch: int, cfg: AugmentConfig, generator: torch.Generator,
+             device: torch.device) -> Dict[str, torch.Tensor]:
+    """One batch's mixing draws, per sample, with the JAX package's
+    distributions (``mix_batch``): ``do_mosaic`` (U(0, 1) < mosaic_prob),
+    ``do_mixup`` (not ``do_mosaic`` and U(0, 1) < mixup_prob) and the
+    mixup weight ``lam`` U(0, 1) [B, 1, 1, 1]. Drawn on the CPU from
+    ``generator`` and sent to ``device`` in one copy."""
+    u = torch.rand(batch, 3, generator=generator)
+    do_mosaic = u[:, 0] < cfg.mosaic_prob
+    draws = {"do_mosaic": do_mosaic, "do_mixup": ~do_mosaic & (u[:, 1] < cfg.mixup_prob),
+             "lam": u[:, 2].reshape(batch, 1, 1, 1)}
+    return {k: v.to(device, non_blocking=True) for k, v in draws.items()}
+
+
+def mix_batch(images: torch.Tensor, boxes: torch.Tensor, valid: torch.Tensor,
+              cfg: AugmentConfig, draws: Dict[str, torch.Tensor]
+              ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Online mosaic and mixup of a batch (the JAX package's
+    ``mix_batch``), after ``augment_batch``, with the draws of
+    ``draw_mix``. The mix partners are rows of the same batch: row i takes
+    rows i+1, i+2, i+3 (mod B) for its mosaic and row i+B/2 for its mixup.
+
+    Per sample: with ``do_mosaic``, a 2x2 mosaic of rows i..i+3 at half
+    scale (the antialiased linear resize of ``resample``), the centre
+    fixed at (W/2, H/2), each quadrant's boxes halved, moved, clipped to
+    [0, W-1] x [0, H-1] and kept when wider and taller than one pixel;
+    else with ``do_mixup``, ``lam * row i + (1 - lam) * row i+B/2`` with
+    the union of both rows' boxes; else unchanged.
+
+    images [B, H, W, 3] float32; boxes [B, T, 5] (x1, y1, x2, y2, cls) in
+    input pixels; valid [B, T]. Returns (images, boxes [B, cap*T, 5],
+    valid [B, cap*T]), cap 4 with mosaic on, 2 with mixup alone; with both
+    probabilities 0 the inputs as they are."""
+    mosaic_on, mixup_on = cfg.mosaic_prob > 0, cfg.mixup_prob > 0
+    if not (mosaic_on or mixup_on):
+        return images, boxes, valid
+    b, h, w, _ = images.shape
+    t = boxes.shape[1]
+    cap = (4 if mosaic_on else 2) * t
+
+    def roll(x, s):  # row i takes row i + s
+        return torch.roll(x, -s, dims=0)
+
+    def pad_cap(bx, v):
+        extra = cap - bx.shape[1]
+        return F.pad(bx, (0, 0, 0, extra)), F.pad(v, (0, extra))
+
+    def per_row(flag, x):
+        return flag.reshape(-1, *([1] * (x.dim() - 1)))
+
+    boxes = torch.where(valid[..., None], boxes, torch.zeros_like(boxes))
+    out_img = images
+    out_boxes, out_valid = pad_cap(boxes, valid)
+
+    if mixup_on:
+        p = b // 2
+        lam = draws["lam"]
+        mix_img = images * lam + roll(images, p) * (1.0 - lam)
+        mix_boxes, mix_valid = pad_cap(torch.cat([boxes, roll(boxes, p)], dim=1),
+                                       torch.cat([valid, roll(valid, p)], dim=1))
+        do = draws["do_mixup"]
+        out_img = torch.where(per_row(do, out_img), mix_img, out_img)
+        out_boxes = torch.where(per_row(do, out_boxes), mix_boxes, out_boxes)
+        out_valid = torch.where(per_row(do, out_valid), mix_valid, out_valid)
+
+    if mosaic_on:
+        h2, w2 = h // 2, w // 2
+        scale = (torch.full((b,), h2 / h, device=images.device),
+                 torch.full((b,), w2 / w, device=images.device))
+        shift = torch.zeros(b, device=images.device)
+        small = resample(images, (h2, w2), scale, (shift, shift))
+        mosaic_img = torch.cat([torch.cat([small, roll(small, 1)], dim=2),
+                                torch.cat([roll(small, 2), roll(small, 3)], dim=2)], dim=1)
+
+        def quad(bx, v, ox, oy):
+            x = torch.clamp(bx[..., [0, 2]] * 0.5 + ox, 0.0, float(w - 1))  # x1, x2
+            y = torch.clamp(bx[..., [1, 3]] * 0.5 + oy, 0.0, float(h - 1))  # y1, y2
+            keep = v & ((x[..., 1] - x[..., 0]) > 1.0) & ((y[..., 1] - y[..., 0]) > 1.0)
+            return torch.stack([x[..., 0], y[..., 0], x[..., 1], y[..., 1], bx[..., 4]], -1), keep
+
+        quads = [quad(roll(boxes, k), roll(valid, k), ox, oy)
+                 for k, (ox, oy) in enumerate(((0.0, 0.0), (float(w2), 0.0), (0.0, float(h2)),
+                                               (float(w2), float(h2))))]
+        do = draws["do_mosaic"]
+        out_img = torch.where(per_row(do, out_img), mosaic_img, out_img)
+        out_boxes = torch.where(per_row(do, out_boxes), torch.cat([q for q, _ in quads], dim=1),
+                                out_boxes)
+        out_valid = torch.where(per_row(do, out_valid), torch.cat([v for _, v in quads], dim=1),
+                                out_valid)
+
+    out_boxes = torch.where(out_valid[..., None], out_boxes, torch.zeros_like(out_boxes))
+    return out_img, out_boxes, out_valid
 
 
 def eval_batch(images: torch.Tensor, boxes: torch.Tensor, valid: torch.Tensor,

@@ -24,15 +24,21 @@ The host stream is the JAX package's, bit for bit: a
 and draws each sample's JPEG re-encode quality in [80, 100] (the native
 loader re-encodes in the same call; PIL saves and reopens), the final
 partial TRAIN batch is dropped, and ``skip_batches`` replays the draws
-of the batches it skips without decoding them. The device draws of the
+of the batches it skips without decoding them. With ``aa_policy`` the
+stream also draws one AutoAugment seed per sample, after the batch's JPEG
+qualities and before the skip test, and each TRAIN sample is distorted on
+its staging square (``tools/autoaugment.py``). The device draws of the
 augmentation come from a ``torch.Generator`` seeded by the seed and the
 batch's position in the stream, so that a stream resumed at batch k
-augments batch k as the uninterrupted one does. TRAIN and VALIDATE
-batches carry the dense targets ``y_true_{l}`` and the ground truth of
-the loss's ignore mask, ``gt_boxes`` / ``gt_valid``.
+augments batch k as the uninterrupted one does; the online mosaic and
+mixup (``mosaic_prob``, ``mixup_prob``: ``data/augment.py::mix_batch``)
+draw from a generator of their own, seeded the same way, so the
+augmentation draws do not depend on them. TRAIN and VALIDATE batches
+carry the dense targets ``y_true_{l}`` and the ground truth of the
+loss's ignore mask, ``gt_boxes`` / ``gt_valid``; with mixing on, their
+box axis is the mixed batch's (4T with mosaic, 2T with mixup alone).
 
-Not ported (ROADMAP.md, queue 1): online AutoAugment (``aa_policy``) and
-online mosaic and mixup (item 4c), per-host input sharding (item 6).
+Not ported (ROADMAP.md, queue 1): per-host input sharding (item 6).
 """
 
 from __future__ import annotations
@@ -43,6 +49,7 @@ import glob as globlib
 import io
 import queue
 import threading
+import warnings
 from collections import Counter
 from concurrent.futures import ThreadPoolExecutor
 from dataclasses import dataclass, field
@@ -57,15 +64,21 @@ from yoloret_tpu_torch.data.augment import (
     AugmentConfig,
     augment_batch,
     draw_augment,
+    draw_mix,
     eval_batch,
+    mix_batch,
 )
 from yoloret_tpu_torch.data.tfrecord import Example, index_tfrecord, read_record_at
 from yoloret_tpu_torch.device import DeviceLike, resolve_device, upload
 from yoloret_tpu_torch.ops.targets import assign_targets_batch, true_corner_boxes
+from yoloret_tpu_torch.tools.autoaugment import distort_image_with_autoaugment
 
 
 # The range of training's random JPEG re-encode quality (the reference's).
 JPEG_QUALITY = (80, 100)
+# Offsets the seed of the mixing draws' generator from the augmentation's
+# (the JAX package folds 0x6D6978, "mix", into the batch's key).
+MIX_STREAM = 0x6D6978
 
 
 class DatasetMode(enum.Enum):
@@ -140,6 +153,7 @@ class Dataset:
     num_scales: int = 3
     seed: int = 0
     augment_config: Optional[AugmentConfig] = None  # TRAIN augmentation override
+    aa_policy: Optional[str] = None  # online AutoAugment policy ("v0".."v3"), TRAIN only
     augment: AugmentConfig = field(init=False)
     decodes: Counter = field(init=False)  # decodes by decoder ("native", "pil")
 
@@ -154,10 +168,14 @@ class Dataset:
         base = self.augment_config or AugmentConfig()
         self.augment = dataclasses.replace(base, input_hw=tuple(self.input_hw),
                                            max_boxes=self.max_boxes)
-        if self.augment.mosaic_prob > 0 or self.augment.mixup_prob > 0:
-            raise NotImplementedError(
-                "online mosaic and mixup (mix_batch) are not ported to yoloret_tpu_torch yet: "
-                "they wait for the rest of training, item 4c (ROADMAP.md, queue 1)")
+        # mixing draws its partners from the batch: below 4 rows mosaic
+        # repeats tiles, below 2 mixup blends a sample with itself
+        if self.augment.mosaic_prob > 0 and self.batch_size < 4:
+            warnings.warn(f"mosaic_prob > 0 with a batch of {self.batch_size} (< 4): mosaic "
+                          "tiles will repeat images", stacklevel=2)
+        if self.augment.mixup_prob > 0 and self.batch_size < 2:
+            warnings.warn(f"mixup_prob > 0 with a batch of {self.batch_size} (< 2): mixup "
+                          "would blend a sample with itself", stacklevel=2)
         if self.anchors is not None:
             self._anchors = torch.as_tensor(np.asarray(self.anchors, np.float32),
                                             device=self.device)
@@ -189,12 +207,14 @@ class Dataset:
 
     # -- host side ---------------------------------------------------------
 
-    def _load_sample(self, idx: int, quality: Optional[int] = None
+    def _load_sample(self, idx: int, quality: Optional[int] = None,
+                     aa_seed: Optional[int] = None
                      ) -> Tuple[np.ndarray, np.ndarray, np.ndarray, Tuple[int, int]]:
         """(uint8 staging image, boxes [T, 5] normalised to the original
         image, valid [T], original (H, W)) of sample ``idx``: text-list
         lines first, then TFRecord records. ``quality``: the pre-drawn
-        JPEG re-encode quality (None: none)."""
+        JPEG re-encode quality (None: none); ``aa_seed``: the pre-drawn
+        seed of the sample's AutoAugment (None: none)."""
         if idx < len(self._parsed):
             path, boxes = self._parsed[idx]
             img, (ih, iw), decoder = _decode(path, self.staging, quality)
@@ -213,6 +233,16 @@ class Dataset:
             b = np.stack(cols, axis=-1) if len(cols[0]) else np.zeros((0, 5), np.float32)
         with self._decodes_lock:
             self.decodes[decoder] += 1
+        if aa_seed is not None:
+            # the boxes are fractions of the original image, so of the
+            # stretched staging square too: to its pixels, distort, back
+            s = float(self.staging)
+            px = np.asarray(b, np.float64).reshape(-1, 5).copy()
+            px[:, :4] *= s
+            img, px = distort_image_with_autoaugment(img, px, self.aa_policy,
+                                                     np.random.RandomState(aa_seed))
+            b = px.astype(np.float32)
+            b[:, :4] /= s
         t = self.max_boxes
         out = np.zeros((t, 5), np.float32)
         n = min(len(b), t)
@@ -222,11 +252,12 @@ class Dataset:
         return img, out, valid, (ih, iw)
 
     def host_plan(self, epochs: Optional[int], skip: int = 0
-                  ) -> Iterator[Tuple[np.ndarray, int, List[Optional[int]]]]:
+                  ) -> Iterator[Tuple[np.ndarray, int, List[Optional[int]],
+                                      List[Optional[int]]]]:
         """The host stream without the decodes: (sample indices, real
-        samples, JPEG qualities) per batch, the JAX package's draws in
-        its order (``_host_batches``). The first ``skip`` batches are
-        drawn and not yielded."""
+        samples, JPEG qualities, AutoAugment seeds) per batch, the JAX
+        package's draws in its order (``_host_batches``). The first
+        ``skip`` batches are drawn and not yielded."""
         if not len(self):
             return
         rng = np.random.RandomState(self.seed)
@@ -249,16 +280,20 @@ class Dataset:
                     qs = [int(q) for q in rng.randint(lo, hi + 1, size=len(idxs))]
                 else:
                     qs = [None] * len(idxs)
+                if train and self.aa_policy:
+                    aas = [int(s) for s in rng.randint(0, 2**31 - 1, size=len(idxs))]
+                else:
+                    aas = [None] * len(idxs)
                 if skip > 0:
                     skip -= 1
                     continue
-                yield idxs, n_valid, qs
+                yield idxs, n_valid, qs, aas
             epoch += 1
 
     def _host_batches(self, epochs: Optional[int], skip: int = 0) -> Iterator[dict]:
         with ThreadPoolExecutor(self.num_workers) as pool:
-            for idxs, n_valid, qs in self.host_plan(epochs, skip):
-                samples = list(pool.map(self._load_sample, idxs, qs))
+            for idxs, n_valid, qs, aas in self.host_plan(epochs, skip):
+                samples = list(pool.map(self._load_sample, idxs, qs, aas))
                 yield {
                     "images": np.stack([s[0] for s in samples]),
                     "boxes": np.stack([s[1] for s in samples]),
@@ -281,18 +316,25 @@ class Dataset:
             out[f"y_true_{l}"] = ys[l]
         return out
 
-    def _augment_generator(self, position: int) -> torch.Generator:
-        """The generator of the augmentation draws of the batch at
-        ``position`` in the TRAIN stream."""
-        return torch.Generator().manual_seed((self.seed * 1_000_003 + position) % (2 ** 63))
+    def _augment_generator(self, position: int, stream: int = 0) -> torch.Generator:
+        """The generator of the augmentation draws (``stream`` 0) or of the
+        mixing draws (``MIX_STREAM``) of the batch at ``position`` in the
+        TRAIN stream."""
+        return torch.Generator().manual_seed(
+            (self.seed * 1_000_003 + position + stream * 7_919) % (2 ** 63))
 
     def _finalize_train(self, host: dict, position: int) -> dict:
-        """The augmented device batch with its targets."""
-        draws = draw_augment(host["images"].shape[0], self.augment,
-                             self._augment_generator(position), self.device)
+        """The augmented (and mixed) device batch with its targets."""
+        batch = host["images"].shape[0]
+        draws = draw_augment(batch, self.augment, self._augment_generator(position),
+                             self.device)
         images, boxes_px, keep = augment_batch(
             upload(host["images"], self.device), upload(host["boxes"], self.device),
             upload(host["valid"], self.device), self.augment, draws)
+        if self.augment.mosaic_prob > 0 or self.augment.mixup_prob > 0:
+            mix = draw_mix(batch, self.augment,
+                           self._augment_generator(position, MIX_STREAM), self.device)
+            images, boxes_px, keep = mix_batch(images, boxes_px, keep, self.augment, mix)
         return {"images": images, **self._targets(boxes_px, keep)}
 
     def _finalize_eval(self, host: dict) -> dict:

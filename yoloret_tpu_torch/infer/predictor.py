@@ -1,6 +1,7 @@
 """Inference API: the serving path on the card. Port of
-``yoloret_tpu/infer/predictor.py`` (``Detection``, ``Predictor``) without
-the int8, zoom-ensemble, mesh and video paths.
+``yoloret_tpu/infer/predictor.py`` (``Detection``, ``Predictor`` with
+``detect_arrays`` and ``detect_image``, ``draw_detections``) without the
+int8, zoom-ensemble, mesh and video paths.
 
 The host letterboxes each image to uint8 (4x smaller upload than
 float32), the device divides by 255, runs the detector through
@@ -17,7 +18,9 @@ dispatched and not yet collected, so device memory stays O(window).
 
 from __future__ import annotations
 
+import colorsys
 import dataclasses
+import time
 from collections import deque
 from typing import Any, List, Mapping, Optional, Sequence, Tuple, Union
 
@@ -191,3 +194,45 @@ class Predictor:
                                       self.class_names[int(c)]))
             out.append(dets)
         return out
+
+    # -- image API (reference detect_image, yolo.py:235-315) ----------------
+
+    def detect_image(self, image, draw: bool = True):
+        """image: a path or a PIL image -> (PIL image, with the detections
+        drawn unless ``draw`` is False; the detections). Prints the
+        number of boxes and the wall time of ``detect_arrays``."""
+        from PIL import Image
+
+        if isinstance(image, str):
+            image = Image.open(image)
+        image = image.convert("RGB")
+        arr = np.asarray(image, np.uint8)
+        t0 = time.perf_counter()
+        dets = self.detect_arrays([arr])[0]
+        dt = time.perf_counter() - t0
+        print(f"found {len(dets)} boxes in {dt * 1e3:.1f} ms")
+        if draw:
+            image = draw_detections(image, dets, self.class_names)
+        return image, dets
+
+
+def draw_detections(image, detections: Sequence[Detection], class_names: Sequence[str]):
+    """Draw boxes and labels on a PIL image in place, one HSV colour per
+    class, PIL's default font, boxes (image width + height) // 600 px
+    thick (reference: code/yolo.py:221-233, 276-313); returns it."""
+    from PIL import ImageDraw, ImageFont
+
+    n = max(len(class_names), 1)
+    colors = [tuple(int(255 * v) for v in colorsys.hsv_to_rgb(i / n, 1.0, 1.0))
+              for i in range(n)]
+    draw = ImageDraw.Draw(image)
+    font = ImageFont.load_default()
+    thickness = max(1, (image.size[0] + image.size[1]) // 600)
+    for d in detections:
+        x1, y1, x2, y2 = d.box
+        color = colors[d.class_id % n]
+        for t in range(thickness):
+            draw.rectangle([x1 + t, y1 + t, x2 - t, y2 - t], outline=color)
+        draw.text((x1 + 2, max(y1 - 12, 0)), f"{d.class_name} {d.score:.2f}", fill=color,
+                  font=font)
+    return image

@@ -10,18 +10,28 @@ Two stages, as the reference runs them:
   * stage 2 (``freeze=False``, ``train_unfreeze=<stage-1 file>``): every
     parameter trains, Adam(lr[1]); writes ``..._trained_weights_final.pt``.
 
+The training stream takes the augmentation options of the JAX
+package: online AutoAugment (``autoaugment_policy``, on the host), online
+mosaic and mixup (``augment.mosaic_prob`` / ``mixup_prob``, on the
+device), and with ``multi_scale`` one dataset per input size, epoch e
+drawing from size ``e % len(sizes)`` (the model is fully convolutional;
+``steps_per_epoch`` comes from the first size).
+
 Each epoch appends a line to ``<stage dir>/metrics.jsonl`` (loss, val
-loss, lr, seconds, images/s) and TensorBoard scalars. The validation
-loss runs the inference forward over ``val_dataset``; with ``--map_every``
-and at stage end the VOC mAP runs over ``test_dataset`` through a
-``Predictor`` that is handed the current weights (the EMA weights with
-``use_ema``) each time, so its fused MBConv and NMS kernels see the
+loss, lr, seconds, images/s) and TensorBoard scalars; with ``tb_images``
+also the first n rows of the epoch's last batch, as the step saw them,
+with the detections of the current (not EMA) weights drawn
+(``train_input/{i}``). The validation loss runs the inference forward
+over ``val_dataset``; with ``--map_every`` and at stage end the VOC mAP
+runs over ``test_dataset``. Both detection passes go through one
+``Predictor`` that is handed the weights (the EMA weights for the mAP
+with ``use_ema``) each time, so its fused MBConv and NMS kernels see the
 trained weights. Checkpoints every ``checkpoint_every`` epochs keep the
 optimizer state, the step and the early stopper; ``--resume`` restarts
-at the next epoch, with the data stream at the batch where it stopped.
+at the next epoch, with each size's data stream at the batch where it
+stopped.
 
 Not ported (each stops with a message naming its ROADMAP.md item):
-AutoAugment, online mosaic and mixup, ``multi_scale``, ``tb_images``,
 data parallelism and multihost, and Orbax weight files.
 """
 
@@ -56,24 +66,10 @@ from yoloret_tpu_torch.utils.tensorboard import SummaryWriter
 def unported_options(cfg: RunConfig) -> Optional[str]:
     """What of ``cfg`` the port cannot train yet, with its item in
     ROADMAP.md's queue 1, or None."""
-    aug = cfg.augment or {}
-    checks = (
-        (cfg.autoaugment_policy, "--autoaugment_policy: online AutoAugment (tools/autoaugment.py)"
-                                 " waits for the rest of training, item 4c"),
-        (aug.get("mosaic_prob", 0) > 0 or aug.get("mixup_prob", 0) > 0,
-         "--mosaic/--mixup: online mosaic and mixup (mix_batch) wait for the rest of training, "
-         "item 4c"),
-        (cfg.multi_scale, "--multi_scale: multi-scale training waits for the rest of training, "
-                          "item 4c"),
-        (cfg.tb_images > 0, "--tb_images: TensorBoard images wait for the rest of training, "
-                            "item 4c"),
-        ((cfg.mesh_data or 1) > 1 or cfg.multihost,
-         "--mesh_data above 1 and multihost: data-parallel training waits for parallelism, "
-         "item 6"),
-    )
-    for bad, what in checks:
-        if bad:
-            return f"{what} (ROADMAP.md, queue 1); it is not ported to yoloret_tpu_torch yet"
+    if (cfg.mesh_data or 1) > 1 or cfg.multihost:
+        return ("--mesh_data above 1 and multihost: data-parallel training waits for "
+                "parallelism, item 6 (ROADMAP.md, queue 1); it is not ported to "
+                "yoloret_tpu_torch yet")
     return None
 
 
@@ -114,20 +110,27 @@ def train(cfg: RunConfig, device: DeviceLike = "cuda") -> str:
     epochs = cfg.epochs[0] if cfg.freeze else cfg.epochs[1]
     lr = cfg.learning_rate[0] if cfg.freeze else cfg.learning_rate[1]
     hw = tuple(cfg.input_size)
+    # multi-scale: one dataset per size, round-robin by epoch
+    train_sizes = [hw]
+    if cfg.multi_scale:
+        train_sizes = [(int(s), int(s)) for s in cfg.multi_scale]
+        if not all(h % 32 == 0 for h, _ in train_sizes):
+            raise ValueError(f"--multi_scale sizes must be multiples of 32: {cfg.multi_scale}")
 
     log_dir = os.path.join(cfg.log_dir, f"{cfg.backbone}_stage{stage}")
     os.makedirs(log_dir, exist_ok=True)
 
-    common = dict(anchors=anchors, num_classes=num_classes, input_hw=hw,
-                  num_scales=cfg.num_scales, max_boxes=cfg.max_boxes, seed=cfg.seed, device=dev)
-    train_ds = Dataset(cfg.train_dataset, cfg.batch_size, mode=DatasetMode.TRAIN,
-                       augment_config=AugmentConfig(**cfg.augment) if cfg.augment else None,
-                       **common)
-    val_ds = (Dataset(cfg.val_dataset, cfg.batch_size, mode=DatasetMode.VALIDATE, **common)
-              if cfg.val_dataset else None)
+    common = dict(anchors=anchors, num_classes=num_classes, num_scales=cfg.num_scales,
+                  max_boxes=cfg.max_boxes, seed=cfg.seed, device=dev)
+    train_dss = [Dataset(cfg.train_dataset, cfg.batch_size, input_hw=size, mode=DatasetMode.TRAIN,
+                         augment_config=AugmentConfig(**cfg.augment) if cfg.augment else None,
+                         aa_policy=cfg.autoaugment_policy, **common)
+                 for size in train_sizes]
+    val_ds = (Dataset(cfg.val_dataset, cfg.batch_size, input_hw=hw, mode=DatasetMode.VALIDATE,
+                      **common) if cfg.val_dataset else None)
     map_ds = (Dataset(cfg.test_dataset, cfg.batch_size, input_hw=hw, mode=DatasetMode.TEST,
                       device=dev) if cfg.test_dataset else None)
-    steps_per_epoch = train_ds.steps_per_epoch()
+    steps_per_epoch = train_dss[0].steps_per_epoch()
 
     model = YoloReT(cfg.backbone, num_classes=num_classes,
                     dtype=torch.bfloat16 if cfg.bf16 else torch.float32, rfcr=cfg.rfcr,
@@ -182,14 +185,13 @@ def train(cfg: RunConfig, device: DeviceLike = "cuda") -> str:
         mfile.write(json.dumps(rec) + "\n")
         mfile.flush()
 
-    def eval_map(epoch: int) -> float:
-        """VOC mAP over the test set with the current weights (the EMA
-        weights with use_ema), through the Predictor's kernels."""
+    def predictor_with(use_ema: bool):
+        """The detection passes' Predictor holding the current weights
+        (the EMA weights with ``use_ema``), its fused copy refreshed."""
         nonlocal predictor
-        from yoloret_tpu_torch.eval import evaluate_map
         from yoloret_tpu_torch.infer import Predictor
 
-        weights = state.eval_state_dict(cfg.use_ema)
+        weights = state.eval_state_dict(use_ema)
         if predictor is None:
             predictor = Predictor(cfg.backbone, weights=weights, class_names=class_names,
                                   anchors=anchors, input_hw=hw, bf16=cfg.bf16, rfcr=cfg.rfcr,
@@ -197,25 +199,66 @@ def train(cfg: RunConfig, device: DeviceLike = "cuda") -> str:
         else:
             predictor.model.load_state_dict(weights, strict=True)
             predictor.refresh()
-        mean_ap, _ = evaluate_map(predictor, map_ds, class_names, nms_iou=cfg.nms_iou,
-                                  verbose=False)
+        return predictor
+
+    def eval_map(epoch: int) -> float:
+        """VOC mAP over the test set with the current weights (the EMA
+        weights with use_ema), through the Predictor's kernels."""
+        from yoloret_tpu_torch.eval import evaluate_map
+
+        mean_ap, _ = evaluate_map(predictor_with(cfg.use_ema), map_ds, class_names,
+                                  nms_iou=cfg.nms_iou, verbose=False)
         log({"epoch": epoch, "mAP": mean_ap})
         tb.add_scalar("mAP", mean_ap, epoch)
         tb.flush()
         return mean_ap
 
+    def tb_images(epoch: int, images: torch.Tensor) -> None:
+        """The first ``tb_images`` rows of an augmented batch with the
+        current weights' detections drawn (score 0.3; boxes in the
+        batch's own input pixels), as TensorBoard images
+        (``write_images`` parity, reference code/train.py:71-73)."""
+        from PIL import Image
+
+        from yoloret_tpu_torch.infer.predictor import Detection, draw_detections
+
+        n = min(cfg.tb_images, images.shape[0])
+        rows = images[:n]
+        image_hw = torch.tensor([list(rows.shape[1:3])], dtype=torch.float32).repeat(n, 1)
+        res = predictor_with(False).infer(rows, image_hw.to(dev), score_threshold=0.3,
+                                          iou_threshold=cfg.nms_iou, num_candidates=256)
+        boxes, scores, classes, valid = (t.cpu().numpy() for t in
+                                         (res.boxes, res.scores, res.classes, res.valid))
+        pixels = rows.float().cpu().numpy()
+        for i in range(n):
+            u8 = (np.clip(pixels[i], 0.0, 1.0) * 255.0 + 0.5).astype(np.uint8)
+            dets = [Detection((float(b[1]), float(b[0]), float(b[3]), float(b[2])), float(s),
+                              int(c), class_names[int(c)])
+                    for b, s, c in zip(boxes[i][valid[i]], scores[i][valid[i]],
+                                       classes[i][valid[i]])]
+            pil = draw_detections(Image.fromarray(u8), dets, class_names)
+            tb.add_image(f"train_input/{i}", np.asarray(pil), epoch)
+        tb.flush()
+
     print(f"stage {stage}: {cfg.backbone} @{list(hw)}, batch {cfg.batch_size}, "
           f"{steps_per_epoch} steps/epoch x {epochs} epochs on {dev}")
-    batches = train_ds.build(epochs=None, skip_batches=steps_per_epoch * start_epoch)
+    # each size's stream skips the batches that its completed epochs drew
+    streams = [ds.build(epochs=None, skip_batches=steps_per_epoch * sum(
+        1 for e in range(start_epoch) if e % len(train_dss) == i))
+        for i, ds in enumerate(train_dss)]
     loss_keys = ("images", "gt_boxes", "gt_valid") + tuple(
         f"y_true_{l}" for l in range(cfg.num_scales))
     epoch = max(start_epoch, epochs) - 1  # the stage-end epoch if the loop does not run
     try:
         for epoch in range(start_epoch, epochs):
             t0 = time.perf_counter()
+            batches = streams[epoch % len(streams)]
+            if len(streams) > 1:
+                print(f"epoch {epoch}: input size {train_sizes[epoch % len(train_sizes)]}")
             losses = []  # device scalars: one read per epoch
             for bstep in range(steps_per_epoch):
-                m = train_step(state, next(batches), step_cfg, seed=cfg.seed + 1)
+                batch = next(batches)
+                m = train_step(state, batch, step_cfg, seed=cfg.seed + 1)
                 losses.append(m["loss"])
                 if (bstep + 1) % 50 == 0:
                     print(f"epoch {epoch} step {bstep + 1}/{steps_per_epoch} "
@@ -243,6 +286,8 @@ def train(cfg: RunConfig, device: DeviceLike = "cuda") -> str:
             tb.flush()
             ckpt.maybe_save(epoch, ckpt_tree(),
                             val_loss if np.isfinite(val_loss) else train_loss)
+            if cfg.tb_images > 0:
+                tb_images(epoch, batch["images"])
             if map_ds is not None and cfg.map_every > 0 and (epoch + 1) % cfg.map_every == 0:
                 eval_map(epoch)
             if stopper is not None:
@@ -254,7 +299,8 @@ def train(cfg: RunConfig, device: DeviceLike = "cuda") -> str:
                           f"{stopper.patience} epochs (best {stopper.best:.4f})")
                     break
     finally:
-        batches.close()
+        for stream in streams:
+            stream.close()
 
     if map_ds is not None:
         print(f"stage-end mAP: {eval_map(epoch):.6f}")
