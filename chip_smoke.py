@@ -114,6 +114,29 @@ Phases (any failure exits non-zero and prints no result):
    YOLO-Nano, Yolo-Fastest and -XL): one ``detect_arrays`` call each with
    its launch counts, and float32 card vs CPU on 2 images (the raw heads;
    for a MobileNetV2 also the detections).
+11. The serving side paths. The W8A8 int8 backbone
+   (``Predictor(use_int8=True)``, x0.75 @320 at full width, calibrated on
+   16 seeded wave images): ``detect_arrays`` on 1, 8 and 130 images and the
+   HTTP server with the launch counts (0 MBConv + 1 NMS a forward); the
+   float32 int8 Predictor card vs CPU on 2 images (the scales, each tap's
+   int8 codes, the heads, the detections, held to INT8_LIMITS) and every
+   block on the card from the CPU's own input codes and weights; serving
+   and MAP-grade img/s beside the bf16 fused path's in the same call; the
+   profiler's device ms split into ``_int_mm``, depthwise, epilogues,
+   stem, neck and postprocess; the CLI's ``--mode=MAP --int8`` on 64 images
+   of phase 5's set, calibrated from its text list, float32, the card's
+   mAP within EVAL_AP_TOL of the CPU's; EfficientNet-B3 @416
+   (``configs/coco_efficientnetb3_416.yaml``) int8 card vs CPU
+   (INT8_B3_LIMITS), its serving img/s beside the stock bf16 path's and
+   its device split. The
+   zoom ensemble (``Predictor(zoom_ensemble=True)``, bf16, the 224 centre
+   crop): the main path with 32 MBConv + 1 NMS launches a forward
+   (``nms_kernel``, per-class pools of 256 over 9,387 positions), float32
+   card vs CPU detections, the MBConv kernel against its plain version at
+   x0.75 @224 (b2 and b128) and timed with its tile plan, ``nms_kernel``
+   exactly against its plain version on the zoom's pools (B=128 and 1)
+   and timed, zoom serving img/s and its profile; then int8 with zoom at
+   b8 (0 + 1).
 
 The line before the last is the kernel table as JSON; the last line is
 ``{"ok": true, "device": {...}}``. Details go to chiprun_out/chip_smoke.json.
@@ -262,6 +285,37 @@ IMAGE_SCORE = 0.3
 IMAGE_BOX_TOL = 0.05
 IMAGE_WARMUP = 10
 IMAGE_TIMED = 100
+# Phase 11, the serving side paths. The int8 Predictors calibrate on
+# INT8_CALIB_IMAGES seeded wave images (INT8_B3_CALIB_IMAGES for B3 @416);
+# the CLI's --mode=MAP --int8 takes the first INT8_EVAL_IMAGES images of
+# phase 5's set; the zoom ensemble's Predictor takes per-class pools of
+# ZOOM_K. The float32 int8 Predictor card vs CPU, each calibrated on its
+# own device, is held to INT8_LIMITS (x0.75) and INT8_B3_LIMITS (B3):
+# scale_rtol on the scales, tap_share / tap_rel_rms on each tap's int8
+# codes (share that differ, relative RMS difference), heads_rtol on the
+# heads' largest difference over the largest |head|, detections: whether
+# every detection must agree (class, score rtol 1e-4, box 0.05 px), and
+# block_share on ``check_int8_blocks`` (each block from the same input
+# codes and int8 weights on both: codes off by one on at most that share).
+# The calibration runs in float64 and the float32 stem in float64 rounded
+# once, so both sides get the same scales and stem codes; MobileNetV2's
+# relu6 blocks are then exact or one IEEE rounding per op, the same on
+# both: codes equal, heads within the neck's float32 rounding (HEADS_RTOL).
+# B3's swish and squeeze-excite take each device's own sigmoid and mean, so
+# a code flips at a rounding boundary now and then, and on seeded weights a
+# flipped code moves the chain after it (on an H100: its blocks one at a
+# time within one code on 0.011% of codes, its c4 and c5 taps 88% apart,
+# relative RMS 0.12): its taps and heads are only held against garbage
+# (relative RMS at most 1, that of uncorrelated codes being ~1.4), its
+# blocks by block_share.
+INT8_CALIB_IMAGES = 16
+INT8_B3_CALIB_IMAGES = 8
+INT8_EVAL_IMAGES = 64
+ZOOM_K = 256
+INT8_LIMITS = dict(scale_rtol=1e-9, tap_share=0.0, tap_rel_rms=0.0, heads_rtol=HEADS_RTOL,
+                   detections=True, block_share=0.0)
+INT8_B3_LIMITS = dict(scale_rtol=1e-9, tap_share=1.0, tap_rel_rms=1.0, heads_rtol=1.0,
+                      detections=False, block_share=1e-3)
 
 
 def log(*a):
@@ -729,6 +783,7 @@ def drive_main_path(pred, map_pred, seed, report, mbconv_per_forward=16, http=Tr
     map_request = images(8)
 
     fused_mbconv.launches = suppress.launches = 0
+    suppress.variant_launches.clear()
     pred.forwards = map_pred.forwards = 0
     t0 = time.perf_counter()
     counts = []
@@ -772,6 +827,7 @@ def drive_main_path(pred, map_pred, seed, report, mbconv_per_forward=16, http=Tr
     seconds = time.perf_counter() - t0
     forwards = pred.forwards + map_pred.forwards
     launches = {"mbconv": fused_mbconv.launches, "nms": suppress.launches}
+    variant_launches = dict(suppress.variant_launches)
     log(f"main path, {pred.model.backbone} @{pred.input_hw[0]} C={len(pred.class_names)}: "
         f"detect_arrays 1/8/130 images -> {counts} detections, "
         f"{len(jpegs)} HTTP POSTs -> 200 with {[len(b['detections']) for _, b in replies]} "
@@ -782,34 +838,48 @@ def drive_main_path(pred, map_pred, seed, report, mbconv_per_forward=16, http=Tr
                                                                   map_pred.forwards)
     assert launches["mbconv"] == mbconv_per_forward * forwards, (launches, forwards)
     assert launches["nms"] == forwards, (launches, forwards)
-    # the shared pool (class stride 0) of both Predictors runs the shared-pool kernel
+    # the shared pool (class stride 0) of both Predictors runs the shared-pool
+    # kernel; with the zoom ensemble, the per-class pools (of up to 512) the
+    # per-class kernel
+    want = "per_class" if pred.zoom_ensemble else "shared"
     variants = {p.num_candidates: plan_nms(len(p.class_names), p.num_candidates, 20,
-                                           True).variant for p in (pred, map_pred)}
-    log(f"main path: NMS kernel variant by pool size {variants}")
-    assert set(variants.values()) == {"shared"}, variants
+                                           want == "shared").variant for p in (pred, map_pred)}
+    log(f"main path: NMS kernel variant by pool size {variants}, launches by variant "
+        f"{variant_launches}")
+    assert set(variants.values()) == {want} and variant_launches == {want: forwards}, (
+        variants, variant_launches)
     report["main_path"] = dict(detections=counts, http=[len(b["detections"]) for _, b in replies],
                                forwards=forwards, launches=launches, seconds=seconds,
-                               nms_variants=variants)
+                               nms_variants=variants, nms_variant_launches=variant_launches)
     return launches
 
 
-def check_against_cpu(pred, seed, report):
-    """float32 Predictor on the card (TF32 off) vs the same weights on the
-    CPU (every kernel's plain version) on 2 images at the Predictor's size."""
-    import numpy as np
-
+def float32_pair(pred, state=None, **extra):
+    """Float32 Predictors on the card and on the CPU with ``pred``'s
+    backbone and classes, t=0.3, M=64, batch bucket 2 (``extra``: other
+    Predictor options)."""
     from yoloret_tpu_torch.infer import Predictor
 
     kw = dict(backbone=pred.model.backbone, rfcr=pred.model.rfcr_fusion,
               class_names=pred.class_names, anchors=pred.anchors, input_hw=pred.input_hw,
-              score_threshold=0.3, num_candidates=64, bf16=False, batch_buckets=(2,))
-    state = {k: v.cpu() for k, v in pred.model.state_dict().items()}
-    gpu = Predictor(weights=state, device=DEVICE, **kw)
-    cpu = Predictor(weights=state, device="cpu", **kw)
+              score_threshold=0.3, num_candidates=64, bf16=False, batch_buckets=(2,), **extra)
+    if state is None:
+        state = {k: v.cpu() for k, v in pred.model.state_dict().items()}
+    return (Predictor(weights=state, device=DEVICE, **kw),
+            Predictor(weights=state, device="cpu", **kw))
+
+
+def two_images(seed):
+    import numpy as np
+
     rs = np.random.RandomState(seed + 1)
-    ims = [rs.randint(0, 256, (240, 320, 3), dtype=np.uint8),
-           rs.randint(0, 256, (320, 320, 3), dtype=np.uint8)]
-    got, want = gpu.detect_arrays(ims), cpu.detect_arrays(ims)
+    return [rs.randint(0, 256, (240, 320, 3), dtype=np.uint8),
+            rs.randint(0, 256, (320, 320, 3), dtype=np.uint8)]
+
+
+def matched_detections(got, want):
+    """How many detections of ``got`` match one of ``want`` image by image
+    (class, score rtol 1e-4, box atol 0.05 px), each used once."""
 
     def same(g, w):
         return (g.class_id == w.class_id and abs(g.score - w.score) <= 1e-4 * abs(w.score)
@@ -817,17 +887,28 @@ def check_against_cpu(pred, seed, report):
 
     n = 0
     for g_img, w_img in zip(got, want):
-        assert len(g_img) == len(w_img), (len(g_img), len(w_img))
         free = list(w_img)  # matched, not zipped: scores 1e-6 apart may swap order
         for g in g_img:
             hit = next((w for w in free if same(g, w)), None)
-            assert hit is not None, f"no CPU detection matches {g}"
-            free.remove(hit)
-            n += 1
-    assert n > 0, "no detections to compare"
+            if hit is not None:
+                free.remove(hit)
+                n += 1
+    return n
+
+
+def check_against_cpu(pred, seed, report, **extra):
+    """float32 Predictor on the card (TF32 off) vs the same weights on the
+    CPU (every kernel's plain version) on 2 images at the Predictor's size
+    (``extra``: other Predictor options, e.g. the zoom ensemble)."""
+    gpu, cpu = float32_pair(pred, **extra)
+    ims = two_images(seed)
+    got, want = gpu.detect_arrays(ims), cpu.detect_arrays(ims)
+    n = matched_detections(got, want)
+    counts = ([len(d) for d in got], [len(d) for d in want])
+    assert counts[0] == counts[1] and n == sum(counts[1]) > 0, (counts, n)
     log(f"float32 Predictor on the card vs on the CPU, {pred.model.backbone} "
-        f"(rfcr {pred.model.rfcr_fusion}) @{pred.input_hw[0]}: {n} detections agree "
-        "(class, score rtol 1e-4, box atol 0.05 px)")
+        f"(rfcr {pred.model.rfcr_fusion}) @{pred.input_hw[0]} {extra or ''}: {n} detections "
+        "agree (class, score rtol 1e-4, box atol 0.05 px)")
     report["cpu_agreement"] = n
 
 
@@ -871,8 +952,9 @@ def time_paths(pred, map_pred, report):
         ms = cuda_time_ms(lambda: p.infer(images, hw), iters=20, warmup=3)
         out[name] = dict(ms_per_batch=ms, img_per_s=BATCH * 1e3 / ms,
                          score_threshold=p.score_threshold, num_candidates=p.num_candidates)
+        kind = "int8 backbone, bf16 stem and neck" if p._qp is not None else "bf16"
         log(f"{name} {p.model.backbone} (t={p.score_threshold}, M={p.num_candidates}) at "
-            f"b{BATCH}@{p.input_hw[0]} bf16: "
+            f"b{BATCH}@{p.input_hw[0]} {kind}: "
             f"{ms:.3f} ms/batch = {BATCH * 1e3 / ms:.1f} img/s (CUDA events, after warm-up)")
     clocks = subprocess.run(["nvidia-smi", "--query-gpu=clocks.sm,clocks.max.sm,power.draw,"
                              "temperature.gpu", "--format=csv,noheader"], capture_output=True,
@@ -1067,7 +1149,7 @@ def evaluate_cli(argv, class_names):
 
 
 def eval_phase(map_pred, state, seed, report, *, n_images=None, config=None,
-               mbconv_per_forward=16, flagship=True):
+               mbconv_per_forward=16, flagship=True, root=None):
     """The mAP evaluation path through its entry points (phase 5, and for
     each COCO configuration in phase 8); returns its report, with the
     launch counts of its run on the card. ``config``: the YAML file the
@@ -1075,7 +1157,9 @@ def eval_phase(map_pred, state, seed, report, *, n_images=None, config=None,
     ``flagship``: the CPU references at BATCH with a bf16 one that the
     card's bf16 mAP is held to, the profiled idle share and the host's
     shares alone; otherwise the CPU runs at CPU_EVAL_BATCH and the bf16
-    run on the card is logged."""
+    run on the card is logged. ``root``: a directory to write the
+    dataset, the weights and the class and anchor files into and leave
+    them there (phase 11 reads them), instead of a temporary one."""
     import numpy as np
     import torch
     from torch.profiler import ProfilerActivity, profile
@@ -1096,7 +1180,9 @@ def eval_phase(map_pred, state, seed, report, *, n_images=None, config=None,
               score_threshold=0.0, num_candidates=512, bf16=False)
     cpu_batch = BATCH if flagship else CPU_EVAL_BATCH
     out = {}
-    with tempfile.TemporaryDirectory(prefix="yoloret_eval_") as root:
+    where = (tempfile.TemporaryDirectory(prefix="yoloret_eval_") if root is None
+             else contextlib.nullcontext(root))
+    with where as root:
         t0 = time.perf_counter()
         images = write_eval_images(root, seed, n_images or EVAL_IMAGES)
         cpu = Predictor(weights=state, device="cpu", **kw)
@@ -2229,6 +2315,448 @@ def train_phase(weights, seed, report):
     return rates
 
 
+# -- phase 11: the serving side paths: the int8 backbone and the zoom ensemble --
+
+
+def wave_batch(seed, size, n):
+    """``n`` seeded wave images [n, size, size, 3] uint8: the int8
+    Predictors' calibration set."""
+    import numpy as np
+
+    rs = np.random.RandomState(seed + 9)
+    return np.stack([wave_image(rs, size, size) for _ in range(n)])
+
+
+def qp_to(qp, device):
+    """An int8 parameter tree with every tensor on ``device``."""
+    import torch
+
+    if isinstance(qp, torch.Tensor):
+        return qp.to(device)
+    if isinstance(qp, dict):
+        return {k: qp_to(v, device) for k, v in qp.items()}
+    if isinstance(qp, list):
+        return [qp_to(v, device) for v in qp]
+    return qp
+
+
+def int8_scales(qp):
+    out = {"stem": qp["stem"]["out_s"]}
+    for i, blk in enumerate(qp["blocks"]):
+        out.update({f"{i}.{k}": blk[k] for k in ("e_s", "d_s", "p_in_s", "out_s") if k in blk})
+    return out
+
+
+def int8_taps(model, qp, x):
+    """{tap: int8 codes} of the backbone on ``x`` [B, H, W, 3] in [0, 1]."""
+    from yoloret_tpu_torch.nn import int8_infer
+    from yoloret_tpu_torch.nn.mobilenetv2 import _TAP_BLOCKS
+
+    folded = model.kind == "mobilenetv2"
+    taps = _TAP_BLOCKS if folded else qp["taps"]
+    xq = int8_infer._stem_i8(qp["stem"], x, model.dtype)
+    out = {}
+    for i, blk in enumerate(qp["blocks"]):
+        xq = int8_infer._int8_block(xq, blk, folded=folded)
+        if i in taps:
+            out[taps[i]] = xq
+    return out
+
+
+def code_diff(got, want):
+    """Share of int8 codes that differ, largest difference, relative RMS
+    difference."""
+    d = (got.cpu().int() - want.cpu().int()).float()
+    rms = want.float().pow(2).mean().sqrt().item()
+    return dict(share=(d != 0).float().mean().item(), max=int(d.abs().max().item()),
+                rel_rms=d.pow(2).mean().sqrt().item() / max(rms, 1e-12))
+
+
+def check_int8_blocks(model, qp_cpu, x, share_tol):
+    """The int8 backbone on the card one block at a time, each from the
+    CPU chain's own input codes and with the CPU's int8 weights and scales
+    (moved to the card), against the CPU; the stem from the same images:
+    codes off by at most one, on at most ``share_tol`` of them. Returns
+    the rows."""
+    import torch
+
+    from yoloret_tpu_torch.nn import int8_infer
+
+    folded = model.kind == "mobilenetv2"
+    qp_card = qp_to(qp_cpu, DEVICE)
+    xq = int8_infer._stem_i8(qp_cpu["stem"], x, torch.float32)
+    rows = [dict(what="stem", **code_diff(
+        int8_infer._stem_i8(qp_card["stem"], x.to(DEVICE), torch.float32), xq))]
+    for i, (bc, bg) in enumerate(zip(qp_cpu["blocks"], qp_card["blocks"])):
+        want = int8_infer._int8_block(xq, bc, folded=folded)
+        got = int8_infer._int8_block(xq.to(DEVICE), bg, folded=folded)
+        rows.append(dict(what=f"block {i}", shape=list(want.shape), **code_diff(got, want)))
+        xq = want
+    worst = max(rows, key=lambda r: (r["max"], r["share"]))
+    log(f"  int8 {model.backbone}: the stem and {len(rows) - 1} blocks on the card, each from "
+        f"the CPU's input codes with the CPU's int8 weights: worst {worst['what']}, "
+        f"{worst['share']:.3g} of codes differ, by at most {worst['max']} (limit: by 1 on "
+        f"{share_tol:g} of them)")
+    for r in rows:
+        if r["max"] > 1 or r["share"] > share_tol:
+            raise AssertionError(f"int8 {model.backbone} {r['what']}: card vs CPU {r}")
+    return rows
+
+
+def int8_card_vs_cpu(pred, state, calib, seed, report, limits):
+    """The float32 int8 Predictor on the card (TF32 off) against the same
+    Predictor on the CPU, each calibrated on ``calib`` on its own device,
+    on 2 images: the scales, per tap the share of int8 codes that differ,
+    the largest difference and the relative RMS difference, the heads'
+    largest difference, the detections; then ``check_int8_blocks``.
+    ``limits``: dict(scale_rtol, tap_share, tap_rel_rms, heads_rtol,
+    detections (hold that every detection agrees), block_share)."""
+    import numpy as np
+    import torch
+
+    from yoloret_tpu_torch.nn import int8_infer
+    from yoloret_tpu_torch.ops.letterbox import letterbox_numpy_u8
+
+    gpu, cpu = float32_pair(pred, state, use_int8=True, calibration_images=calib)
+    want_s, got_s = int8_scales(cpu._qp), int8_scales(gpu._qp)
+    scale_err = max(abs(got_s[k] - v) / v for k, v in want_s.items())
+    ims = two_images(seed)
+    x = torch.from_numpy(np.stack([letterbox_numpy_u8(im, pred.input_hw) for im in ims]))
+    x = x.float() * (1.0 / 255.0)
+    with torch.inference_mode():
+        taps = {k: code_diff(g, w) for (k, g), w in zip(
+            int8_taps(gpu.model, gpu._qp, x.to(DEVICE)).items(),
+            int8_taps(cpu.model, cpu._qp, x).values())}
+        hg = int8_infer.int8_detector_apply(gpu.model, gpu._qp, x.to(DEVICE))
+        hc = int8_infer.int8_detector_apply(cpu.model, cpu._qp, x)
+    heads_err = max((a.cpu() - b).abs().max().item() for a, b in zip(hg, hc))
+    heads_scale = max(b.abs().max().item() for b in hc)
+    got, want = gpu.detect_arrays(ims), cpu.detect_arrays(ims)
+    n = matched_detections(got, want)
+    counts = ([len(d) for d in got], [len(d) for d in want])
+    name = pred.model.backbone
+    log(f"  int8 float32 Predictor card vs CPU, {name} @{pred.input_hw[0]}, calibrated on "
+        f"{len(calib)} wave images each: scales within {scale_err:.3g} relative (limit "
+        f"{limits['scale_rtol']:g})")
+    for k, t in taps.items():
+        log(f"    tap {k}: {t['share']:.4%} of int8 codes differ, largest difference "
+            f"{t['max']}, relative RMS {t['rel_rms']:.4g} (limits: share {limits['tap_share']:g}, "
+            f"relative RMS {limits['tap_rel_rms']:g})")
+    log(f"    heads: largest difference {heads_err:.4g} of max |head| {heads_scale:.4g} (limit "
+        f"{limits['heads_rtol']:g} of it); detections {counts[0]} on the card, {counts[1]} on "
+        f"the CPU, {n} agree (class, score rtol 1e-4, box atol 0.05 px; "
+        + ("held: all" if limits["detections"] else "logged") + ")")
+    bad = []
+    if not scale_err <= limits["scale_rtol"]:
+        bad.append(f"scales {scale_err}")
+    bad += [f"tap {k} {t}" for k, t in taps.items()
+            if t["share"] > limits["tap_share"] or t["rel_rms"] > limits["tap_rel_rms"]]
+    if not heads_err <= limits["heads_rtol"] * heads_scale:
+        bad.append(f"heads {heads_err} of {heads_scale}")
+    if limits["detections"] and not (counts[0] == counts[1] and n == sum(counts[1]) > 0):
+        bad.append(f"detections {counts}, {n} agree")
+    if bad:
+        raise AssertionError(f"int8 {name} card vs CPU beyond the limits: {bad}")
+    rows = check_int8_blocks(cpu.model, cpu._qp, x, limits["block_share"])
+    report.update(scale_rel_err=scale_err, taps=taps, heads_err=heads_err,
+                  heads_scale=heads_scale, detections=dict(card=counts[0], cpu=counts[1],
+                                                           agree=n), blocks=rows)
+
+
+def int8_device_split(pred, report, batches=3):
+    """Where an int8 serving batch's device time goes (b128, bf16; either
+    backbone): the profiler's device ms of the backbone alone, of its ``torch._int_mm``
+    calls and its depthwise convolutions replayed alone (the arguments of
+    one forward, recorded), of the stem alone, of the neck alone on the
+    taps and of the postprocess alone on the heads; the epilogues'
+    elementwise passes (with the taps' dequantization) are the backbone's
+    rest."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from yoloret_tpu_torch.nn import int8_infer
+    from yoloret_tpu_torch.ops.postprocess import detect_batch
+
+    m, qp = pred.model, pred._qp
+    g = torch.Generator(device=DEVICE).manual_seed(3)
+    x = torch.rand((BATCH, *pred.input_hw, 3), generator=g, device=DEVICE)
+    hw = torch.full((BATCH, 2), float(pred.input_hw[0]), device=DEVICE)
+    calls = {"int_mm": [], "depthwise": []}
+    mm, dw = int8_infer.int_mm, int8_infer._dw_i8
+
+    def rec_mm(a, w):
+        calls["int_mm"].append((a, w))
+        return mm(a, w)
+
+    def rec_dw(a, w, stride):
+        calls["depthwise"].append((a, w, stride))
+        return dw(a, w, stride)
+
+    def features():
+        if m.kind == "mobilenetv2":
+            return int8_infer.mobilenetv2_int8_features(qp, x, m.dtype, folded=True)
+        return int8_infer.efficientnet_int8_features(qp, x, m.dtype)
+
+    int8_infer.int_mm, int8_infer._dw_i8 = rec_mm, rec_dw
+    try:
+        with torch.inference_mode():
+            feats = features()
+    finally:
+        int8_infer.int_mm, int8_infer._dw_i8 = mm, dw
+    with torch.inference_mode():
+        heads = m.neck_heads(feats)
+    windows = {
+        "backbone": features,
+        "int_mm": lambda: [mm(*a) for a in calls["int_mm"]],
+        "depthwise": lambda: [dw(*a) for a in calls["depthwise"]],
+        "stem": lambda: int8_infer._stem_i8(qp["stem"], x, m.dtype),
+        "neck": lambda: m.neck_heads(feats),
+        "postprocess": lambda: detect_batch(heads, pred._anchors_t, len(pred.class_names), hw,
+                                            score_threshold=pred.score_threshold,
+                                            num_candidates=pred.num_candidates),
+    }
+    ms = {}
+    for name, fn in windows.items():
+        with torch.inference_mode():
+            fn()
+            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                for _ in range(batches):
+                    fn()
+                torch.cuda.synchronize()
+        ms[name] = sum(device_ms_by_group(prof, ())[0].values()) / batches
+    if ms["backbone"] == 0.0:
+        log("  int8 device split: the profiler recorded no device time (not measured)")
+        report["device_split"] = None
+        return
+    ms["epilogue"] = ms["backbone"] - ms["int_mm"] - ms["depthwise"] - ms["stem"]
+    split = {k: ms[k] for k in ("int_mm", "depthwise", "epilogue", "stem", "neck",
+                                "postprocess")}
+    report["device_split"] = dict(ms_per_batch=split, backbone_ms=ms["backbone"],
+                                  int_mm_calls=len(calls["int_mm"]),
+                                  depthwise_calls=len(calls["depthwise"]))
+    log(f"  int8 device ms a b{BATCH} batch ({m.backbone} @{pred.input_hw[0]}, bf16 stem and "
+        f"neck; each part alone under the profiler): "
+        f"{ {k: round(v, 3) for k, v in split.items()} }, summed {sum(split.values()):.3f} "
+        f"(the backbone alone {ms['backbone']:.3f}: {len(calls['int_mm'])} int8 matmuls, "
+        f"{len(calls['depthwise'])} depthwise convs)")
+
+
+def int8_cli_map(root, report):
+    """The CLI's ``--mode=MAP --int8`` on the first INT8_EVAL_IMAGES
+    images of phase 5's synthetic set (its text list, which the CLI also
+    calibrates from), float32, on the card (launch counts set to 0 just
+    before and read just after: no MBConv, 1 NMS a batch) and on the CPU;
+    the card's mAP within EVAL_AP_TOL of the CPU's."""
+    from yoloret_tpu_torch.ops.mbconv import fused_mbconv
+    from yoloret_tpu_torch.ops.nms_kernel import suppress
+
+    with open(os.path.join(root, "eval", "test.txt")) as f:
+        lines = f.read().splitlines()[:INT8_EVAL_IMAGES]
+    lst = os.path.join(root, "int8_test.txt")
+    with open(lst, "w") as f:
+        f.write("\n".join(lines) + "\n")
+    names = [f"class_{i}" for i in range(NUM_CLASSES)]
+    argv = ["--mode=MAP", "--int8", f"--model={os.path.join(root, 'weights.pt')}",
+            f"--test_dataset={lst}", f"--classes_path={os.path.join(root, 'classes.txt')}",
+            f"--anchors_path={os.path.join(root, 'anchors.txt')}", f"--input_size={SIZE}",
+            f"--batch_size={BATCH}", "--no-bf16"]
+    log(f"  the CLI's --mode=MAP --int8, float32, {len(lines)} images of phase 5's set "
+        "(calibrated from its text list), on the CPU:")
+    cpu = evaluate_cli(argv + ["--device=cpu"], names)
+    fused_mbconv.launches = suppress.launches = 0
+    log("  the same on the card:")
+    card = evaluate_cli(argv + [f"--device={DEVICE}"], names)
+    launches = {"mbconv": fused_mbconv.launches, "nms": suppress.launches}
+    batches = -(-len(lines) // BATCH)
+    diff = abs(card["map"] - cpu["map"])
+    ap_diff = max(abs(a - b) for a, b in zip(card["aps"], cpu["aps"]))
+    log(f"  --int8 MAP: card mAP {card['map']:.6f}, CPU {cpu['map']:.6f}, difference "
+        f"{diff:.6f} (limit {EVAL_AP_TOL}); largest per-class AP difference {ap_diff:.6f}; "
+        f"card launches {launches} for {batches} batch(es)")
+    assert launches == {"mbconv": 0, "nms": batches}, launches
+    if not cpu["map"] > 0 or diff > EVAL_AP_TOL:
+        raise AssertionError(f"--int8 MAP: card {card['map']} vs CPU {cpu['map']}")
+    report["cli_map"] = dict(card=card, cpu=cpu, map_diff=diff, ap_diff=ap_diff,
+                             launches=launches)
+
+
+def int8_phase(state, eval_root, seed, report):
+    """Phase 11a: the W8A8 int8 backbone (``Predictor(use_int8=True)``) at
+    the flagship's full width, calibrated on INT8_CALIB_IMAGES seeded wave
+    images: the main path with its launch counts (no MBConv, 1 NMS a
+    forward), the float32 Predictor card vs CPU and the blocks one at a
+    time, serving and MAP-grade img/s beside the bf16 fused path's, the
+    device split, the CLI's ``--mode=MAP --int8``; then EfficientNet-B3
+    @416 (``configs/coco_efficientnetb3_416.yaml``): float32 card vs CPU,
+    serving img/s beside its stock bf16 path's, and its device split."""
+    import torch
+
+    from yoloret_tpu_torch.configs import load_config
+    from yoloret_tpu_torch.data import load_classes
+
+    t0 = time.perf_counter()
+    out = report.setdefault("int8", {})
+    calib = wave_batch(seed, SIZE, INT8_CALIB_IMAGES)
+    pred = make_predictor(seed, weights=state, score_threshold=0.3, num_candidates=64,
+                          use_int8=True, calibration_images=calib)
+    map_pred = make_predictor(seed, weights=state, score_threshold=0.0, num_candidates=512,
+                              use_int8=True, calibration_images=calib)
+    log(f"== int8: {pred.model.backbone} @{SIZE}, {NUM_CLASSES} classes, bf16 stem and neck, "
+        f"int8 backbone calibrated on {len(calib)} wave images")
+    drive_main_path(pred, map_pred, seed, out, mbconv_per_forward=0)
+    int8_card_vs_cpu(pred, state, calib, seed, out.setdefault("card_vs_cpu", {}), INT8_LIMITS)
+    bf16 = make_predictor(seed, weights=state, score_threshold=0.3, num_candidates=64)
+    bf16_map = make_predictor(seed, weights=state, score_threshold=0.0, num_candidates=512)
+    rates = {"bf16_fused": time_paths(bf16, bf16_map, {}), "int8": time_paths(pred, map_pred, {}),
+             "bf16_fused_again": time_paths(bf16, bf16_map, {})}
+    out["end_to_end"] = rates
+    del bf16, bf16_map, map_pred
+    int8_device_split(pred, out)
+    int8_cli_map(eval_root, out)
+    del pred
+    torch.cuda.empty_cache()
+
+    cfg = load_config(os.path.join(HERE, COCO_CONFIGS["efficientnetb3_416"]))
+    names = load_classes(os.path.join(HERE, cfg.classes_path))
+    size = cfg.input_size[0]
+    b3 = out.setdefault("b3", {})
+    kw = dict(size=size, class_names=names, backbone=cfg.backbone, rfcr=cfg.rfcr)
+    base = make_predictor(seed, score_threshold=0.3, num_candidates=64, mixed=True, **kw)
+    b3_state = {k: v.detach().cpu() for k, v in base.model.state_dict().items()}
+    b3_calib = wave_batch(seed, size, INT8_B3_CALIB_IMAGES)
+    log(f"== int8: {cfg.backbone} @{size}, {len(names)} classes, calibrated on "
+        f"{len(b3_calib)} wave images")
+    int8_card_vs_cpu(base, b3_state, b3_calib, seed, b3, INT8_B3_LIMITS)
+    b3_pred = make_predictor(seed, weights=b3_state, score_threshold=0.3, num_candidates=64,
+                             use_int8=True, calibration_images=b3_calib, **kw)
+    base_map = make_predictor(seed, weights=b3_state, score_threshold=0.0, num_candidates=512,
+                              **kw)
+    b3_map = make_predictor(seed, weights=b3_state, score_threshold=0.0, num_candidates=512,
+                            use_int8=True, calibration_images=b3_calib, **kw)
+    b3["end_to_end"] = {"bf16_stock": time_paths(base, base_map, {}),
+                        "int8": time_paths(b3_pred, b3_map, {})}
+    del base, base_map, b3_map
+    int8_device_split(b3_pred, b3)
+    del b3_pred
+    torch.cuda.empty_cache()
+    out["seconds"] = time.perf_counter() - t0
+    log(f"== int8 phase: {out['seconds']:.1f} s")
+
+
+def zoom_candidates(pred, k, seed, batch=BATCH):
+    """The per-class pools of the zoom ensemble (the full input's and the
+    centre crop's positions) of ``batch`` seeded images through the
+    kernel path: boxes [B, C, k, 4], scores [B, C, k]."""
+    import torch
+
+    from yoloret_tpu_torch.data.augment import to_unit_float
+    from yoloret_tpu_torch.ops.postprocess import per_class_candidates
+
+    hw = pred.input_hw
+    g = torch.Generator(device=DEVICE).manual_seed(seed)
+    images = torch.randint(0, 256, (batch, *hw, 3), generator=g, device=DEVICE,
+                           dtype=torch.uint8)
+    image_hw = torch.tensor([hw], dtype=torch.float32, device=DEVICE).repeat(batch, 1)
+    (zh, zw), (y0, x0) = pred.zoom_hw, ((hw[0] - pred.zoom_hw[0]) // 2,
+                                        (hw[1] - pred.zoom_hw[1]) // 2)
+    with torch.inference_mode():
+        x = to_unit_float(images)
+        outs = pred._forward(x)
+        zoom = pred._forward(x[:, y0:y0 + zh, x0:x0 + zw])
+        return per_class_candidates(outs, pred._anchors_t, len(pred.class_names), image_hw,
+                                    num_candidates=k, zoom_outputs=zoom)
+
+
+def zoom_phase(state, seed, report):
+    """Phase 11b: the zoom-in ensemble (``Predictor(zoom_ensemble=True)``,
+    bf16, crop 224 of 320): the main path with its launch counts (32 MBConv
+    + 1 NMS a forward, the per-class kernel), float32 card vs CPU, the
+    MBConv kernel against its plain version at the crop's shapes (b2 and
+    b128) and timed with its tile plan, ``nms_kernel`` held exactly
+    against its plain version on the zoom's per-class pools and timed,
+    zoom serving img/s and its profile; then int8 with zoom once at b8
+    (0 MBConv + 1 NMS).
+    Returns the kernels line's two rows."""
+    import numpy as np
+    import torch
+
+    from yoloret_tpu_torch.ops.mbconv import fused_mbconv
+    from yoloret_tpu_torch.ops.nms_kernel import plan_nms, suppress
+
+    t0 = time.perf_counter()
+    out = report.setdefault("zoom", {})
+    pred = make_predictor(seed, weights=state, score_threshold=0.3, num_candidates=ZOOM_K,
+                          zoom_ensemble=True)
+    map_pred = make_predictor(seed, weights=state, score_threshold=0.0, num_candidates=512,
+                              zoom_ensemble=True)
+    zh = pred.zoom_hw[0]
+    log(f"== zoom: {pred.model.backbone} @{SIZE} with the centre {pred.zoom_hw} crop, bf16, "
+        f"per-class pools of {ZOOM_K} (MAP grade 512)")
+    launches = drive_main_path(pred, map_pred, seed, out, mbconv_per_forward=32)
+    nms_launches = out["main_path"]["nms_variant_launches"]["per_class"]
+    check_against_cpu(pred, seed, out, zoom_ensemble=True, zoom_hw=pred.zoom_hw)
+    g = torch.Generator(device=DEVICE).manual_seed(0)
+    images = torch.randint(0, 256, (BATCH, SIZE, SIZE, 3), generator=g, device=DEVICE,
+                           dtype=torch.uint8)
+    hw = torch.full((BATCH, 2), float(SIZE), device=DEVICE)
+    ms = cuda_time_ms(lambda: pred.infer(images, hw), iters=20, warmup=3)
+    out["serving"] = dict(ms_per_batch=ms, img_per_s=BATCH * 1e3 / ms)
+    log(f"  zoom serving (t=0.3, K={ZOOM_K}) b{BATCH}@{SIZE} + crop {zh}, bf16: {ms:.3f} "
+        f"ms/batch = {BATCH * 1e3 / ms:.1f} img/s (CUDA events, after warm-up)")
+    profile_serving(pred, out)
+    del map_pred
+
+    errs = [check_mbconv_at(pred, zh, b, out, f"mbconv_check_{zh}_b{b}") for b in (2, BATCH)]
+    flush = make_flush()
+    mbconv = time_mbconv(pred, flush, batch=BATCH, size=zh)
+    rows = [mbconv_entry(pred, f"@zoom{zh}", launches["mbconv"] // 2, max(errs), mbconv, BATCH,
+                         zh, "the zoom drive's crop passes, 16 of its 32 a forward")]
+    cases = []
+    boxes, scores = zoom_candidates(pred, ZOOM_K, seed=21)
+    c, n_pos = scores.shape[1], exact_k(SIZE) + exact_k(zh)
+    for b in (BATCH, 1):
+        same, err, dets = nms_exact(boxes[:b].contiguous(), scores[:b].contiguous(), 0.3,
+                                    float("-inf"))
+        plan = plan_nms(c, ZOOM_K, 20, False)
+        cases.append(dict(batch=b, exact=same, max_abs_err=err, detections=dets,
+                          plan=plan._asdict()))
+        log(f"  nms kernel vs plain, zoom per-class pools b{b} C={c} K={ZOOM_K} over {n_pos} "
+            f"positions t=0.3 ({plan.variant} kernel, {plan.npl} candidates a lane): max abs "
+            f"err {err} (tolerance 0: exact), {dets} detections")
+        if not same or dets == 0:
+            raise AssertionError(f"nms zoom b{b}: kernel differs from plain by {err}")
+    t = time_nms_case(boxes, scores, 0.3, flush, f"per-class K={ZOOM_K} (zoom)")
+    out["nms_check"], out["nms_timing"] = cases, t
+    rows.append(dict(
+        name="nms_per_class@zoom", route="cuda", source="yoloret_tpu_torch/csrc/nms.cu",
+        replaces="yoloret_tpu/ops/nms_pallas.py:36",
+        shapes=f"per-class pools b{BATCH} C={c} K={ZOOM_K} over {n_pos} positions ({SIZE} and "
+               f"its {zh} crop) t=0.3 max_det 20; launches: the zoom drive's",
+        launches=nms_launches, max_abs_err=0.0, ms=t["ms"], plain_ms=t["plain_ms"],
+        bound_ms=t["bound_ms"], bound_by=t["bound_by"], library_ms=None))
+    del boxes, scores, pred
+
+    both = make_predictor(seed, weights=state, score_threshold=0.3, num_candidates=ZOOM_K,
+                          zoom_ensemble=True, use_int8=True,
+                          calibration_images=wave_batch(seed, SIZE, INT8_CALIB_IMAGES))
+    rs = np.random.RandomState(seed + 5)
+    req = [rs.randint(0, 256, (int(rs.randint(200, 500)), int(rs.randint(200, 500)), 3),
+                      dtype=np.uint8) for _ in range(8)]
+    fused_mbconv.launches = suppress.launches = 0
+    dets = both.detect_arrays(req)
+    both_launches = {"mbconv": fused_mbconv.launches, "nms": suppress.launches}
+    n = sum(len(d) for d in dets)
+    log(f"  int8 + zoom, b8: {n} detections, launches {both_launches}")
+    assert len(dets) == 8 and both_launches == {"mbconv": 0, "nms": 1}, both_launches
+    out["int8_and_zoom"] = dict(detections=n, launches=both_launches)
+    del both
+    torch.cuda.empty_cache()
+    out["seconds"] = time.perf_counter() - t0
+    log(f"== zoom phase: {out['seconds']:.1f} s")
+    return rows
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -2279,19 +2807,25 @@ def main(argv=None) -> int:
     check_against_cpu(pred, args.seed, report)
     e2e = time_paths(pred, map_pred, report)
     profile_serving(pred, report)
-    ev = eval_phase(map_pred, state, args.seed, report)
-    kernels = time_kernels(pred, launches, ev["launches"], errs, report)
-    log(f"flagship phases done at {time.perf_counter() - t_start:.1f} s")
-    del pred, map_pred
-    torch.cuda.empty_cache()
-    kernels += image_phase(state, args.seed, report)
-    train_rates = train_phase(state, args.seed, report)
-    kernels += report["options_kernels"]
-    torch.cuda.empty_cache()
+    # phase 5's dataset stays for phase 11's --mode=MAP --int8
+    with tempfile.TemporaryDirectory(prefix="yoloret_eval_") as eval_root:
+        ev = eval_phase(map_pred, state, args.seed, report, root=eval_root)
+        kernels = time_kernels(pred, launches, ev["launches"], errs, report)
+        log(f"flagship phases done at {time.perf_counter() - t_start:.1f} s")
+        del pred, map_pred
+        torch.cuda.empty_cache()
+        kernels += image_phase(state, args.seed, report)
+        train_rates = train_phase(state, args.seed, report)
+        kernels += report["options_kernels"]
+        torch.cuda.empty_cache()
 
-    for name, config in COCO_CONFIGS.items():
-        kernels += coco_phase(name, config, args.seed, report)
-    registry = registry_phase(args.seed, report)
+        for name, config in COCO_CONFIGS.items():
+            kernels += coco_phase(name, config, args.seed, report)
+        registry = registry_phase(args.seed, report)
+        log(f"phases 1-10 done at {time.perf_counter() - t_start:.1f} s")
+
+        int8_phase(state, eval_root, args.seed, report)
+    kernels += zoom_phase(state, args.seed, report)
 
     report["kernels"] = kernels
     report["seconds"] = time.perf_counter() - t_start
@@ -2325,6 +2859,21 @@ def main(argv=None) -> int:
                                        "launches", "mbconv_err", "mix_batch")},
                     "image": {k: report["image"][k] for k in
                               ("launches", "float32_detections", "latency_ms")},
+                    "int8": dict(
+                        img_per_s={k: {p: v[p]["img_per_s"] for p in ("serving", "map_grade")}
+                                   for k, v in report["int8"]["end_to_end"].items()},
+                        b3_img_per_s={k: {p: v[p]["img_per_s"] for p in ("serving", "map_grade")}
+                                      for k, v in report["int8"]["b3"]["end_to_end"].items()},
+                        launches=report["int8"]["main_path"]["launches"],
+                        device_split=report["int8"]["device_split"],
+                        b3_device_split=report["int8"]["b3"]["device_split"],
+                        card_vs_cpu_taps=report["int8"]["card_vs_cpu"]["taps"],
+                        cli_map={k: report["int8"]["cli_map"][k] for k in
+                                 ("map_diff", "launches")}),
+                    "zoom": dict(img_per_s=report["zoom"]["serving"]["img_per_s"],
+                                 profile=report["zoom"]["profile"],
+                                 launches=report["zoom"]["main_path"]["launches"],
+                                 int8_and_zoom=report["zoom"]["int8_and_zoom"]),
                     "seconds": report["seconds"],
                     "card": smi}))
     log(json.dumps({"kernels": kernels}))

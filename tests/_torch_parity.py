@@ -99,6 +99,15 @@ def make_pair(jax_model, port_model, init, seed=0, batch=2):
     forward's outputs as numpy, the port model holding the same weights).
     Module paths are the same in both trees. ``init`` (``jax_variables``
     or ``port_variables``) gives the weights from the two models."""
+    x, variables = calibrated_pair(jax_model, port_model, init, seed, batch)
+    out = jax.jit(lambda v, xx: jax_model.apply(v, xx, False))(variables, jnp.asarray(x))
+    out = [np.asarray(o) for o in (out if isinstance(out, (tuple, list)) else [out])]
+    return x, variables, out, port_model
+
+
+def calibrated_pair(jax_model, port_model, init, seed=0, batch=2):
+    """``make_pair`` without the JAX forward: (inputs, calibrated Flax
+    variables); ``port_model`` is left holding the same weights."""
     x = np.random.RandomState(seed).rand(batch, SIZE, SIZE, 3).astype(np.float32)
     variables = init(jax_model, port_model)
     variables = {"params": perturb_params(variables["params"]),
@@ -114,9 +123,7 @@ def make_pair(jax_model, port_model, init, seed=0, batch=2):
     variables["batch_stats"] = _map(
         variables["batch_stats"],
         lambda path, v: state[".".join(path[:-1] + (leaf[path[-1]],))].numpy().copy())
-    out = jax.jit(lambda v, xx: jax_model.apply(v, xx, False))(variables, jnp.asarray(x))
-    out = [np.asarray(o) for o in (out if isinstance(out, (tuple, list)) else [out])]
-    return x, variables, out, port_model
+    return x, variables
 
 
 def assert_heads_close(got, want):

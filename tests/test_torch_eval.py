@@ -118,11 +118,15 @@ def test_detect_batch_per_class_matches_jax(thr, k, saturated):
 
 
 def test_detect_batch_refuses_what_is_not_ported():
+    """Since the zoom ensemble and ``use_pallas`` are ported, what is
+    refused is what the JAX package refuses: an unknown pool, and the
+    shared pool with either of them."""
     heads = [torch.from_numpy(h) for h in _heads(1)]
     anchors, hw = torch.from_numpy(ANCHORS), torch.from_numpy(IMAGE_HW)
     for kw in (dict(use_pallas=True), dict(zoom_outputs=heads)):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            detect_batch(heads, anchors, len(CLASSES), hw, **kw)
+        assert detect_batch(heads, anchors, len(CLASSES), hw, **kw).valid.shape == (2, 60)
+        with pytest.raises(ValueError, match="per-class"):
+            detect_batch(heads, anchors, len(CLASSES), hw, pool="shared", **kw)
     with pytest.raises(ValueError, match="pool"):
         detect_batch(heads, anchors, len(CLASSES), hw, pool="both")
 
@@ -243,7 +247,7 @@ def test_cli_map_prints_the_same_map(eval_setup, exact, tmp_path, capsys):
 
 
 def test_cli_refuses_what_is_not_ported(capsys, tmp_path):
-    for argv in (["--mode=VIDEO"], ["--mode=MAP", "--int8"],
+    for argv in (["--mode=VIDEO"],
                  ["--mode=MAP", "--mesh_data=4"], ["--mode=MAP", f"--model={tmp_path}"],
                  ["--mode=TRAIN", "--mesh_data=2"], ["--mode=bogus"]):
         assert cli_main(argv) == 2

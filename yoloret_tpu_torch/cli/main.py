@@ -31,7 +31,11 @@ JAX package's meaning. mAP:
 
 ``--model`` is a port weight file (the trainer's, or
 ``torch.save(model.state_dict())``; ``--use_ema`` reads its EMA
-weights; without it the weights are a seeded init). ``--config``
+weights; without it the weights are a seeded init). ``--int8`` (IMAGE
+and MAP) serves through the W8A8 backbone (MobileNetV2, EfficientNet),
+calibrated on up to ``quantize_samples`` letterboxed images of the test
+list, else the train list (text lists or TFRecord shards), else on
+noise. ``--config``
 overlays a YAML file onto the flags. ``--exact_nms`` takes per-class
 pools of the whole grid, the reference's exact NMS. ``--device``
 (default ``cuda``) is the port's own; ``--device=cpu`` runs every
@@ -47,7 +51,7 @@ Anchors by k-means over a training list's boxes, written to ``--output``
 
     python -m yoloret_tpu_torch.cli.main --mode=ANCHORS --train_dataset='voc_train_*.txt'
 
-The other modes (VIDEO, EXPORT, TFLITE, SERVING, TFJS), ``--int8`` and
+The other modes (VIDEO, EXPORT, TFLITE, SERVING, TFJS) and
 ``--mesh_data`` above 1 stop with a message that names their place in
 ROADMAP.md. PRUNE answers as the JAX package does (exit code 2).
 """
@@ -140,7 +144,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--use_ema", action="store_true")
     p.add_argument("--rfcr", type=str, choices=["weighted_sum", "concat", "none"])
     p.add_argument("--mesh_data", type=int)
-    p.add_argument("--int8", action="store_true")
+    p.add_argument("--int8", action="store_true",
+                   help="IMAGE/MAP through the W8A8 backbone (nn/int8_infer.py)")
     p.add_argument("--image", type=str, help="image path (IMAGE mode)")
     p.add_argument("--output", type=str, help="output path (IMAGE, ANCHORS)")
     p.add_argument("--device", type=str, default="cuda",
@@ -194,9 +199,6 @@ def main(argv=None) -> int:
             return _refuse(f"--mode={mode} is not ported to yoloret_tpu_torch yet: it waits for "
                            f"{NOT_PORTED[mode]}")
         return _refuse(f"unknown mode {args.mode!r}")
-    if cfg.int8:
-        return _refuse("--int8: the W8A8 backbone is not ported yet: it waits for side paths, "
-                       "item 5")
     if cfg.mesh_data and cfg.mesh_data > 1:
         return _refuse("--mesh_data above 1: data parallelism is not ported yet: it "
                        "waits for parallelism, item 6")
@@ -241,7 +243,7 @@ def main(argv=None) -> int:
         backbone=cfg.backbone, weights=cfg.model, class_names=class_names, anchors=anchors,
         input_hw=cfg.input_size, bf16=cfg.bf16, rfcr=cfg.rfcr, use_ema=cfg.use_ema,
         score_threshold=0.0,  # the reference sets score=0 for MAP, main.py:172
-        device=args.device,
+        device=args.device, **_int8_kw(cfg),
     )
     ds = Dataset(cfg.test_dataset, batch_size=max(cfg.batch_size, 1), input_hw=cfg.input_size,
                  mode=DatasetMode.TEST, device=args.device)
@@ -267,7 +269,7 @@ def _image(cfg: RunConfig, device: str) -> int:
         backbone=cfg.backbone, weights=cfg.model, classes_path=cfg.classes_path,
         anchors_path=cfg.anchors_path, input_hw=cfg.input_size,
         score_threshold=cfg.score_threshold, iou_threshold=cfg.nms_iou, bf16=cfg.bf16,
-        use_ema=cfg.use_ema, rfcr=cfg.rfcr, device=device)
+        use_ema=cfg.use_ema, rfcr=cfg.rfcr, device=device, **_int8_kw(cfg))
     img, dets = pred.detect_image(cfg.image or demo_image())
     out = cfg.output or "demo_out.png"
     img.save(out)
@@ -275,6 +277,48 @@ def _image(cfg: RunConfig, device: str) -> int:
         print(f"{d.class_name} {d.score:.3f} {tuple(round(v, 1) for v in d.box)}")
     print(f"wrote {out}")
     return 0
+
+
+def _int8_kw(cfg: RunConfig) -> dict:
+    """Predictor arguments for ``--int8``: the W8A8 backbone calibrated on
+    up to ``quantize_samples`` images of ``test_dataset`` (else
+    ``train_dataset``; text lists and TFRecord shards, in sorted glob
+    order), letterboxed to uint8 at the input size; on noise when neither
+    is set. {} without ``--int8``."""
+    if not cfg.int8:
+        return {}
+    import glob
+    import io
+
+    import numpy as np
+    from PIL import Image
+
+    from yoloret_tpu_torch.data.annotations import parse_annotation_line
+    from yoloret_tpu_torch.data.tfrecord import Example, index_tfrecord, read_record_at
+    from yoloret_tpu_torch.ops.letterbox import letterbox_numpy_u8
+
+    def encoded(path):
+        for off, ln in index_tfrecord(path):
+            yield io.BytesIO(Example.parse(read_record_at(path, off, ln)).features[
+                "image/encoded"])
+
+    def listed(path):
+        with open(path) as fh:
+            for line in fh:
+                if line.strip():
+                    yield parse_annotation_line(line)[0]
+
+    imgs = []
+    source = cfg.test_dataset or cfg.train_dataset
+    for path in sorted(glob.glob(source)) if source else ():
+        for f in encoded(path) if path.endswith(".tfrecord") else listed(path):
+            arr = np.asarray(Image.open(f).convert("RGB"), np.uint8)
+            imgs.append(letterbox_numpy_u8(arr, cfg.input_size))
+            if len(imgs) >= cfg.quantize_samples:
+                break
+        if len(imgs) >= cfg.quantize_samples:
+            break
+    return dict(use_int8=True, calibration_images=np.stack(imgs) if imgs else None)
 
 
 def demo_image() -> str:

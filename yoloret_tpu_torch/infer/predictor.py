@@ -1,7 +1,7 @@
 """Inference API: the serving path on the card. Port of
 ``yoloret_tpu/infer/predictor.py`` (``Detection``, ``Predictor`` with
-``detect_arrays`` and ``detect_image``, ``draw_detections``) without the
-int8, zoom-ensemble, mesh and video paths.
+``detect_arrays`` and ``detect_image``, its int8 backbone and zoom-in
+ensemble, ``draw_detections``) without the mesh and video paths.
 
 The host letterboxes each image to uint8 (4x smaller upload than
 float32), the device divides by 255, runs the detector through
@@ -14,6 +14,14 @@ replicating row 0, and requests above the top bucket go in top-bucket
 chunks. CUDA work is asynchronous, so letterboxing chunk k+1 overlaps
 the device running chunk k; at most ``inflight_chunks`` chunks are
 dispatched and not yet collected, so device memory stays O(window).
+
+``use_int8=True`` takes the W8A8 backbone (``nn/int8_infer.py``: int8
+tensors between backbone convs, no MBConv launch), calibrated on
+``calibration_images`` or, without them, on 16 uniform noise images of
+``RandomState(0)``, as the JAX package does. ``zoom_ensemble=True`` runs
+the network a second time on the centre ``zoom_hw`` crop of the
+normalised batch (the fused path: 16 more MBConv launches; or the int8
+path) and hands both passes' heads to the per-class postprocess.
 """
 
 from __future__ import annotations
@@ -32,6 +40,7 @@ from yoloret_tpu_torch.data.augment import to_unit_float
 from yoloret_tpu_torch.device import DeviceLike, resolve_device, upload
 from yoloret_tpu_torch.nn.detector import YoloReT
 from yoloret_tpu_torch.nn.fused_infer import fused_detector_apply, fused_params
+from yoloret_tpu_torch.nn.int8_infer import int8_detector_apply, quantize_from_data, supports_int8
 from yoloret_tpu_torch.nn.layers import init_weights
 from yoloret_tpu_torch.ops.letterbox import letterbox_numpy_u8
 from yoloret_tpu_torch.ops.nms import NMSResult
@@ -59,7 +68,10 @@ class Predictor:
     ``{'params', 'batch_stats'}`` as numpy arrays (converted by
     ``weights.from_flax``). ``backbone`` is any name
     of ``nn.detector.BACKBONES``; ``rfcr`` the RFCR fusion the weights
-    were trained with (``weighted_sum``, ``concat`` or ``none``)."""
+    were trained with (``weighted_sum``, ``concat`` or ``none``).
+    ``use_int8`` (MobileNetV2 and EfficientNet backbones) and
+    ``calibration_images`` ([N, H, W, 3], uint8 or float in [0, 1]), and
+    ``zoom_ensemble`` with ``zoom_hw``, take the JAX package's meaning."""
 
     def __init__(
         self,
@@ -80,6 +92,10 @@ class Predictor:
         rfcr: str = "weighted_sum",
         device: DeviceLike = "cuda",
         use_ema: bool = False,
+        zoom_ensemble: bool = False,
+        zoom_hw: Tuple[int, int] = (224, 224),
+        use_int8: bool = False,
+        calibration_images: Optional[np.ndarray] = None,
     ):
         self.device = resolve_device(device)
         if class_names is None:
@@ -102,6 +118,18 @@ class Predictor:
         self.inflight_chunks = max(1, int(inflight_chunks))
         self.dispatched_batch_sizes: set = set()
         self.forwards = 0  # device forwards dispatched (one per chunk)
+        self.zoom_ensemble = zoom_ensemble
+        self.zoom_hw = tuple(zoom_hw)
+        if use_int8 and not supports_int8(backbone):
+            raise ValueError(f"the int8 path supports mobilenetv2* / efficientnetb*, not "
+                             f"{backbone!r}")
+        self._calib = None
+        if use_int8:
+            if calibration_images is None:
+                calibration_images = np.random.RandomState(0).randint(
+                    0, 256, (16, *self.input_hw, 3), np.uint8)
+            calib = np.asarray(calibration_images, np.float32)
+            self._calib = calib / 255.0 if calib.max() > 1.5 else calib
 
         self.model = YoloReT(backbone, num_classes=len(self.class_names),
                              dtype=torch.bfloat16 if bf16 else torch.float32, rfcr=rfcr)
@@ -118,9 +146,16 @@ class Predictor:
 
     def refresh(self) -> None:
         """Re-fold the backbone weights after the model's parameters
-        changed (the fused path reads a folded copy)."""
+        changed (the fused path reads a folded copy), and with
+        ``use_int8`` re-calibrate and re-quantize them."""
         self._anchors_t = torch.as_tensor(self.anchors, device=self.device)
-        self._fused = fused_params(self.model)
+        self._qp = None if self._calib is None else quantize_from_data(self.model, self._calib)
+        self._fused = fused_params(self.model) if self._qp is None else None
+
+    def _forward(self, images: torch.Tensor):
+        if self._qp is not None:
+            return int8_detector_apply(self.model, self._qp, images)
+        return fused_detector_apply(self.model, images, self._fused)
 
     # -- device path --------------------------------------------------------
 
@@ -132,15 +167,21 @@ class Predictor:
         ([0, 1]), and image_hw [B, 2] float32 -> NMSResult. The
         thresholds and ``num_candidates`` override the predictor's own
         settings for this call; ``pool`` is the postprocess's candidate
-        pool, ``"shared"`` (None) or ``"per_class"``. Asynchronous on
-        CUDA."""
-        outs = fused_detector_apply(self.model, to_unit_float(images), self._fused)
+        pool, ``"shared"`` or ``"per_class"`` (None: shared, per-class with
+        the zoom ensemble). Asynchronous on CUDA."""
+        images = to_unit_float(images)
+        outs = self._forward(images)
+        zoom_outs = None
+        if self.zoom_ensemble:
+            (h, w), (zh, zw) = images.shape[1:3], self.zoom_hw
+            y0, x0 = (h - zh) // 2, (w - zw) // 2
+            zoom_outs = self._forward(images[:, y0:y0 + zh, x0:x0 + zw, :])
         return detect_batch(
             outs, self._anchors_t, len(self.class_names), image_hw,
             score_threshold=self.score_threshold if score_threshold is None else score_threshold,
             iou_threshold=self.iou_threshold if iou_threshold is None else iou_threshold,
             num_candidates=self.num_candidates if num_candidates is None else num_candidates,
-            pool=pool)
+            zoom_outputs=zoom_outs, pool=pool)
 
     # -- array API ----------------------------------------------------------
 

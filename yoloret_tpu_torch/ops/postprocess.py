@@ -1,7 +1,7 @@
 """Detection postprocess: raw multi-scale heads -> per-class detections
 in original-image pixels. Port of ``yoloret_tpu/ops/postprocess.py``
-(``detect_batch`` with its two candidate pools; not the zoom ensemble
-and not ``use_pallas``, whose kernel every pool here runs anyway).
+(``detect_batch`` with its two candidate pools, the zoom-in ensemble and
+``use_pallas``; every pool runs the suppression kernel).
 
 Shared pool (the serving path and the default):
 1. ``shared_pool_candidates``: ONE exact top-M over all head positions,
@@ -18,6 +18,12 @@ size, ``--exact_nms``, the reference's NMS exactly):
    then their boxes.
 2. ``per_class_suppress``: greedy NMS in each class's own pool, through
    the same kernel (its large-pool variant above 512 candidates).
+
+The zoom-in ensemble (``zoom_outputs``: the heads of a second pass over
+the centre crop of the network input) adds the crop's positions to the
+per-class pools, their boxes mapped into the primary input's frame
+(``gather_boxes_and_scores``); it takes the per-class pools, as the JAX
+package forces it.
 """
 
 from __future__ import annotations
@@ -114,6 +120,56 @@ def shared_pool_suppress(
     return fused_result(out_boxes, out_scores)
 
 
+def _interleave(main: Sequence[torch.Tensor], zoom: Sequence[torch.Tensor]):
+    """[main 0, zoom 0, main 1, zoom 1, ...]."""
+    return [t for both in zip(main, zoom) for t in both]
+
+
+def gather_boxes_and_scores(
+    outputs: Sequence[torch.Tensor],
+    anchors: torch.Tensor,
+    num_classes: int,
+    image_hw: torch.Tensor,
+    zoom_outputs: Optional[Sequence[torch.Tensor]] = None,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Every head position decoded: heads [B, gh, gw, A, 5+C] per scale
+    (coarsest first), image_hw [B, 2] -> (boxes [B, N, 4] in image pixels,
+    scores [B, N, C]). The batched ``gather_boxes_and_scores`` of the JAX
+    package.
+
+    With ``zoom_outputs`` (the heads of the centre crop), each scale's
+    crop positions follow its own positions (scale 0, its crop, scale 1,
+    ...), their centres and sizes mapped into the input's frame as
+    ``zxy * ratio + (1 - ratio) / 2``, ``zwh * ratio`` (ratio = crop /
+    input, per axis) before the letterbox inversion. The crop's size comes
+    from its coarsest grid (x 32), not from each scale's."""
+    b = outputs[0].shape[0]
+    input_hw = (outputs[0].shape[-4] * 32, outputs[0].shape[-3] * 32)
+
+    def decode(heads, hw):
+        raw = [o.float().reshape(b, -1, o.shape[-1]) for o in heads]
+        grid_xy, grid_wh, anchor_wh = _position_constants(heads, anchors)
+        flat = torch.cat(raw, dim=1)
+        xy = (torch.sigmoid(flat[..., :2]) + grid_xy) / grid_wh
+        wh = torch.exp(flat[..., 2:4]) * anchor_wh / pair(hw[1], hw[0], flat.device)
+        sizes = [r.shape[1] for r in raw]
+        return xy.split(sizes, 1), wh.split(sizes, 1), raw
+
+    xy, wh, raw = decode(outputs, input_hw)
+    if zoom_outputs is not None:
+        zoom_hw = (zoom_outputs[0].shape[-4] * 32, zoom_outputs[0].shape[-3] * 32)
+        zxy, zwh, zraw = decode(zoom_outputs, zoom_hw)
+        ratio = pair(zoom_hw[1] / input_hw[1], zoom_hw[0] / input_hw[0], image_hw.device)
+        offset = (1.0 - ratio) / 2.0
+        xy = _interleave(xy, [z * ratio + offset for z in zxy])
+        wh = _interleave(wh, [z * ratio for z in zwh])
+        raw = _interleave(raw, zraw)
+    flat = torch.cat(raw, dim=1)
+    scores = torch.sigmoid(flat[..., 4:5]) * torch.sigmoid(flat[..., 5:])  # [B, N, C]
+    boxes = correct_boxes(torch.cat(xy, 1), torch.cat(wh, 1), input_hw, image_hw[:, None, :])
+    return boxes, scores
+
+
 def per_class_candidates(
     outputs: Sequence[torch.Tensor],
     anchors: torch.Tensor,
@@ -121,26 +177,25 @@ def per_class_candidates(
     image_hw: torch.Tensor,
     *,
     num_candidates: int,
+    zoom_outputs: Optional[Sequence[torch.Tensor]] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Heads [B, gh, gw, A, 5+C] per scale, image_hw [B, 2] -> (boxes [B,
     C, K, 4] in image pixels, cls_scores [B, C, K]): per class, the K
-    highest-scoring positions, K = min(num_candidates, N).
+    highest-scoring positions (of the crop too, with ``zoom_outputs``),
+    K = min(num_candidates, N).
 
     The selection is a stable descending sort, so tied scores keep the
     order of their positions, as ``lax.top_k`` keeps it (``torch.topk``
     promises no order). Boxes are decoded once per position and gathered:
     bit for bit the candidate-only decode of the JAX package, in N decodes
     instead of C * K."""
-    b = outputs[0].shape[0]
-    raw_flat = torch.cat([o.float().reshape(b, -1, o.shape[-1]) for o in outputs], dim=1)
-    n = raw_flat.shape[1]
+    boxes, scores = gather_boxes_and_scores(outputs, anchors, num_classes, image_hw,
+                                            zoom_outputs)
+    b, n, _ = boxes.shape
     k = min(num_candidates, n)
-    scores = torch.sigmoid(raw_flat[..., 4:5]) * torch.sigmoid(raw_flat[..., 5:])  # [B, N, C]
     cls_scores, cls_idx = torch.sort(scores.transpose(1, 2), dim=-1, descending=True,
                                      stable=True)
     cls_scores, cls_idx = cls_scores[..., :k].contiguous(), cls_idx[..., :k]
-    positions = torch.arange(n, device=raw_flat.device).expand(b, n)
-    boxes = _decode_at(raw_flat[..., :4], positions, outputs, anchors, image_hw)  # [B, N, 4]
     cls_boxes = torch.gather(boxes[:, None].expand(b, num_classes, n, 4), 2,
                              cls_idx[..., None].expand(b, num_classes, k, 4))
     return cls_boxes.contiguous(), cls_scores
@@ -179,14 +234,19 @@ def detect_batch(
 ) -> NMSResult:
     """Batched postprocess (the JAX package's ``detect_batch`` with exact
     top-k): heads [B, gh, gw, A, 5+C] per scale, image_hw [B, 2] ->
-    NMSResult with a leading batch dim. ``pool``: ``"shared"`` (None) or
-    ``"per_class"``, as in the JAX package. ``zoom_outputs`` and
-    ``use_pallas=True`` are not ported and raise."""
-    if zoom_outputs is not None or use_pallas:
-        raise NotImplementedError(
-            "detect_batch: the zoom ensemble and use_pallas are not ported (ROADMAP.md, "
-            "queue 1, item 5); every pool runs the suppression kernel")
-    pool = "shared" if pool is None else pool
+    NMSResult with a leading batch dim. ``pool``: ``"shared"`` or
+    ``"per_class"``; None is ``"per_class"`` with ``zoom_outputs`` or
+    ``use_pallas``, else ``"shared"``, as in the JAX package, which
+    refuses the shared pool with either. ``use_pallas=True`` without
+    zoom is the JAX package's per-class kernel path: its slate holds the
+    picks of score above 0 (``fused_result``); the zoom ensemble and the
+    plain per-class pool give ``class_aware_nms``'s slate (every pick)."""
+    per_class_only = bool(use_pallas) or zoom_outputs is not None
+    if pool is None:
+        pool = "per_class" if per_class_only else "shared"
+    elif pool == "shared" and per_class_only:
+        raise ValueError("pool='shared' is incompatible with use_pallas=True / zoom_outputs: "
+                         "both consume the per-class candidate structure")
     kw = dict(max_det_per_class=max_det_per_class, score_threshold=score_threshold,
               iou_threshold=iou_threshold)
     if pool == "shared":
@@ -195,6 +255,12 @@ def detect_batch(
         return shared_pool_suppress(boxes, cls_scores, **kw)
     if pool == "per_class":
         boxes, cls_scores = per_class_candidates(
-            outputs, anchors, num_classes, image_hw, num_candidates=num_candidates)
+            outputs, anchors, num_classes, image_hw, num_candidates=num_candidates,
+            zoom_outputs=zoom_outputs)
+        if use_pallas and zoom_outputs is None:
+            out_boxes, out_scores = suppress(
+                boxes, cls_scores, max_det=max_det_per_class, iou_threshold=iou_threshold,
+                score_threshold=score_threshold)
+            return fused_result(out_boxes, out_scores)
         return per_class_suppress(boxes, cls_scores, **kw)
     raise ValueError(f"pool must be 'shared' or 'per_class', not {pool!r}")

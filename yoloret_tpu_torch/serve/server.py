@@ -195,13 +195,16 @@ def main(argv=None):
     p.add_argument("--input_size", type=int, default=320)
     p.add_argument("--score", type=float, default=0.6)
     p.add_argument("--max_batch", type=int, default=8)
+    p.add_argument("--int8", action="store_true",
+                   help="serve through the W8A8 backbone (nn/int8_infer.py), calibrated on "
+                        "noise; build the Predictor in-process to calibrate on real images")
     p.add_argument("--device", default="cuda")
     a = p.parse_args(argv)
     pred = Predictor(
         backbone=a.backbone, weights=a.weights,
         classes_path=a.classes_path, anchors_path=a.anchors_path,
         input_hw=(a.input_size, a.input_size), score_threshold=a.score,
-        rfcr=a.rfcr, device=a.device,
+        rfcr=a.rfcr, device=a.device, use_int8=a.int8,
     )
     DetectionServer(pred, a.host, a.port, max_batch=a.max_batch).start()
 

@@ -11,6 +11,9 @@ the leaves are renamed and, for convolutions, relaid out:
   * BatchNorm ``scale``/``bias``/``mean``/``var`` -> ``weight``/``bias``/
     ``running_mean``/``running_var``;
   * conv ``bias`` and the RFCR ``fuse_weights/alpha`` carry over as they are.
+
+``int8_from_flax`` carries the JAX package's quantized int8 tree across
+the same way, so that both int8 forwards can run from one set of codes.
 """
 
 from __future__ import annotations
@@ -61,4 +64,43 @@ def from_flax(variables: Mapping[str, Any], model: Optional[nn.Module] = None
         missing, extra = sorted(want - set(out)), sorted(set(out) - want)
         if missing or extra:
             raise KeyError(f"state dict mismatch: missing {missing[:8]}, unknown {extra[:8]}")
+    return out
+
+
+def int8_from_flax(qp: Mapping[str, Any]) -> Dict[str, Any]:
+    """The JAX package's int8 parameter tree (``yoloret_tpu/nn/
+    int8_infer.py::quantize_*``, leaves as numpy arrays) -> the port's
+    (``nn/int8_infer.py``), CPU tensors:
+
+      * the stem kernel HWIO -> OIHW, float32;
+      * 1x1 int8 kernels ``[1, 1, Cin, Cout]`` -> ``[Cin, Cout]`` int8,
+        column-major (``int_mm``'s weight layout);
+      * depthwise int8 kernels ``[k, k, 1, C]`` -> ``[C, 1, k, k]``;
+      * squeeze-excite kernels ``[1, 1, Cin, Cout]`` -> ``[Cin, Cout]``
+        float32;
+      * dequant factors and biases -> float32 tensors; scales stay Python
+        floats, strides ints, flags bools, ``act`` its string, ``taps``
+        {block index: key}."""
+
+    def leaf(name, v):
+        if not isinstance(v, (np.ndarray, np.generic)) and not hasattr(v, "__array__"):
+            return v
+        a = np.asarray(v)
+        if a.ndim == 0:
+            return a.item()
+        if name in ("kernel", "wd_q"):
+            a = a.transpose(3, 2, 0, 1)
+        elif a.ndim == 4:  # we_q, wp_q, se_*_w: [1, 1, Cin, Cout]
+            a = a[0, 0]
+        t = torch.from_numpy(np.array(a, order="C"))  # a copy: jax arrays are read-only
+        if t.dtype == torch.int8:
+            return t.t().contiguous().t() if t.dim() == 2 else t
+        return t.float()
+
+    out: Dict[str, Any] = {
+        "stem": {k: leaf(k, v) for k, v in qp["stem"].items()},
+        "blocks": [{k: leaf(k, v) for k, v in blk.items()} for blk in qp["blocks"]],
+    }
+    if "taps" in qp:
+        out["taps"] = {int(k): str(v) for k, v in qp["taps"].items()}
     return out
