@@ -137,6 +137,19 @@ Phases (any failure exits non-zero and prints no result):
    exactly against its plain version on the zoom's pools (B=128 and 1)
    and timed, zoom serving img/s and its profile; then int8 with zoom at
    b8 (0 + 1).
+12. The EXPORT path (``yoloret_tpu_torch/export/``, the kernels as the
+   operators ``yoloret::mbconv`` and ``yoloret::nms``): the CLI's
+   ``--mode=EXPORT --bf16`` on the flagship weights at batch 1, the
+   bundle loaded in a fresh process and in this one; ``export_bundle``
+   at b128; EfficientNet-B3 @416 (80 classes) at b1; the CLI's
+   ``--quantize`` on the JAX export tests' peaked weights. Each loaded
+   program: its graph (16 or 0 ``yoloret::mbconv``, 1 ``yoloret::nms``,
+   no tensor held), one call with the launch counts (16 or 0 + 1), its
+   slate against ``Predictor.infer``'s bit for bit (the int8 bundle
+   against the float weights through its program: scores within 0.05,
+   classes equal). Export and load seconds, bundle bytes, b128 img/s and
+   b1 latency beside ``Predictor.infer``'s, the operators' host cost a
+   call beside the wrappers'; the NMS kernel at the export's new shapes.
 
 The line before the last is the kernel table as JSON; the last line is
 ``{"ok": true, "device": {...}}``. Details go to chiprun_out/chip_smoke.json.
@@ -1420,24 +1433,24 @@ def time_nms_case(boxes, scores, thr, flush, pool):
                 detections=int(torch.isfinite(out_s).sum()), **work)
 
 
-def nms_entry(pred, suffix, boxes, scores, launches, where, flush):
+def nms_entry(pred, suffix, boxes, scores, launches, where, flush, thr=0.3):
     """The kernels line's ``nms_shared`` row of one shape of the main path:
     ``suppress`` held exactly against ``suppress_plain`` on the shared pool
-    (boxes, scores) of t=0.3 and timed; ``launches`` the count of the run
-    ``where`` names."""
+    (boxes, scores) of t=``thr`` and timed; ``launches`` the count of the
+    run ``where`` names."""
     b, c, m = scores.shape
-    same, err, dets = nms_exact(boxes, scores, 0.3)
-    log(f"  nms kernel vs plain, shared b{b} C={c} M={m} t=0.3 ({where}): max abs err {err} "
+    same, err, dets = nms_exact(boxes, scores, thr)
+    log(f"  nms kernel vs plain, shared b{b} C={c} M={m} t={thr} ({where}): max abs err {err} "
         f"(tolerance 0: exact), {dets} detections")
     if not same or dets == 0:
         raise AssertionError(f"nms b{b} M={m}: kernel differs from plain by {err}, "
                              f"{dets} detections")
-    t = time_nms_case(boxes, scores, 0.3, flush, f"shared M={m}")
+    t = time_nms_case(boxes, scores, thr, flush, f"shared M={m}")
     return dict(
         name="nms" + suffix, route="cuda", source="yoloret_tpu_torch/csrc/nms.cu",
         replaces="yoloret_tpu/ops/nms_pallas.py:36",
         also_replaces=["yoloret_tpu/ops/postprocess.py:361"],
-        shapes=f"shared pool b{b} C={c} M={m} t=0.3 ({pred.model.backbone} "
+        shapes=f"shared pool b{b} C={c} M={m} t={thr} ({pred.model.backbone} "
                f"@{pred.input_hw[0]}); launches: {where}",
         launches=launches, max_abs_err=err, ms=t["ms"], plain_ms=t["plain_ms"],
         bound_ms=t["bound_ms"], bound_by=t["bound_by"], library_ms=None)
@@ -2757,6 +2770,386 @@ def zoom_phase(state, seed, report):
     return rows
 
 
+# Phase 12, the EXPORT path: a bundle loaded in a fresh process
+# (FRESH_LOAD) prints one JSON line; EXPORT_TIMED calls are timed after
+# EXPORT_WARMUP. The int8 bundle is held to the JAX package's round-trip
+# criteria (tests/test_export.py): scores within QUANT_SCORE_TOL of the
+# float weights' through the same program, classes equal, on that test's
+# weights (``peaked_state``); it is exported at score threshold 0, as that
+# test's 0.1 is below every score, so that no slot crosses the threshold.
+# On BatchNorm-calibrated seeded weights the int8 weights move the heads
+# by most of their size (on the CPU, x0.75 @320 bf16: 6.4 of 7.6), as
+# they would in the JAX package (the same codes): the flagship's own drift
+# is logged, not held.
+FRESH_LOAD = """
+import json, sys, time
+import numpy as np
+import torch
+t0 = time.perf_counter()
+from yoloret_tpu_torch.export.export import bundle_graph_counts, load_bundle
+from yoloret_tpu_torch.ops.mbconv import fused_mbconv
+from yoloret_tpu_torch.ops.nms_kernel import suppress
+torch.backends.cudnn.allow_tf32 = False
+torch.backends.cuda.matmul.allow_tf32 = False
+bundle = load_bundle(sys.argv[1], device="cuda")
+torch.cuda.synchronize()
+load_s = time.perf_counter() - t0
+data = np.load(sys.argv[2])
+images, hw = (torch.from_numpy(data[k]).cuda() for k in ("images", "image_hw"))
+fused_mbconv.launches = suppress.launches = 0
+slate = bundle(images, hw)
+torch.cuda.synchronize()
+launches = {"mbconv": fused_mbconv.launches, "nms": suppress.launches}
+np.savez(sys.argv[3], **{k: t.cpu().numpy() for k, t in zip(
+    ("boxes", "scores", "classes", "valid"), slate)})
+print(json.dumps(dict(load_s=load_s, launches=launches, graph=bundle_graph_counts(
+    bundle.program), device=torch.cuda.get_device_name(0))))
+"""
+EXPORT_WARMUP = 3
+EXPORT_TIMED = 20
+QUANT_SCORE_TOL = 0.05
+
+
+def same_slate(got, want):
+    """Whether two slates (tuples of tensors or arrays) are equal bit for
+    bit; and the largest score difference."""
+    import numpy as np
+
+    got = [np.asarray(t.cpu() if hasattr(t, "cpu") else t) for t in got]
+    want = [np.asarray(t.cpu() if hasattr(t, "cpu") else t) for t in want]
+    equal = all(g.shape == w.shape and g.dtype == w.dtype and np.array_equal(g, w)
+                for g, w in zip(got, want))
+    return equal, float(np.abs(got[1] - want[1]).max())
+
+
+def host_us_per_call(fn, calls=200):
+    """Host microseconds a call of ``fn`` (which enqueues device work),
+    over ``calls`` calls after 10; the device drained before and after."""
+    import torch
+
+    for _ in range(10):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    us = (time.perf_counter() - t0) * 1e6 / calls
+    torch.cuda.synchronize()
+    return us
+
+
+def export_bundle_checked(bundle, pred, images, hw, mbconv, where, out):
+    """One call of a loaded bundle with the launch counts set to 0 just
+    before and read just after (``mbconv`` MBConv launches and 1 NMS
+    launch), its slate held to ``pred.infer``'s on the same images bit for
+    bit; returns the launch counts."""
+    import torch
+
+    from yoloret_tpu_torch.ops.mbconv import fused_mbconv
+    from yoloret_tpu_torch.ops.nms_kernel import suppress
+
+    fused_mbconv.launches = suppress.launches = 0
+    got = bundle(images, hw)
+    torch.cuda.synchronize()
+    launches = {"mbconv": fused_mbconv.launches, "nms": suppress.launches}
+    want = pred.infer(images, hw)
+    equal, diff = same_slate(got, want)
+    valid = int(want.valid.sum())
+    out[where] = dict(launches=launches, equal=equal, max_score_diff=diff, valid=valid)
+    log(f"  {where}: launches {launches}, slate vs Predictor.infer: "
+        f"{'equal bit for bit' if equal else f'DIFFERS (scores by {diff})'}, {valid} valid")
+    assert launches == {"mbconv": mbconv, "nms": 1}, launches
+    assert equal and valid > 0, (equal, diff, valid)
+    return launches
+
+
+def peaked_state(num_classes):
+    """The weights of the JAX package's export tests (``tests/test_export.py
+    ::_peaked_checkpoint``, ``tests/_torch_parity.py::peaked_variables``)
+    at full width: MobileNetV2 x0.75 from the port's seeded init (seed 3),
+    BatchNorm statistics as initialised, the head kernels x4."""
+    import torch
+
+    from yoloret_tpu_torch.nn.detector import YoloReT
+    from yoloret_tpu_torch.nn.layers import init_weights
+
+    m = YoloReT("mobilenetv2x75", num_classes=num_classes)
+    init_weights(m, torch.Generator().manual_seed(3))
+    return {k: v * 4.0 if "head" in k and k.endswith(".weight") and v.dim() >= 2 else v
+            for k, v in m.state_dict().items()}
+
+
+def export_phase(state, seed, report, kernels):
+    """Phase 12: the EXPORT path on the card. The flagship through the
+    CLI's ``--mode=EXPORT --bf16`` at batch 1, loaded in a fresh process,
+    then through ``export_bundle`` at b128 in this one; EfficientNet-B3
+    @416 (80 classes) at b1; the CLI's ``--quantize``. Each loaded program:
+    its graph (16 or 0 ``yoloret::mbconv`` nodes, 1 ``yoloret::nms``, no
+    tensor), one call with the launch counts set to 0 just before and read
+    just after, its slate against ``Predictor.infer``'s bit for bit (the
+    int8 one against the float weights through the same program, within
+    QUANT_SCORE_TOL). Export and load seconds, bundle bytes, b128 img/s and
+    b1 latency beside ``Predictor.infer``'s (CUDA events), the operators'
+    host dispatch cost beside the wrappers'. The launches add to the
+    kernels line's rows of b1 and b128 @320; the new NMS shapes get rows.
+    Returns those rows."""
+    import numpy as np
+    import torch
+
+    from yoloret_tpu_torch.cli.main import main as cli_main
+    from yoloret_tpu_torch.configs import RunConfig, load_config
+    from yoloret_tpu_torch.data import load_anchors, load_classes
+    from yoloret_tpu_torch.export.export import (
+        Bundle,
+        bundle_graph_counts,
+        export_bundle,
+        load_bundle,
+        program_weights,
+    )
+    from yoloret_tpu_torch.export.quantize import dequantize_state_dict, quantize_state_dict
+    from yoloret_tpu_torch.nn.detector import YoloReT
+    from yoloret_tpu_torch.ops.library import mbconv_block
+    from yoloret_tpu_torch.ops.mbconv import fused_mbconv
+    from yoloret_tpu_torch.ops.nms_kernel import suppress
+
+    t_phase = time.perf_counter()
+    out = report.setdefault("export", {})
+    names = [f"class_{i}" for i in range(NUM_CLASSES)]
+    rows_by_name = {r["name"]: r for r in kernels}
+
+    def add_launches(name, n):
+        rows_by_name[name]["launches"] += n
+        rows_by_name[name]["export_launches"] = rows_by_name[name].get("export_launches", 0) + n
+
+    def graph_ok(bundle, mbconv, key):
+        g = out.setdefault("graphs", {})[key] = bundle_graph_counts(bundle.program)
+        log(f"  {key} graph: {g['mbconv']} yoloret::mbconv, {g['nms']} yoloret::nms, "
+            f"{g['argmax']} argmax, {g['tensors']} tensors held")
+        assert g == {"mbconv": mbconv, "nms": 1, "argmax": 0, "tensors": 0}, g
+
+    def sizes(d):
+        return {f: os.path.getsize(os.path.join(d, f)) for f in ("model.pt2", "weights.pt")}
+
+    def seeded(b, size, sub):
+        g = torch.Generator(device=DEVICE).manual_seed(seed + sub)
+        images = torch.rand((b, size, size, 3), generator=g, device=DEVICE)
+        hw = torch.tensor([[size * 1.5, size], [size, size * 0.75]], device=DEVICE).repeat(
+            -(-b // 2), 1)[:b].contiguous()
+        return images, hw
+
+    rows = []
+    pred = make_predictor(seed, weights=state, score_threshold=IMAGE_SCORE)
+    log(f"== export: {pred.model.backbone} @{SIZE}, bf16, M={pred.num_candidates}, "
+        f"t={IMAGE_SCORE}")
+    with tempfile.TemporaryDirectory(prefix="yoloret_export_") as root:
+        weights = os.path.join(root, "flagship.pt")
+        torch.save(state, weights)
+        files = dict(classes_path=os.path.join(root, "classes.txt"),
+                     anchors_path=os.path.join(root, "anchors.txt"))
+        with open(files["classes_path"], "w") as f:
+            f.write("\n".join(names) + "\n")
+        with open(files["anchors_path"], "w") as f:
+            f.write(", ".join(f"{w},{h}" for w, h in ANCHORS) + "\n")
+        flags = [f"--model={weights}", f"--classes_path={files['classes_path']}",
+                 f"--anchors_path={files['anchors_path']}", "--bf16"]
+
+        # 1. the CLI's EXPORT at b1, loaded in a fresh process
+        cli_dir = os.path.join(root, "cli_b1")
+        t0 = time.perf_counter()
+        rc, text = run_printing(cli_main, ["--mode=EXPORT", f"--export={cli_dir}",
+                                           f"--score={IMAGE_SCORE}"] + flags)
+        out["cli_export_s"] = time.perf_counter() - t0
+        assert rc == 0, f"the CLI's EXPORT returned {rc}: {text}"
+        out["bytes_float"] = sizes(cli_dir)
+        log(f"  CLI --mode=EXPORT --bf16 b1: {text.strip().splitlines()[-1]} in "
+            f"{out['cli_export_s']:.1f} s; bytes {out['bytes_float']}")
+        images1, hw1 = seeded(1, SIZE, 1)
+        np.savez(os.path.join(root, "in.npz"), images=images1.cpu().numpy(),
+                 image_hw=hw1.cpu().numpy())
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-c", FRESH_LOAD, cli_dir, os.path.join(root, "in.npz"),
+             os.path.join(root, "fresh.npz")], cwd=HERE, capture_output=True, text=True,
+            timeout=600, env=dict(os.environ, PYTHONPATH=HERE))
+        out["fresh_process_s"] = time.perf_counter() - t0
+        assert proc.returncode == 0, f"the fresh-process load failed:\n{proc.stderr[-4000:]}"
+        fresh = out["fresh"] = json.loads(proc.stdout.strip().splitlines()[-1])
+        want = pred.infer(images1, hw1)
+        with np.load(os.path.join(root, "fresh.npz")) as z:
+            equal, diff = same_slate([z[k] for k in ("boxes", "scores", "classes", "valid")],
+                                     want)
+        fresh.update(equal=equal, max_score_diff=diff, valid=int(want.valid.sum()))
+        log(f"  fresh process: load {fresh['load_s']:.2f} s (imports included; the process "
+            f"{out['fresh_process_s']:.1f} s), graph {fresh['graph']}, launches "
+            f"{fresh['launches']}, slate vs Predictor.infer: "
+            f"{'equal bit for bit' if equal else f'DIFFERS (scores by {diff})'}, "
+            f"{fresh['valid']} valid")
+        assert fresh["graph"] == {"mbconv": 16, "nms": 1, "argmax": 0, "tensors": 0}, fresh
+        assert fresh["launches"] == {"mbconv": 16, "nms": 1}, fresh["launches"]
+        assert equal and fresh["valid"] > 0, (equal, diff)
+        b1_launches = dict(fresh["launches"])
+        t0 = time.perf_counter()
+        b1 = load_bundle(cli_dir, device=DEVICE)
+        out["load_s"] = time.perf_counter() - t0
+        graph_ok(b1, 16, "flagship_b1")
+        for k, v in export_bundle_checked(b1, pred, images1, hw1, 16, "flagship_b1_in_process",
+                                          out).items():
+            b1_launches[k] += v
+
+        # 2. the library at b128
+        cfg = RunConfig(model=weights, input_size=(SIZE, SIZE), bf16=True,
+                        score_threshold=IMAGE_SCORE, **files)
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(io.StringIO()):
+            export_bundle(cfg, os.path.join(root, "lib_b128"), batch=BATCH, device=DEVICE)
+        out["export_b128_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        b128 = load_bundle(os.path.join(root, "lib_b128"), device=DEVICE)
+        out["load_b128_s"] = time.perf_counter() - t0
+        log(f"  export_bundle b{BATCH}: export {out['export_b128_s']:.1f} s, load "
+            f"{out['load_b128_s']:.2f} s")
+        graph_ok(b128, 16, f"flagship_b{BATCH}")
+        images, hw = seeded(BATCH, SIZE, 2)
+        big_launches = export_bundle_checked(b128, pred, images, hw, 16, f"flagship_b{BATCH}",
+                                             out)
+
+        timing = out["timing"] = {}
+        for key, bundle, x, h in (("b128", b128, images, hw), ("b1", b1, images1, hw1)):
+            t = timing[key] = {}
+            for rnd in (1, 2):
+                t[f"bundle_ms_{rnd}"] = cuda_time_ms(lambda: bundle(x, h), EXPORT_TIMED,
+                                                     EXPORT_WARMUP)
+                t[f"predictor_ms_{rnd}"] = cuda_time_ms(lambda: pred.infer(x, h), EXPORT_TIMED,
+                                                        EXPORT_WARMUP)
+            n = x.shape[0]
+            t.update({k.replace("_ms_", "_img_per_s_"): n * 1e3 / v for k, v in list(t.items())})
+            log(f"  {key} @{SIZE} bf16, {EXPORT_TIMED} calls after {EXPORT_WARMUP} (CUDA "
+                f"events, two rounds): loaded bundle {t['bundle_ms_1']:.3f} / "
+                f"{t['bundle_ms_2']:.3f} ms = {t['bundle_img_per_s_1']:.1f} / "
+                f"{t['bundle_img_per_s_2']:.1f} img/s; Predictor.infer "
+                f"{t['predictor_ms_1']:.3f} / {t['predictor_ms_2']:.3f} ms = "
+                f"{t['predictor_img_per_s_1']:.1f} / {t['predictor_img_per_s_2']:.1f} img/s")
+
+        # the operators' host dispatch beside the wrappers'
+        with torch.inference_mode():
+            meta = pred._fused.blocks[-1]
+            x15 = torch.rand((1, SIZE // 32, SIZE // 32, meta.args[0].shape[0]),
+                             device=DEVICE).to(pred.model.dtype)
+            kw = dict(stride=meta.stride, residual=meta.residual, packed=meta.packed)
+            bx, sc = model_candidates(pred, pred.num_candidates, seed, batch=1)
+            nkw = dict(max_det=20, iou_threshold=0.5, score_threshold=IMAGE_SCORE)
+            launches_before = (fused_mbconv.launches, suppress.launches)
+            d = out["dispatch_us"] = dict(
+                mbconv_wrapper=host_us_per_call(lambda: fused_mbconv(x15, *meta.args, **kw)),
+                mbconv_operator=host_us_per_call(lambda: mbconv_block(x15, *meta.args, **kw)),
+                nms_wrapper=host_us_per_call(lambda: suppress(bx, sc, **nkw)),
+                nms_operator=host_us_per_call(lambda: torch.ops.yoloret.nms(
+                    bx, sc, 20, 0.5, IMAGE_SCORE, 0.0)))
+            fused_mbconv.launches, suppress.launches = launches_before
+        log(f"  host us a call (200 after 10): MBConv block 15 b1 wrapper "
+            f"{d['mbconv_wrapper']:.2f}, operator {d['mbconv_operator']:.2f}; NMS b1 M=256 "
+            f"wrapper {d['nms_wrapper']:.2f}, operator {d['nms_operator']:.2f}")
+
+        # 3. --quantize on the JAX test's peaked weights, through the same
+        # program with the float weights; the calibrated weights' drift is
+        # logged, not held
+        peaked = peaked_state(NUM_CLASSES)
+        peaked_file = os.path.join(root, "peaked.pt")
+        torch.save(peaked, peaked_file)
+        q_dir = os.path.join(root, "cli_int8")
+        t0 = time.perf_counter()
+        rc, text = run_printing(cli_main, ["--mode=EXPORT", "--quantize", f"--export={q_dir}",
+                                           "--score=0", f"--model={peaked_file}"] + flags[1:])
+        out["int8_export_s"] = time.perf_counter() - t0
+        assert rc == 0, f"the CLI's EXPORT --quantize returned {rc}: {text}"
+        int8_line = next(ln for ln in text.splitlines() if ln.startswith("int8 weights:"))
+        out["bytes_int8"], out["int8_line"] = sizes(q_dir), int8_line
+        log(f"  CLI --mode=EXPORT --bf16 --quantize b1 t=0 (peaked weights): {int8_line}; "
+            f"weights.pt {out['bytes_int8']['weights.pt']} B against "
+            f"{out['bytes_float']['weights.pt']} B float")
+        assert out["bytes_int8"]["weights.pt"] < out["bytes_float"]["weights.pt"]
+        q = load_bundle(q_dir, device=DEVICE)
+        graph_ok(q, 16, "int8_b1")
+
+        def through_q(sd):
+            m = YoloReT(pred.model.backbone, NUM_CLASSES, dtype=torch.bfloat16)
+            m.load_state_dict(sd)
+            return Bundle(q.meta, q.program, program_weights(m.to(DEVICE).eval(), ANCHORS))
+
+        fused_mbconv.launches = suppress.launches = 0
+        got_q = q(images1, hw1)
+        torch.cuda.synchronize()
+        q_launches = {"mbconv": fused_mbconv.launches, "nms": suppress.launches}
+        got_fp = through_q(peaked)(images1, hw1)
+        _, qdiff = same_slate(got_q, got_fp)
+        classes_equal = torch.equal(got_q.classes, got_fp.classes)
+        calib = [through_q(sd)(images1, hw1) for sd in (
+            state, dequantize_state_dict(quantize_state_dict(state)[0]))]
+        calib_diff = same_slate(*calib)[1]
+        out["int8_round_trip"] = dict(max_score_diff=qdiff, classes_equal=classes_equal,
+                                      launches=q_launches, calibrated_max_score_diff=calib_diff,
+                                      valid=[int(got_q.valid.sum()), int(got_fp.valid.sum())])
+        log(f"  int8 bundle vs the float weights through its program, peaked weights, b1 t=0: "
+            f"max score diff {qdiff:.4g} (tolerance {QUANT_SCORE_TOL}), classes equal "
+            f"{classes_equal}, launches {q_launches}; the flagship's calibrated weights "
+            f"(not held): {calib_diff:.4g}")
+        assert q_launches == {"mbconv": 16, "nms": 1}, q_launches
+        assert qdiff <= QUANT_SCORE_TOL and classes_equal, (qdiff, classes_equal)
+        b1_launches = {k: b1_launches[k] + q_launches[k] for k in b1_launches}
+
+        flush = make_flush()
+        add_launches("mbconv", big_launches["mbconv"])
+        add_launches(f"mbconv@{SIZE}_b1", b1_launches["mbconv"])
+        add_launches(f"nms@{SIZE}_b1", fresh["launches"]["nms"] + out[
+            "flagship_b1_in_process"]["launches"]["nms"])
+        rows.append(nms_entry(pred, f"@export_b{BATCH}", *model_candidates(
+            pred, pred.num_candidates, seed + 3), big_launches["nms"],
+            f"the exported program's b{BATCH} call", flush))
+        ppred = make_predictor(seed, weights=peaked, score_threshold=0.0)
+        rows.append(nms_entry(ppred, "@export_int8_b1_t0", *model_candidates(
+            ppred, ppred.num_candidates, seed + 6, batch=1), q_launches["nms"],
+            "the int8 bundle's call (t=0, peaked weights)", flush, thr=0.0))
+        del ppred
+        del b1, b128, q, bx, sc, images, hw
+        torch.cuda.empty_cache()
+
+        # 4. COCO EfficientNet-B3 @416, 80 classes, b1
+        coco = load_config(os.path.join(HERE, "configs/coco_efficientnetb3_416.yaml"))
+        coco_names = load_classes(os.path.join(HERE, coco.classes_path))
+        assert (load_anchors(os.path.join(HERE, coco.anchors_path)) == np.asarray(ANCHORS)).all()
+        size = coco.input_size[0]
+        b3 = make_predictor(seed, size=size, class_names=coco_names, backbone=coco.backbone,
+                            rfcr=coco.rfcr, mixed=True, score_threshold=IMAGE_SCORE)
+        b3_weights = os.path.join(root, "b3.pt")
+        torch.save({k: v.detach().cpu() for k, v in b3.model.state_dict().items()}, b3_weights)
+        cfg = RunConfig(backbone=coco.backbone, rfcr=coco.rfcr, model=b3_weights,
+                        input_size=(size, size), bf16=True, score_threshold=IMAGE_SCORE,
+                        classes_path=os.path.join(HERE, coco.classes_path),
+                        anchors_path=os.path.join(HERE, coco.anchors_path))
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(io.StringIO()):
+            export_bundle(cfg, os.path.join(root, "b3_b1"), batch=1, device=DEVICE)
+        out["b3_export_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        b3_bundle = load_bundle(os.path.join(root, "b3_b1"), device=DEVICE)
+        out["b3_load_s"] = time.perf_counter() - t0
+        out["b3_bytes"] = sizes(os.path.join(root, "b3_b1"))
+        log(f"  {coco.backbone} @{size} C={len(coco_names)} b1: export {out['b3_export_s']:.1f} "
+            f"s, load {out['b3_load_s']:.2f} s, bytes {out['b3_bytes']}")
+        graph_ok(b3_bundle, 0, "b3_b1")
+        images, hw = seeded(1, size, 4)
+        b3_launches = export_bundle_checked(b3_bundle, b3, images, hw, 0, "b3_b1", out)
+        rows.append(nms_entry(b3, f"@export_{coco.backbone}_{size}_b1", *model_candidates(
+            b3, b3.num_candidates, seed + 5, batch=1), b3_launches["nms"],
+            "the exported B3 program's b1 call", flush))
+        del b3_bundle, b3
+    del pred
+    torch.cuda.empty_cache()
+    out["seconds"] = time.perf_counter() - t_phase
+    log(f"== export phase: {out['seconds']:.1f} s")
+    return rows
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -2826,6 +3219,7 @@ def main(argv=None) -> int:
 
         int8_phase(state, eval_root, args.seed, report)
     kernels += zoom_phase(state, args.seed, report)
+    kernels += export_phase(state, args.seed, report, kernels)
 
     report["kernels"] = kernels
     report["seconds"] = time.perf_counter() - t_start
@@ -2870,6 +3264,9 @@ def main(argv=None) -> int:
                         card_vs_cpu_taps=report["int8"]["card_vs_cpu"]["taps"],
                         cli_map={k: report["int8"]["cli_map"][k] for k in
                                  ("map_diff", "launches")}),
+                    "export": {k: report["export"][k] for k in
+                               ("cli_export_s", "load_s", "bytes_float", "bytes_int8",
+                                "timing", "dispatch_us", "int8_round_trip", "seconds")},
                     "zoom": dict(img_per_s=report["zoom"]["serving"]["img_per_s"],
                                  profile=report["zoom"]["profile"],
                                  launches=report["zoom"]["main_path"]["launches"],

@@ -519,3 +519,44 @@ def test_mix_batch_matches_cpu(cuda, mosaic, mixup):
     torch.testing.assert_close(got[1].cpu(), want[1], atol=1e-4, rtol=0)
     assert torch.equal(got[2].cpu(), want[2])
 
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bf16", [True, False])
+def test_export_bundle_on_the_card(cuda, tmp_path, bf16):
+    """The EXPORT bundle traced and loaded on the card: its graph holds 16
+    ``yoloret::mbconv`` and 1 ``yoloret::nms`` node and no weight, a call
+    launches 16 MBConv and 1 NMS kernel, and its slate equals
+    ``Predictor.infer``'s on the same weights and images, bit for bit."""
+    from yoloret_tpu_torch.configs import RunConfig
+    from yoloret_tpu_torch.export.export import bundle_graph_counts, export_bundle, load_bundle
+    from yoloret_tpu_torch.infer import Predictor
+    from yoloret_tpu_torch.nn.layers import calibrate_bn
+
+    anchors = [[10, 13], [16, 30], [33, 23], [30, 61], [62, 45], [59, 119], [116, 90],
+               [156, 198], [373, 326]]
+    (tmp_path / "classes.txt").write_text("a\nb\nc\n")
+    (tmp_path / "anchors.txt").write_text(", ".join(f"{w},{h}" for w, h in anchors) + "\n")
+    pred = Predictor(class_names=["a", "b", "c"], anchors=np.asarray(anchors, np.float32),
+                     input_hw=(64, 64), score_threshold=0.3, bf16=bf16, device=cuda)
+    g = torch.Generator(device=cuda).manual_seed(0)
+    calibrate_bn(pred.model, torch.rand((4, 64, 64, 3), generator=g, device=cuda))
+    pred.refresh()
+    torch.save({k: v.cpu() for k, v in pred.model.state_dict().items()}, tmp_path / "w.pt")
+    cfg = RunConfig(model=str(tmp_path / "w.pt"), classes_path=str(tmp_path / "classes.txt"),
+                    anchors_path=str(tmp_path / "anchors.txt"), input_size=(64, 64), bf16=bf16,
+                    score_threshold=0.3)
+    export_bundle(cfg, str(tmp_path / "bundle"), batch=2, device=cuda)
+    bundle = load_bundle(str(tmp_path / "bundle"), device=cuda)
+    assert bundle_graph_counts(bundle.program) == {"mbconv": 16, "nms": 1, "argmax": 0,
+                                                   "tensors": 0}
+    images = torch.rand((2, 64, 64, 3), generator=g, device=cuda)
+    hw = torch.tensor([[480.0, 640.0], [300.0, 200.0]], device=cuda)
+    fused_mbconv.launches = suppress.launches = 0
+    got = bundle(images, hw)
+    torch.cuda.synchronize()
+    assert (fused_mbconv.launches, suppress.launches) == (16, 1)
+    want = pred.infer(images, hw)
+    assert int(want.valid.sum()) > 0
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)

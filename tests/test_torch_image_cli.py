@@ -13,6 +13,8 @@ annotation list; PRUNE answers with the JAX package's message and exit
 code 2."""
 
 import os
+import sys
+import types
 
 import numpy as np
 import pytest
@@ -129,8 +131,10 @@ def test_training_options_are_taken(flags, field, value):
     assert unported_options(cfg) is None
 
 
-def test_other_modes_still_refused(capsys):
-    for mode in ("VIDEO", "EXPORT", "TFLITE", "SERVING", "TFJS"):
+def test_other_modes_still_refused(capsys, monkeypatch):
+    # the TensorFlow flavours of EXPORT where TensorFlow can be imported
+    monkeypatch.setitem(sys.modules, "tensorflow", types.ModuleType("tensorflow"))
+    for mode in ("VIDEO", "TFLITE", "SERVING", "TFJS"):
         assert cli_main([f"--mode={mode}"]) == 2
         err = capsys.readouterr().err
         assert "ROADMAP.md" in err and ("item 7" in err if mode == "VIDEO" else "item 5" in err)

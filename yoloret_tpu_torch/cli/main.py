@@ -1,6 +1,7 @@
 """Command line of the port, with the JAX package's flags
 (``yoloret_tpu/cli/main.py``) for the modes ported so far: IMAGE (the
-default), TRAIN, MAP, ANCHORS and PRUNE.
+default), TRAIN, MAP, ANCHORS, EXPORT (and its TFLITE, SERVING and TFJS
+names) and PRUNE.
 
 Detection on one image, written with its boxes drawn (the default image
 is the port's ``assets/demo.jpg``, the default output ``demo_out.png``):
@@ -51,9 +52,21 @@ Anchors by k-means over a training list's boxes, written to ``--output``
 
     python -m yoloret_tpu_torch.cli.main --mode=ANCHORS --train_dataset='voc_train_*.txt'
 
-The other modes (VIDEO, EXPORT, TFLITE, SERVING, TFJS) and
-``--mesh_data`` above 1 stop with a message that names their place in
-ROADMAP.md. PRUNE answers as the JAX package does (exit code 2).
+The inference program as a ``torch.export`` bundle (``model.pt2``,
+``weights.pt``, ``model.json`` in ``--export``, else ``--output``, else
+``export_<backbone>``; batch 1; ``--quantize`` stores int8 weights),
+traced on ``--device``, where it is to run (``export/export.py``):
+
+    python -m yoloret_tpu_torch.cli.main --mode=EXPORT --model=weights.pt \
+        --classes_path=voc_classes.txt --anchors_path=yolo_anchors.txt \
+        [--bf16 | --no-bf16] [--quantize] [--export=bundle_dir]
+
+TFLITE, SERVING and TFJS write the same bundle with a message where
+TensorFlow cannot be imported, as the JAX package does; where it can,
+they stop (exit code 2): converting to TensorFlow's formats is not
+ported. VIDEO and ``--mesh_data`` above 1 stop with a message that
+names their place in ROADMAP.md. PRUNE answers as the JAX package does
+(exit code 2).
 """
 
 from __future__ import annotations
@@ -68,11 +81,8 @@ from yoloret_tpu_torch.nn.detector import BACKBONES
 # What each mode that is not ported waits for (ROADMAP.md, queue 1).
 NOT_PORTED = {
     "VIDEO": "VIDEO (OpenCV capture and trackers), item 7",
-    "EXPORT": "side paths, item 5",
-    "TFLITE": "side paths, item 5",
-    "SERVING": "side paths, item 5",
-    "TFJS": "side paths, item 5",
 }
+EXPORT_MODES = ("EXPORT", "TFLITE", "SERVING", "TFJS")
 PRUNE_MESSAGE = ("PRUNE: model pruning is not implemented (the reference declares the mode "
                  "without a handler); --quantize is likewise threaded but inert for parity")
 
@@ -92,8 +102,8 @@ def build_parser() -> argparse.ArgumentParser:
                                 argument_default=argparse.SUPPRESS)
     d = RunConfig()
     p.add_argument("--mode", type=str, default="IMAGE",
-                   help="IMAGE (default), TRAIN, MAP, ANCHORS or PRUNE (the others are not "
-                        "ported yet)")
+                   help="IMAGE (default), TRAIN, MAP, ANCHORS, EXPORT, TFLITE, SERVING, TFJS "
+                        "or PRUNE (VIDEO is not ported yet)")
     p.add_argument("--config", type=str, default=None, help="YAML config overlay")
     p.add_argument("--backbone", type=str,
                    help=f"default {d.backbone}; any of {', '.join(sorted(BACKBONES))}")
@@ -140,6 +150,7 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--nms_iou", type=float)
     p.add_argument("--exact_nms", action="store_true",
                    help="MAP: reference-exact full-grid per-class NMS (slower)")
+    p.add_argument("--bf16", action="store_true")
     p.add_argument("--no-bf16", dest="bf16", action="store_false")
     p.add_argument("--use_ema", action="store_true")
     p.add_argument("--rfcr", type=str, choices=["weighted_sum", "concat", "none"])
@@ -147,7 +158,10 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--int8", action="store_true",
                    help="IMAGE/MAP through the W8A8 backbone (nn/int8_infer.py)")
     p.add_argument("--image", type=str, help="image path (IMAGE mode)")
-    p.add_argument("--output", type=str, help="output path (IMAGE, ANCHORS)")
+    p.add_argument("--output", type=str, help="output path (IMAGE, ANCHORS, EXPORT)")
+    p.add_argument("--export", type=str, help="export output dir")
+    p.add_argument("--quantize", action="store_true",
+                   help="EXPORT: int8 per-channel weights (export/quantize.py)")
     p.add_argument("--device", type=str, default="cuda",
                    help="cuda (default) or cpu (every kernel's plain version)")
     return p
@@ -162,7 +176,7 @@ def args_to_config(args) -> RunConfig:
         "anchors_path batch_size nms_iou exact_nms bf16 use_ema rfcr mesh_data int8 freeze "
         "train_unfreeze truncate_block box_loss class_loss use_adv ema_decay remat resume "
         "early_stopping early_stopping_patience map_every log_dir seed autoaugment_policy "
-        "tb_images score_threshold image output").split() if hasattr(args, f)}
+        "tb_images score_threshold image output export quantize").split() if hasattr(args, f)}
     for f in ("epochs", "learning_rate", "multi_scale"):
         if hasattr(args, f):
             overrides[f] = (list if f == "multi_scale" else tuple)(getattr(args, f))
@@ -194,7 +208,7 @@ def main(argv=None) -> int:
     if mode == "PRUNE":
         print(PRUNE_MESSAGE)  # as the JAX package answers it
         return 2
-    if mode not in ("IMAGE", "MAP", "TRAIN", "ANCHORS"):
+    if mode not in ("IMAGE", "MAP", "TRAIN", "ANCHORS") + EXPORT_MODES:
         if mode in NOT_PORTED:
             return _refuse(f"--mode={mode} is not ported to yoloret_tpu_torch yet: it waits for "
                            f"{NOT_PORTED[mode]}")
@@ -218,6 +232,16 @@ def main(argv=None) -> int:
 
     if mode == "IMAGE":
         return _image(cfg, args.device)
+
+    if mode in EXPORT_MODES:
+        from yoloret_tpu_torch.export.export import export_model
+
+        try:
+            export_model(cfg, flavor=mode.lower(), device=args.device)
+        except (NotImplementedError, ValueError) as e:
+            print(e, file=sys.stderr)
+            return 2
+        return 0
 
     if mode == "TRAIN":
         from yoloret_tpu_torch.train.trainer import train

@@ -92,14 +92,17 @@ def fused_params(model: YoloReT) -> Optional[FusedParams]:
     return FusedParams((ks.to(model.dtype), bs.float()), _block_meta(body, model.dtype))
 
 
-def mobilenetv2_fused_features(x: torch.Tensor, params: FusedParams) -> Dict[str, torch.Tensor]:
+def mobilenetv2_fused_features(x: torch.Tensor, params: FusedParams, block=fused_mbconv
+                               ) -> Dict[str, torch.Tensor]:
     """Pyramid features {c2, c3, c4, c5}: stem conv, then every block
-    through the fused kernel. ``x`` [B, H, W, 3] in the compute dtype."""
+    through the fused kernel (``block``: ``fused_mbconv``, or a callable
+    with its signature, e.g. ``ops/library.mbconv_block``, the operator
+    an exported program holds). ``x`` [B, H, W, 3] in the compute dtype."""
     ks, bs = params.stem
     x = relu6(conv2d_same(x, ks, bs, stride=2)).contiguous()
     feats: Dict[str, torch.Tensor] = {}
     for block_id, stride, residual, args, packed in params.blocks:
-        x = fused_mbconv(x, *args, stride=stride, residual=residual, packed=packed)
+        x = block(x, *args, stride=stride, residual=residual, packed=packed)
         if block_id in _TAP_BLOCKS:
             feats[_TAP_BLOCKS[block_id]] = x
     return feats

@@ -188,8 +188,16 @@ def pack_mbconv(we, be, wd, bd, wp) -> PackedMBConv:
     zeros = torch.zeros(ce, dtype=torch.float32, device=dev)
     for b in (be if be is not None else zeros, bd):
         parts.append(_bytes(padded(b.reshape(-1), (cep,), torch.float32).reshape(n, CH), n))
-    return PackedMBConv(torch.cat(parts, 1).reshape(-1), cin, ce, cout, kpad, coutp, n,
-                        we is not None, dt)
+    return packed_like(torch.cat(parts, 1).reshape(-1), we, wd, wp)
+
+
+def packed_like(w: torch.Tensor, we, wd, wp) -> PackedMBConv:
+    """The ``PackedMBConv`` of the packed bytes ``w`` of the block whose
+    weights are (we, wd, wp): its ints follow from their shapes."""
+    ce, cout = wd.shape[-1], wp.shape[-1]
+    cin = we.shape[0] if we is not None else ce
+    return PackedMBConv(w, cin, ce, cout, _round_up(cin, 16), _round_up(cout, NBW),
+                        -(-ce // CH), we is not None, wd.dtype)
 
 
 def unpack_mbconv(p: PackedMBConv):
