@@ -150,6 +150,21 @@ Phases (any failure exits non-zero and prints no result):
    classes equal). Export and load seconds, bundle bytes, b128 img/s and
    b1 latency beside ``Predictor.infer``'s, the operators' host cost a
    call beside the wrappers'; the NMS kernel at the export's new shapes.
+13. The learn phase, proof that the port learns (``tools/selfcheck.py``,
+   ``tools/accuracy_gate.py``, ``tools/topk_study.py``): the self-check at
+   its defaults (x0.75, float32, 150 epochs of 48 synthetic images at 96
+   px, b8), its float32 mAP at least 0.8, and the same weights' mAP in
+   bf16 (``mbconv_wgmma`` down to the 3x3 last map) and through the int8
+   backbone, the per-epoch loss, train seconds and img/s; the crowded
+   recipe (60 epochs at 160 px) trained once (both in float32 on
+   deterministic kernels, so each run gives the same mAP), its gate mAP
+   (``GATE_RESULT``) beside the JAX package's CPU band and the top-k
+   study's table on those weights (shared and per-class pools of 64, 256
+   and 512 and the per-class pools of the whole grid, 1,575 candidates:
+   ``nms_large_walk``), every AP finite and the gate mAP above 0.05; each
+   run with its launch counts; then ``mbconv_f32`` at [8, 96] and [8, 160],
+   ``mbconv_wgmma`` at [8, 96] and each NMS kernel at the phase's pools
+   against its plain version on the trained weights, and timed.
 
 The line before the last is the kernel table as JSON; the last line is
 ``{"ok": true, "device": {...}}``. Details go to chiprun_out/chip_smoke.json.
@@ -170,6 +185,7 @@ import threading
 import time
 import urllib.request
 import warnings
+from collections import Counter
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 
@@ -329,6 +345,21 @@ INT8_LIMITS = dict(scale_rtol=1e-9, tap_share=0.0, tap_rel_rms=0.0, heads_rtol=H
                    detections=True, block_share=0.0)
 INT8_B3_LIMITS = dict(scale_rtol=1e-9, tap_share=1.0, tap_rel_rms=1.0, heads_rtol=1.0,
                       detections=False, block_share=1e-3)
+# Phase 13, the learn phase: the learning self-check at the JAX package's
+# defaults (LEARN_*: 150 epochs at 96 px, b8, threshold 0.8: exit non-zero
+# below it), then the crowded recipe of the accuracy gate and the top-k
+# study trained once (GATE_EPOCHS at GATE_SIZE, b8). The gate's mAP is
+# printed beside the JAX package's band on one CPU device
+# (tests/test_accuracy_gate.py:60), for information only: the port's seeded
+# init is not JAX's. A gate mAP at or below GATE_FLOOR means nothing was
+# learned and fails the phase.
+LEARN_EPOCHS, LEARN_SIZE, LEARN_BATCH, LEARN_THRESHOLD = 150, 96, 8, 0.8
+LEARN_IMAGES = 48  # build_synthetic's and build_crowded's n
+GATE_EPOCHS, GATE_SIZE, GATE_FLOOR = 60, 160, 0.05
+JAX_GATE_BAND = (0.22, 0.45)
+# the NMS kernel each plan variant launches on the learn phase's pools
+NMS_KERNELS = {"shared": "nms_shared", "per_class": "nms_kernel",
+               "per_class_large": "nms_large_walk"}
 
 
 def log(*a):
@@ -433,7 +464,9 @@ def block_inputs(pred, batch, seed, size=None):
 
 def library_mbconv(x, we, be, wd, bd, wp, bp, stride, residual):
     """cuDNN yardstick: the block as three ``F.conv2d`` calls (channels-last),
-    bias and clamp fused by nothing. Timed only, never used by the port."""
+    bias and clamp fused by nothing. Timed only, never used by the port.
+    ``main`` turns TF32 off for the whole run, so a float32 ``x`` is
+    convolved in float32, as ``mbconv_f32`` computes."""
     import torch.nn.functional as F
 
     xc = x.permute(0, 3, 1, 2)
@@ -448,6 +481,9 @@ def library_mbconv(x, we, be, wd, bd, wp, bp, stride, residual):
 
 
 def mbconv_bound(x, meta, elem):
+    """(least ms, what bounds it, bytes, operations) of one block: bytes
+    at the memory rate, operations at the peak of the kernel's type
+    (``elem`` 2: the bf16 tensor cores; 4: float32 on the CUDA cores)."""
     b, h, w, cin = x.shape
     we, _, wd, _, wp, _ = meta.args
     ce, cout = wd.shape[-1], wp.shape[-1]
@@ -456,7 +492,7 @@ def mbconv_bound(x, meta, elem):
     nbytes = (b * h * w * cin + b * ho * wo * cout) * elem + weight_bytes
     flops = 2 * b * ((h * w * cin * ce if we is not None else 0) + ho * wo * ce * 9
                      + ho * wo * ce * cout)
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / PEAK_OPS["bf16"]
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / PEAK_OPS["bf16" if elem == 2 else "f32"]
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations"), nbytes, flops
 
 
@@ -622,8 +658,9 @@ def check_mbconv(pred, report, key="mbconv_check"):
 def model_candidates(pred, k, seed, per_class=False, batch=BATCH, size=None, images=None,
                      image_hw=None):
     """The NMS inputs of ``batch`` seeded images at ``size`` (default: the
-    Predictor's) through the kernel path, or of ``images`` (uint8
-    [B, H, W, 3] on the card, of original sizes ``image_hw`` [B, 2]): the
+    Predictor's) through the kernel path, or of ``images`` (uint8, or
+    float in [0, 1], [B, H, W, 3] on the card, of original sizes
+    ``image_hw`` [B, 2]): the
     shared pool of ``k`` (boxes [B, k, 4]) or, with ``per_class``,
     per-class pools of ``k`` (boxes [B, C, k, 4]); scores [B, C, k]."""
     import torch
@@ -638,8 +675,9 @@ def model_candidates(pred, k, seed, per_class=False, batch=BATCH, size=None, ima
                                dtype=torch.uint8)
         image_hw = torch.tensor([hw], dtype=torch.float32, device=DEVICE).repeat(batch, 1)
     pool = per_class_candidates if per_class else shared_pool_candidates
+    x = images if images.is_floating_point() else images.float() / 255.0
     with torch.inference_mode():
-        outs = fused_detector_apply(pred.model, images.float() / 255.0, pred._fused)
+        outs = fused_detector_apply(pred.model, x, pred._fused)
         return pool(outs, pred._anchors_t, len(pred.class_names), image_hw, num_candidates=k)
 
 
@@ -1358,12 +1396,15 @@ def time_mbconv(pred, flush, batch=BATCH, size=None):
                               5, 1, flush)
             plain = cuda_time_ms(lambda: reference_mbconv(x, *meta.args, **a), 3, 1, flush)
             lib = cuda_time_ms(lambda: library_mbconv(x, *meta.args, **a), 5, 1, flush)
-            bound, by, nbytes, flops = mbconv_bound(x, meta, 2)
+            bound, by, nbytes, flops = mbconv_bound(x, meta, x.element_size())
             ce, cout = meta.args[2].shape[-1], meta.args[4].shape[-1]
-            plan = plan_tile(x.shape[1] // meta.stride, x.shape[2] // meta.stride, meta.stride,
-                             x.shape[3], ce, cout, meta.args[0] is not None, x.shape[0],
-                             torch.cuda.get_device_properties(0).multi_processor_count)
-            tile = plan._asdict()
+            plan = None
+            if x.dtype == torch.bfloat16:  # the float32 kernel has no tile plan
+                plan = plan_tile(x.shape[1] // meta.stride, x.shape[2] // meta.stride,
+                                 meta.stride, x.shape[3], ce, cout, meta.args[0] is not None,
+                                 x.shape[0],
+                                 torch.cuda.get_device_properties(0).multi_processor_count)
+            tile = plan and plan._asdict()
             rows.append(dict(block=meta.block_id, shape=list(x.shape), stride=meta.stride,
                              ce=ce, cout=cout, tile=tile, ms=ms,
                              plain_ms=plain, library_ms=lib, bound_ms=bound, bound_by=by,
@@ -1371,10 +1412,11 @@ def time_mbconv(pred, flush, batch=BATCH, size=None):
             for k, v in (("ms", ms), ("plain_ms", plain), ("library_ms", lib),
                          ("bound_ms", bound)):
                 tot[k] += v
+            how = (f"tile {plan.th}x{plan.tw} ({plan.nc} warpgroups), stages {plan.xst} input / "
+                   f"{plan.wst} weights, grid {plan.grid} for {plan.items} items, smem "
+                   f"{plan.smem}" if plan else "float32")
             log(f"  mbconv block {meta.block_id:2d} {tuple(x.shape)} s{meta.stride} Ce {ce} Cout "
-                f"{cout} tile {plan.th}x{plan.tw} ({plan.nc} warpgroups), stages {plan.xst} "
-                f"input / {plan.wst} weights, grid {plan.grid} for {plan.items} items, smem "
-                f"{plan.smem}: kernel {ms:.4f} ms, plain {plain:.4f}, cuDNN {lib:.4f}, "
+                f"{cout} {how}: kernel {ms:.4f} ms, plain {plain:.4f}, cuDNN {lib:.4f}, "
                 f"bound {bound:.4f} ({by})")
     for stride in (1, 2):
         sel = [r for r in rows if r["stride"] == stride]
@@ -1433,25 +1475,28 @@ def time_nms_case(boxes, scores, thr, flush, pool):
                 detections=int(torch.isfinite(out_s).sum()), **work)
 
 
-def nms_entry(pred, suffix, boxes, scores, launches, where, flush, thr=0.3):
-    """The kernels line's ``nms_shared`` row of one shape of the main path:
-    ``suppress`` held exactly against ``suppress_plain`` on the shared pool
-    (boxes, scores) of t=``thr`` and timed; ``launches`` the count of the
-    run ``where`` names."""
+def nms_entry(pred, suffix, boxes, scores, launches, where, flush, thr=0.3, name="nms"):
+    """The kernels line's row of one NMS shape of the main path: ``suppress``
+    held exactly against ``suppress_plain`` on the shared pool (boxes
+    [B, M, 4]) or the per-class pools (boxes [B, C, K, 4], empty slots
+    -inf as on that path) of t=``thr`` and timed; ``launches`` the count
+    of the run ``where`` names."""
     b, c, m = scores.shape
-    same, err, dets = nms_exact(boxes, scores, thr)
-    log(f"  nms kernel vs plain, shared b{b} C={c} M={m} t={thr} ({where}): max abs err {err} "
+    shared = boxes.dim() == 3
+    pool = f"shared pool b{b} C={c} M={m}" if shared else f"per-class pools b{b} C={c} K={m}"
+    same, err, dets = nms_exact(boxes, scores, thr, 0.0 if shared else float("-inf"))
+    log(f"  nms kernel vs plain, {pool} t={thr} ({where}): max abs err {err} "
         f"(tolerance 0: exact), {dets} detections")
     if not same or dets == 0:
-        raise AssertionError(f"nms b{b} M={m}: kernel differs from plain by {err}, "
+        raise AssertionError(f"nms {pool}: kernel differs from plain by {err}, "
                              f"{dets} detections")
-    t = time_nms_case(boxes, scores, thr, flush, f"shared M={m}")
+    t = time_nms_case(boxes, scores, thr, flush, f"shared M={m}" if shared else f"per-class K={m}")
     return dict(
-        name="nms" + suffix, route="cuda", source="yoloret_tpu_torch/csrc/nms.cu",
+        name=name + suffix, route="cuda", source="yoloret_tpu_torch/csrc/nms.cu",
         replaces="yoloret_tpu/ops/nms_pallas.py:36",
-        also_replaces=["yoloret_tpu/ops/postprocess.py:361"],
-        shapes=f"shared pool b{b} C={c} M={m} t={thr} ({pred.model.backbone} "
-               f"@{pred.input_hw[0]}); launches: {where}",
+        also_replaces=["yoloret_tpu/ops/postprocess.py:361"] if shared else [],
+        shapes=f"{pool} t={thr} ({pred.model.backbone} @{pred.input_hw[0]}, the "
+               f"{t['plan']['variant']} kernel); launches: {where}",
         launches=launches, max_abs_err=err, ms=t["ms"], plain_ms=t["plain_ms"],
         bound_ms=t["bound_ms"], bound_by=t["bound_by"], library_ms=None)
 
@@ -1466,14 +1511,15 @@ def shuffle_pools(boxes, scores, seed):
 
 
 def check_mbconv_at(pred, size, batch, report, key):
-    """The bf16 MBConv kernel (the packed weights of the main path) against
-    its plain version at all 16 blocks for ``batch`` seeded images at
-    ``size``; returns the largest error."""
+    """The MBConv kernel of the Predictor's dtype (bf16: the packed weights
+    of the main path) against its plain version at all 16 blocks for
+    ``batch`` seeded images at ``size``; returns the largest error."""
     import torch
 
     from yoloret_tpu_torch.ops.mbconv import fused_mbconv, reference_mbconv
 
-    rows, tol = [], MBCONV_TOL["bfloat16"]
+    dtype = str(pred.model.dtype).split(".")[-1]
+    rows, tol = [], MBCONV_TOL[dtype]
     with torch.no_grad():
         for meta, x in zip(pred._fused.blocks, block_inputs(pred, batch, seed=13, size=size)):
             kw = dict(stride=meta.stride, residual=meta.residual)
@@ -1484,12 +1530,12 @@ def check_mbconv_at(pred, size, batch, report, key):
             rows.append(dict(block=meta.block_id, shape=list(x.shape), max_abs_err=err,
                              max_abs_ref=want.float().abs().max().item()))
             if not torch.allclose(got.float(), want.float(), atol=tol, rtol=tol):
-                raise AssertionError(f"mbconv block {meta.block_id} bf16 [{batch}, {size}]: "
+                raise AssertionError(f"mbconv block {meta.block_id} {dtype} [{batch}, {size}]: "
                                      f"max err {err}")
     report[key] = rows
     worst = max(r["max_abs_err"] for r in rows)
     scale = min(r["max_abs_ref"] for r in rows)
-    log(f"  mbconv kernel vs plain, {pred.model.backbone} bf16 [{batch}, {size}, {size}, 3], 16 "
+    log(f"  mbconv kernel vs plain, {pred.model.backbone} {dtype} [{batch}, {size}, {size}, 3], 16 "
         f"blocks (last map {rows[-1]['shape'][1]}x{rows[-1]['shape'][2]}): max abs err "
         f"{worst:.3g} (tolerance atol=rtol {tol}; smallest block max |out| {scale:.3g})")
     if scale < 0.1:
@@ -1502,13 +1548,14 @@ def mbconv_entry(pred, suffix, launches, err, mbconv, batch, size, where):
     ``time_mbconv``'s (rows, sums); ``launches`` the count of the run
     ``where`` names."""
     rows, tot = mbconv
+    dtype = "float32" if str(pred.model.dtype) == "torch.float32" else "bf16"
     return dict(
         name="mbconv" + suffix, route="cuda", source="yoloret_tpu_torch/csrc/mbconv.cu",
         replaces="yoloret_tpu/ops/mbconv_pallas.py:76",
         also_replaces=["yoloret_tpu/ops/mbconv_pallas.py:109",
                        "yoloret_tpu/ops/mbconv_pallas2.py:86"],
         shapes=f"the {len(rows)} blocks of one {pred.model.backbone} forward at b{batch}@{size} "
-               f"bf16 (times summed); launches: {where}",
+               f"{dtype} (times summed); launches: {where}",
         launches=launches, max_abs_err=err, ms=tot["ms"], plain_ms=tot["plain_ms"],
         bound_ms=tot["bound_ms"],
         bound_by=max(("bytes", "operations"),
@@ -3150,10 +3197,222 @@ def export_phase(state, seed, report, kernels):
     return rows
 
 
+# -- phase 13: the learn phase ----------------------------------------------
+
+
+def counted(fn, *a, **kw):
+    """``fn(*a, **kw)`` with the launch counts set to 0 just before and read
+    just after: (its result, {kernel: launches}), MBConv by kernel
+    (``mbconv_f32``, ``mbconv_wgmma``) and NMS by the variant's kernel."""
+    import torch
+
+    from yoloret_tpu_torch.ops.mbconv import fused_mbconv
+    from yoloret_tpu_torch.ops.nms_kernel import suppress
+
+    fused_mbconv.launches = suppress.launches = 0
+    fused_mbconv.kernel_launches.clear()
+    suppress.variant_launches.clear()
+    out = fn(*a, **kw)
+    torch.cuda.synchronize()
+    launches = dict(fused_mbconv.kernel_launches)
+    launches.update({NMS_KERNELS[v]: n for v, n in suppress.variant_launches.items()})
+    return out, launches
+
+
+def train_record(weights):
+    """Per-epoch losses and the trainer's own seconds and img/s of the run
+    that wrote ``weights`` (its stage's metrics.jsonl, beside them)."""
+    from yoloret_tpu_torch.tools.accuracy_gate import epoch_records
+
+    recs = epoch_records(os.path.dirname(weights))
+    seconds = sum(r["sec"] for r in recs)
+    return dict(losses=[r["loss"] for r in recs], epochs=len(recs), seconds=seconds,
+                img_per_s=LEARN_IMAGES // LEARN_BATCH * LEARN_BATCH * len(recs) / seconds)
+
+
+def first_eval_batch(ann, size, max_boxes=20):
+    """The first TEST batch (LEARN_BATCH images) of ``ann`` on the card, as
+    the evaluation gives it to the Predictor."""
+    from yoloret_tpu_torch.data import Dataset, DatasetMode
+
+    it = Dataset(ann, batch_size=LEARN_BATCH, input_hw=(size, size), mode=DatasetMode.TEST,
+                 max_boxes=max_boxes, device=DEVICE).build(epochs=1)
+    try:
+        return next(it)
+    finally:
+        it.close()
+
+
+def learn_phase(report):
+    """Phase 13: proof that the port learns, on the card (training in
+    float32 on deterministic kernels, as the tools run it: the same mAP in
+    every run). (a) The self-check (``tools/selfcheck.py``) at its
+    defaults through ``selfcheck.run``: its
+    float32 mAP must reach LEARN_THRESHOLD; the same weights' mAP through
+    ``Predictor(bf16=True)`` and ``use_int8=True``; the per-epoch loss, the
+    train seconds and img/s. (b) The crowded recipe trained once through
+    ``accuracy_gate.run`` (its ``GATE_RESULT``), then the top-k study's table
+    (``topk_study.eval_table``) on those weights: every AP finite, the gate
+    mAP above GATE_FLOOR. Each run with the launch counts set to 0 just
+    before and read just after. (c) Each kernel those runs launch against
+    its plain version on the trained weights, at their shapes, and timed.
+    Returns the kernels line's rows."""
+    import numpy as np
+    import torch
+
+    from yoloret_tpu_torch.data import load_anchors
+    from yoloret_tpu_torch.infer import Predictor
+    from yoloret_tpu_torch.ops.nms_kernel import suppress
+    from yoloret_tpu_torch.tools import accuracy_gate, selfcheck, topk_study
+
+    t_phase = time.perf_counter()
+    out = report.setdefault("learn", {})
+    log(f"== learn: the self-check ({LEARN_EPOCHS} epochs @{LEARN_SIZE}, b{LEARN_BATCH}, "
+        f"float32) and the crowded recipe ({GATE_EPOCHS} epochs @{GATE_SIZE}) on the card")
+    with tempfile.TemporaryDirectory(prefix="yoloret_learn_") as root:
+        sc_dir, gate_dir = os.path.join(root, "selfcheck"), os.path.join(root, "gate")
+        for d in (sc_dir, gate_dir):
+            os.makedirs(d)
+        t0 = time.perf_counter()
+        (f32_map, weights), f32_launches = counted(selfcheck.run, LEARN_EPOCHS, LEARN_SIZE,
+                                                   LEARN_BATCH, LEARN_THRESHOLD,
+                                                   workdir=sc_dir, device=DEVICE)
+        sc = out["selfcheck"] = dict(run_seconds=time.perf_counter() - t0,
+                                     **train_record(weights))
+        ann = os.path.join(sc_dir, f"synth_train_{LEARN_IMAGES}.txt")
+        anchors = os.path.join(sc_dir, "anchors.txt")
+        batches = -(-LEARN_IMAGES // LEARN_BATCH)
+        maps = {"float32": dict(map=f32_map, launches=f32_launches)}
+        for name, kw in (("bf16", dict(bf16=True)), ("int8", dict(use_int8=True))):
+            m, launches = counted(selfcheck.evaluate, weights, ann, anchors, LEARN_SIZE,
+                                  LEARN_BATCH, DEVICE, verbose=False, **kw)
+            maps[name] = dict(map=m, launches=launches)
+        sc["maps"] = maps
+        log(f"  self-check: train {sc['seconds']:.1f} s over {sc['epochs']} epochs "
+            f"({sc['img_per_s']:.1f} img/s; the whole run with its evaluation "
+            f"{sc['run_seconds']:.1f} s); loss by epoch {[round(v, 3) for v in sc['losses']]}")
+        for name, r in maps.items():
+            log(f"  self-check mAP {name}: {r['map']:.6f} (launches {r['launches']})")
+        want = {"float32": {"mbconv_f32": 16 * batches, "nms_shared": batches},
+                "bf16": {"mbconv_wgmma": 16 * batches, "nms_shared": batches},
+                "int8": {"nms_shared": batches}}
+        for name, r in maps.items():
+            assert np.isfinite(r["map"]), (name, r["map"])
+            assert r["launches"] == want[name], (name, r["launches"], want[name])
+        if f32_map < LEARN_THRESHOLD:
+            raise AssertionError(f"self-check float32 mAP {f32_map:.4f} is below "
+                                 f"{LEARN_THRESHOLD}: the port did not learn")
+
+        t0 = time.perf_counter()
+        (gate, gate_weights), gate_launches = counted(accuracy_gate.run, gate_dir, GATE_EPOCHS,
+                                                      GATE_SIZE, LEARN_BATCH, device=DEVICE)
+        gt = out["gate"] = dict(run_seconds=time.perf_counter() - t0, result=gate,
+                                launches=gate_launches, **train_record(gate_weights))
+        gann = os.path.join(gate_dir, f"crowd_train_{LEARN_IMAGES}.txt")
+        gpred = topk_study.crowded_predictor(gate_weights, os.path.join(gate_dir, "anchors.txt"),
+                                             GATE_SIZE, DEVICE)
+        # the table's launches by row, read around each of its evaluations' calls
+        by_row = {}
+        infer = gpred.infer
+
+        def infer_counted(images, image_hw, **kw):
+            before = suppress.variant_launches.copy()
+            res = infer(images, image_hw, **kw)
+            key = (kw.get("pool"), kw.get("num_candidates"))
+            by_row.setdefault(key, Counter()).update(suppress.variant_launches - before)
+            return res
+
+        gpred.infer = infer_counted
+        rows, table_launches = counted(topk_study.eval_table, gpred, gann, GATE_SIZE,
+                                       LEARN_BATCH)
+        del gpred.infer
+        gt["table"] = [dict(pool=p, topk=k, depth=d, map=m, delta=dl) for p, k, d, m, dl in rows]
+        gt["table_launches"] = table_launches
+        gt["table_launches_by_row"] = {f"{p} {k}": dict(c) for (p, k), c in by_row.items()}
+        lo, hi = JAX_GATE_BAND
+        gap = min(0.0, gate["mAP"] - lo) + max(0.0, gate["mAP"] - hi)
+        gt["gap_to_jax_band"] = gap
+        log(f"  crowded recipe: train {gt['seconds']:.1f} s over {gt['epochs']} epochs "
+            f"({gt['img_per_s']:.1f} img/s); loss by epoch "
+            f"{[round(v, 3) for v in gt['losses']]}; gate mAP {gate['mAP']:.6f} (APs "
+            f"{gate['aps']}), the JAX package's CPU band {lo}-{hi}: gap {gap:+.4f} (for "
+            f"information: the seeded inits differ); launches {gate_launches}; the table's "
+            f"{table_launches}")
+        aps = list(gate["aps"].values()) + [r["map"] for r in gt["table"]]
+        if not all(np.isfinite(aps)):
+            raise AssertionError(f"a non-finite AP in the gate or the table: {aps}")
+        if gate["mAP"] <= GATE_FLOOR:
+            raise AssertionError(f"gate mAP {gate['mAP']:.4f} <= {GATE_FLOOR}: nothing learned")
+        n_pos = topk_study.full_pool(GATE_SIZE)
+        want_rows = {("per_class", n_pos): {"per_class_large": batches}}
+        for k in topk_study.DEPTHS:
+            want_rows[("per_class", k)] = {"per_class": batches}
+            want_rows[("shared", k)] = {"shared": batches}
+        assert {k: dict(c) for k, c in by_row.items()} == want_rows, by_row
+
+        # (c) each kernel on the trained weights at the phase's shapes
+        flush = make_flush()
+        kernel_rows = []
+        names = ["red", "green"]
+        preds = {dt: Predictor(weights=weights, class_names=names,
+                               anchors=load_anchors(anchors),
+                               input_hw=(LEARN_SIZE, LEARN_SIZE), score_threshold=0.0,
+                               bf16=dt == "bf16", device=DEVICE) for dt in ("float32", "bf16")}
+        sc_where = f"the self-check's {{}} evaluation ({batches} batches of {LEARN_BATCH})"
+        gate_where = ("the gate's evaluation and the top-k table's "
+                      f"{1 + 2 * len(topk_study.DEPTHS)} ({batches} batches each)")
+        for dt, kernel, pred in (("float32", "mbconv_f32", preds["float32"]),
+                                 ("bf16", "mbconv_wgmma", preds["bf16"])):
+            err = check_mbconv_at(pred, LEARN_SIZE, LEARN_BATCH, out,
+                                  f"mbconv_check_{dt}_{LEARN_SIZE}")
+            kernel_rows.append(mbconv_entry(
+                pred, f"{kernel[len('mbconv'):]}@learn{LEARN_SIZE}_b{LEARN_BATCH}",
+                maps[dt]["launches"][kernel], err,
+                time_mbconv(pred, flush, batch=LEARN_BATCH, size=LEARN_SIZE), LEARN_BATCH,
+                LEARN_SIZE, sc_where.format(dt)))
+        err = check_mbconv_at(gpred, GATE_SIZE, LEARN_BATCH, out, f"mbconv_check_f32_{GATE_SIZE}")
+        kernel_rows.append(mbconv_entry(
+            gpred, f"_f32@learn{GATE_SIZE}_b{LEARN_BATCH}",
+            gate_launches["mbconv_f32"] + table_launches["mbconv_f32"], err,
+            time_mbconv(gpred, flush, batch=LEARN_BATCH, size=GATE_SIZE), LEARN_BATCH,
+            GATE_SIZE, gate_where))
+        batch = first_eval_batch(ann, LEARN_SIZE)
+        boxes, scores = model_candidates(preds["float32"], 512, 0, images=batch["images"],
+                                         image_hw=batch["image_hw"])
+        kernel_rows.append(nms_entry(
+            preds["float32"], f"@learn{LEARN_SIZE}_C2_M512", boxes, scores,
+            sum(r["launches"]["nms_shared"] for r in maps.values()),
+            "the self-check's three evaluations (float32, bf16, int8)", flush, thr=0.0,
+            name="nms_shared"))
+        batch = first_eval_batch(gann, GATE_SIZE, max_boxes=12)
+        for per_class, k in ([(False, k) for k in topk_study.DEPTHS]
+                             + [(True, k) for k in topk_study.DEPTHS] + [(True, n_pos)]):
+            boxes, scores = model_candidates(gpred, k, 0, per_class=per_class,
+                                             images=batch["images"], image_hw=batch["image_hw"])
+            pool = "per_class" if per_class else "shared"
+            variant = "per_class_large" if k > 512 else pool
+            launches = by_row[(pool, k)][variant]
+            where = f"the top-k table's {pool} {k} row"
+            if (pool, k) == ("shared", 512):
+                launches += gate_launches["nms_shared"]
+                where = "the gate's evaluation and " + where
+            kernel_rows.append(nms_entry(
+                gpred, f"@learn{GATE_SIZE}_C4_{'K' if per_class else 'M'}{k}", boxes, scores,
+                launches, where, flush, thr=0.0, name=NMS_KERNELS[variant]))
+        del preds, gpred, boxes, scores, batch
+    torch.cuda.empty_cache()
+    out["seconds"] = time.perf_counter() - t_phase
+    log(f"== learn phase: {out['seconds']:.1f} s")
+    return kernel_rows
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args(argv)
+    # the learn phase trains on deterministic kernels (device.reproducible),
+    # whose cuBLAS takes this setting (the Hopper default's size) at its first use
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
 
     import torch
 
@@ -3220,6 +3479,7 @@ def main(argv=None) -> int:
         int8_phase(state, eval_root, args.seed, report)
     kernels += zoom_phase(state, args.seed, report)
     kernels += export_phase(state, args.seed, report, kernels)
+    kernels += learn_phase(report)
 
     report["kernels"] = kernels
     report["seconds"] = time.perf_counter() - t_start
@@ -3271,6 +3531,17 @@ def main(argv=None) -> int:
                                  profile=report["zoom"]["profile"],
                                  launches=report["zoom"]["main_path"]["launches"],
                                  int8_and_zoom=report["zoom"]["int8_and_zoom"]),
+                    "learn": dict(
+                        selfcheck_map={k: v["map"] for k, v in
+                                       report["learn"]["selfcheck"]["maps"].items()},
+                        selfcheck_train_s=report["learn"]["selfcheck"]["seconds"],
+                        selfcheck_img_per_s=report["learn"]["selfcheck"]["img_per_s"],
+                        gate_map=report["learn"]["gate"]["result"]["mAP"],
+                        gate_gap_to_jax_band=report["learn"]["gate"]["gap_to_jax_band"],
+                        gate_train_s=report["learn"]["gate"]["seconds"],
+                        topk_table={f"{r['pool']} {r['depth']}": r["map"]
+                                    for r in report["learn"]["gate"]["table"]},
+                        seconds=report["learn"]["seconds"]),
                     "seconds": report["seconds"],
                     "card": smi}))
     log(json.dumps({"kernels": kernels}))

@@ -560,3 +560,25 @@ def test_export_bundle_on_the_card(cuda, tmp_path, bf16):
     assert int(want.valid.sum()) > 0
     for a, b in zip(got, want):
         assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+def test_selfcheck_smoke_on_the_card(cuda, tmp_path):
+    """The learning self-check on the card for 2 epochs at 96 px: the run
+    completes, its losses are finite, and its float32 evaluation launches
+    the float32 MBConv kernel (16 a batch) and the shared-pool NMS kernel
+    (1 a batch)."""
+    import os
+
+    from yoloret_tpu_torch.tools import accuracy_gate, selfcheck
+
+    fused_mbconv.launches = suppress.launches = 0
+    fused_mbconv.kernel_launches.clear()
+    suppress.variant_launches.clear()
+    mAP, weights = selfcheck.run(epochs=2, size=96, workdir=str(tmp_path), device=cuda)
+    torch.cuda.synchronize()
+    assert np.isfinite(mAP)
+    losses = [rec["loss"] for rec in accuracy_gate.epoch_records(os.path.dirname(weights))]
+    assert len(losses) == 2 and all(np.isfinite(losses))
+    assert dict(fused_mbconv.kernel_launches) == {"mbconv_f32": 16 * 6}
+    assert dict(suppress.variant_launches) == {"shared": 6}

@@ -42,6 +42,7 @@ from yoloret_tpu_torch.cli import main as cli
 from yoloret_tpu_torch.configs import RunConfig
 from yoloret_tpu_torch.data import tfrecord
 from yoloret_tpu_torch.infer import Predictor
+from yoloret_tpu_torch.infer.predictor import int8_options
 from yoloret_tpu_torch.nn import detector, int8_infer
 from yoloret_tpu_torch.nn.detector import YoloReT
 from yoloret_tpu_torch.serve import server
@@ -309,12 +310,12 @@ def test_int8_kw_calibration_images_match_jax(tmp_path, source):
     root = _write_sets(str(tmp_path))
     cfg = RunConfig().replace(int8=True, test_dataset=os.path.join(root, source),
                               input_size=(SIZE, SIZE), quantize_samples=4)
-    got = cli._int8_kw(cfg)
+    got = int8_options(cfg)
     want = jax_cli._int8_kw(cfg)
     assert got["use_int8"] and want["use_int8"]
     assert got["calibration_images"].shape == (4, SIZE, SIZE, 3)
     np.testing.assert_array_equal(got["calibration_images"], want["calibration_images"])
-    assert cli._int8_kw(RunConfig()) == {}
+    assert int8_options(RunConfig()) == {}
 
 
 def test_cli_map_int8_runs(tmp_path, capsys):

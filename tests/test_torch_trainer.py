@@ -148,17 +148,19 @@ def test_resume_continues_at_the_same_batch(data, tmp_path, monkeypatch):
         assert torch.equal(got[k], want[k]), k
 
 
-@pytest.mark.parametrize("flags,item", [
-    (["--mesh_data=2"], "item 6"),
-    (["--model={root}"], "item 5"),
-    (["--train_unfreeze={root}"], "item 5"),
+@pytest.mark.parametrize("flags,messages", [
+    (["--mesh_data=2"], ("ROADMAP.md", "item 6")),
+    # a directory is read as a JAX weight directory (tests/test_torch_orbax.py);
+    # one without the JAX checkpoint's _METADATA is refused
+    (["--model={root}"], ("without _METADATA",)),
+    (["--train_unfreeze={root}"], ("without _METADATA",)),
 ])
-def test_unported_training_options_are_refused(data, tmp_path, capsys, flags, item):
+def test_unported_training_options_are_refused(data, tmp_path, capsys, flags, messages):
     flags = [f.format(root=data) for f in flags]
     assert cli_main(["--mode=TRAIN"] + common(data, tmp_path) + flags) == 2
     err = capsys.readouterr().err
-    assert "ROADMAP.md" in err and item in err
-    assert not (tmp_path / "mobilenetv2x75_stage1").exists()
+    assert all(m in err for m in messages), err
+    assert not any(tmp_path.glob("mobilenetv2x75_stage*"))
 
 
 def test_train_backbone_answers_as_the_jax_package(capsys):
@@ -172,19 +174,21 @@ NEW_MODULES = ("yoloret_tpu_torch.train", "yoloret_tpu_torch.train.freeze",
                "yoloret_tpu_torch.utils.checkpoint", "yoloret_tpu_torch.utils.tensorboard",
                "yoloret_tpu_torch.tools.autoaugment", "yoloret_tpu_torch.tools.kmeans",
                "yoloret_tpu_torch.data.pipeline", "yoloret_tpu_torch.infer.predictor",
-               "yoloret_tpu_torch.cli.main")
+               "yoloret_tpu_torch.cli.main", "yoloret_tpu_torch.utils.keras_import",
+               "yoloret_tpu_torch.tools.selfcheck", "yoloret_tpu_torch.tools.accuracy_gate",
+               "yoloret_tpu_torch.tools.topk_study", "yoloret_tpu_torch.tools.selfcheck_spread")
 
 
 def test_training_modules_import_no_jax():
     """The training modules, and chip_smoke.py, import nothing of JAX or of
-    the JAX package: they import with jax, flax and yoloret_tpu blocked,
-    and no import line of theirs names them."""
+    the JAX package: they import with jax, flax, orbax and yoloret_tpu
+    blocked, and no import line of theirs names them."""
     import re
     import subprocess
     import sys
 
     code = ("import sys, importlib\n"
-            "for m in ('jax', 'flax', 'yoloret_tpu'): sys.modules[m] = None\n"
+            "for m in ('jax', 'flax', 'orbax', 'yoloret_tpu'): sys.modules[m] = None\n"
             f"for n in {NEW_MODULES!r}: importlib.import_module(n)\n"
             "print('ok')\n")
     out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
@@ -194,7 +198,7 @@ def test_training_modules_import_no_jax():
 
     paths = [importlib.import_module(n).__file__ for n in NEW_MODULES]
     paths.append(os.path.join(os.path.dirname(os.path.dirname(__file__)), "chip_smoke.py"))
-    bad = re.compile(r"^\s*(import|from)\s+(jax|flax|yoloret_tpu)(\s|\.|$)", re.M)
+    bad = re.compile(r"^\s*(import|from)\s+(jax|flax|orbax|yoloret_tpu)(\s|\.|$)", re.M)
     for p in paths:
         with open(p) as f:
             assert not bad.search(f.read()), p

@@ -31,8 +31,9 @@ JAX package's meaning. mAP:
         --anchors_path=yolo_anchors.txt [--exact_nms] [--no-bf16] [--device=cuda]
 
 ``--model`` is a port weight file (the trainer's, or
-``torch.save(model.state_dict())``; ``--use_ema`` reads its EMA
-weights; without it the weights are a seeded init). ``--int8`` (IMAGE
+``torch.save(model.state_dict())``) or a weight directory of the JAX
+package (read with ``tensorstore``); ``--use_ema`` reads its EMA
+weights; without ``--model`` the weights are a seeded init. ``--int8`` (IMAGE
 and MAP) serves through the W8A8 backbone (MobileNetV2, EfficientNet),
 calibrated on up to ``quantize_samples`` letterboxed images of the test
 list, else the train list (text lists or TFRecord shards), else on
@@ -67,6 +68,15 @@ they stop (exit code 2): converting to TensorFlow's formats is not
 ported. VIDEO and ``--mesh_data`` above 1 stop with a message that
 names their place in ROADMAP.md. PRUNE answers as the JAX package does
 (exit code 2).
+
+``--opt=DEBUG`` (the flag or ``opt: DEBUG`` in a config) sets the seed to
+0, as the JAX package does (the reference's ``main.py:140-144``), and in
+TRAIN turns on ``torch.autograd.set_detect_anomaly``. That is not JAX's
+``jax_debug_nans``: it checks the backward pass, raising where a
+gradient op makes a NaN and naming the forward op that made its input,
+and checks no forward op on its own. ``--opt`` XLA and MKL, ``--prune``,
+``--num_scales``, ``--video`` and ``--track_interval`` take the JAX
+package's meaning in the config.
 """
 
 from __future__ import annotations
@@ -109,7 +119,9 @@ def build_parser() -> argparse.ArgumentParser:
                    help=f"default {d.backbone}; any of {', '.join(sorted(BACKBONES))}")
     p.add_argument("--input_size", type=_parse_size,
                    help="single int or 'h,w', multiples of 32")
-    p.add_argument("--model", type=str, help="port weight file (or torch.save state dict)")
+    p.add_argument("--num_scales", type=int)
+    p.add_argument("--model", type=str,
+                   help="port weight file (or torch.save state dict) or JAX weight directory")
     p.add_argument("--train_dataset", type=str, help="glob of text lists and .tfrecord shards")
     p.add_argument("--val_dataset", type=str)
     p.add_argument("--test_dataset", type=str, help="glob of text lists and .tfrecord shards")
@@ -137,6 +149,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--map_every", type=int,
                    help="VOC mAP on --test_dataset every N epochs (0: stage end only)")
     p.add_argument("--log_dir", type=str)
+    p.add_argument("--opt", type=str, choices=["XLA", "DEBUG", "MKL"],
+                   help="DEBUG: seed 0, and autograd's anomaly check in TRAIN")
     p.add_argument("--seed", type=int)
     p.add_argument("--autoaugment_policy", type=str, choices=["v0", "v1", "v2", "v3"],
                    help="online AutoAugment-for-detection during training")
@@ -158,10 +172,14 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--int8", action="store_true",
                    help="IMAGE/MAP through the W8A8 backbone (nn/int8_infer.py)")
     p.add_argument("--image", type=str, help="image path (IMAGE mode)")
+    p.add_argument("--video", type=str, help="video path or 0 (VIDEO mode, not ported yet)")
+    p.add_argument("--track_interval", type=int,
+                   help="VIDEO: re-detect every N frames, track between")
     p.add_argument("--output", type=str, help="output path (IMAGE, ANCHORS, EXPORT)")
     p.add_argument("--export", type=str, help="export output dir")
     p.add_argument("--quantize", action="store_true",
                    help="EXPORT: int8 per-channel weights (export/quantize.py)")
+    p.add_argument("--prune", action="store_true")
     p.add_argument("--device", type=str, default="cuda",
                    help="cuda (default) or cpu (every kernel's plain version)")
     return p
@@ -172,11 +190,12 @@ def args_to_config(args) -> RunConfig:
     if getattr(args, "config", None):
         cfg = load_config(args.config, cfg)
     overrides = {f: getattr(args, f) for f in (
-        "backbone input_size model train_dataset val_dataset test_dataset classes_path "
-        "anchors_path batch_size nms_iou exact_nms bf16 use_ema rfcr mesh_data int8 freeze "
-        "train_unfreeze truncate_block box_loss class_loss use_adv ema_decay remat resume "
-        "early_stopping early_stopping_patience map_every log_dir seed autoaugment_policy "
-        "tb_images score_threshold image output export quantize").split() if hasattr(args, f)}
+        "backbone input_size num_scales model train_dataset val_dataset test_dataset "
+        "classes_path anchors_path batch_size nms_iou exact_nms bf16 use_ema rfcr mesh_data "
+        "int8 freeze train_unfreeze truncate_block box_loss class_loss use_adv ema_decay remat "
+        "resume early_stopping early_stopping_patience map_every log_dir opt seed "
+        "autoaugment_policy tb_images score_threshold image video track_interval output "
+        "export quantize prune").split() if hasattr(args, f)}
     for f in ("epochs", "learning_rate", "multi_scale"):
         if hasattr(args, f):
             overrides[f] = (list if f == "multi_scale" else tuple)(getattr(args, f))
@@ -200,6 +219,9 @@ def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
     mode = args.mode.upper()
     cfg = args_to_config(args)
+    debug = bool(cfg.opt) and cfg.opt.upper() == "DEBUG"
+    if debug:
+        cfg = cfg.replace(seed=0)  # as the JAX package does (reference main.py:140-144)
     if mode == "TRAIN_BACKBONE":
         # as the JAX package answers it
         print("TRAIN_BACKBONE: pretraining the backbone alone is handled by the "
@@ -216,10 +238,6 @@ def main(argv=None) -> int:
     if cfg.mesh_data and cfg.mesh_data > 1:
         return _refuse("--mesh_data above 1: data parallelism is not ported yet: it "
                        "waits for parallelism, item 6")
-    for path in (cfg.model, cfg.train_unfreeze):
-        if path and os.path.isdir(path):
-            return _refuse(f"{path} is a directory (an Orbax checkpoint?): reading Orbax "
-                           "weight files is not ported yet: it waits for side paths, item 5")
 
     if mode == "ANCHORS":
         from yoloret_tpu_torch.tools.kmeans import kmeans_anchors_cli
@@ -244,10 +262,13 @@ def main(argv=None) -> int:
         return 0
 
     if mode == "TRAIN":
+        import torch
+
         from yoloret_tpu_torch.train.trainer import train
 
         try:
-            train(cfg, device=args.device)
+            with torch.autograd.set_detect_anomaly(debug):
+                train(cfg, device=args.device)
         except (NotImplementedError, ValueError) as e:
             print(e, file=sys.stderr)
             return 2
@@ -259,7 +280,7 @@ def main(argv=None) -> int:
 
     from yoloret_tpu_torch.data import Dataset, DatasetMode, load_anchors, load_classes
     from yoloret_tpu_torch.eval import evaluate_map
-    from yoloret_tpu_torch.infer import Predictor
+    from yoloret_tpu_torch.infer.predictor import Predictor, int8_options
 
     class_names = load_classes(cfg.classes_path)
     anchors = load_anchors(cfg.anchors_path)
@@ -267,7 +288,7 @@ def main(argv=None) -> int:
         backbone=cfg.backbone, weights=cfg.model, class_names=class_names, anchors=anchors,
         input_hw=cfg.input_size, bf16=cfg.bf16, rfcr=cfg.rfcr, use_ema=cfg.use_ema,
         score_threshold=0.0,  # the reference sets score=0 for MAP, main.py:172
-        device=args.device, **_int8_kw(cfg),
+        device=args.device, **int8_options(cfg),
     )
     ds = Dataset(cfg.test_dataset, batch_size=max(cfg.batch_size, 1), input_hw=cfg.input_size,
                  mode=DatasetMode.TEST, device=args.device)
@@ -284,7 +305,7 @@ def _image(cfg: RunConfig, device: str) -> int:
     """IMAGE: detections on ``--image`` (default: the port's demo photo),
     drawn and saved to ``--output`` (default ``demo_out.png``); one line
     per detection, then ``wrote <path>``."""
-    from yoloret_tpu_torch.infer import Predictor
+    from yoloret_tpu_torch.infer.predictor import Predictor, int8_options
 
     if not (cfg.classes_path and cfg.anchors_path):
         print("IMAGE needs --classes_path and --anchors_path", file=sys.stderr)
@@ -293,7 +314,7 @@ def _image(cfg: RunConfig, device: str) -> int:
         backbone=cfg.backbone, weights=cfg.model, classes_path=cfg.classes_path,
         anchors_path=cfg.anchors_path, input_hw=cfg.input_size,
         score_threshold=cfg.score_threshold, iou_threshold=cfg.nms_iou, bf16=cfg.bf16,
-        use_ema=cfg.use_ema, rfcr=cfg.rfcr, device=device, **_int8_kw(cfg))
+        use_ema=cfg.use_ema, rfcr=cfg.rfcr, device=device, **int8_options(cfg))
     img, dets = pred.detect_image(cfg.image or demo_image())
     out = cfg.output or "demo_out.png"
     img.save(out)
@@ -301,48 +322,6 @@ def _image(cfg: RunConfig, device: str) -> int:
         print(f"{d.class_name} {d.score:.3f} {tuple(round(v, 1) for v in d.box)}")
     print(f"wrote {out}")
     return 0
-
-
-def _int8_kw(cfg: RunConfig) -> dict:
-    """Predictor arguments for ``--int8``: the W8A8 backbone calibrated on
-    up to ``quantize_samples`` images of ``test_dataset`` (else
-    ``train_dataset``; text lists and TFRecord shards, in sorted glob
-    order), letterboxed to uint8 at the input size; on noise when neither
-    is set. {} without ``--int8``."""
-    if not cfg.int8:
-        return {}
-    import glob
-    import io
-
-    import numpy as np
-    from PIL import Image
-
-    from yoloret_tpu_torch.data.annotations import parse_annotation_line
-    from yoloret_tpu_torch.data.tfrecord import Example, index_tfrecord, read_record_at
-    from yoloret_tpu_torch.ops.letterbox import letterbox_numpy_u8
-
-    def encoded(path):
-        for off, ln in index_tfrecord(path):
-            yield io.BytesIO(Example.parse(read_record_at(path, off, ln)).features[
-                "image/encoded"])
-
-    def listed(path):
-        with open(path) as fh:
-            for line in fh:
-                if line.strip():
-                    yield parse_annotation_line(line)[0]
-
-    imgs = []
-    source = cfg.test_dataset or cfg.train_dataset
-    for path in sorted(glob.glob(source)) if source else ():
-        for f in encoded(path) if path.endswith(".tfrecord") else listed(path):
-            arr = np.asarray(Image.open(f).convert("RGB"), np.uint8)
-            imgs.append(letterbox_numpy_u8(arr, cfg.input_size))
-            if len(imgs) >= cfg.quantize_samples:
-                break
-        if len(imgs) >= cfg.quantize_samples:
-            break
-    return dict(use_int8=True, calibration_images=np.stack(imgs) if imgs else None)
 
 
 def demo_image() -> str:

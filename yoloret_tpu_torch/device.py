@@ -3,7 +3,9 @@ the CPU only when the caller asks for it, never a quiet fallback."""
 
 from __future__ import annotations
 
-from typing import Union
+import contextlib
+import os
+from typing import Iterator, Union
 
 import numpy as np
 import torch
@@ -32,3 +34,36 @@ def upload(a: np.ndarray, device: torch.device) -> torch.Tensor:
     if device.type == "cuda":
         t = t.pin_memory()
     return t.to(device, non_blocking=True)
+
+
+@contextlib.contextmanager
+def reproducible(device: DeviceLike = "cuda") -> Iterator[None]:
+    """On a CUDA device, for the duration: float32 convolutions and
+    products in float32 (cuDNN's and cuBLAS's TF32 off), and deterministic
+    kernels (PyTorch's deterministic algorithms, cuDNN's deterministic
+    convolutions, cuBLAS with a fixed workspace). A float32 training run
+    then computes in float32 and gives the same numbers every time on one
+    kind of card and software, so that a learning check's result depends
+    on the code, not on the order of atomic additions in the backward
+    pass or on TF32's 10-bit products (on one H100 the self-check's mAP
+    moved across its threshold with either: PERF.md, section 6). The
+    CPU's kernels are float32 and deterministic already: there it changes
+    nothing. ``CUBLAS_WORKSPACE_CONFIG`` is set when unset; cuBLAS takes
+    it at its first use in the process."""
+    if torch.device("cuda" if device is None else device).type != "cuda":
+        yield
+        return
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+    cudnn, matmul = torch.backends.cudnn, torch.backends.cuda.matmul
+    before = (torch.are_deterministic_algorithms_enabled(),
+              torch.is_deterministic_algorithms_warn_only_enabled(),
+              cudnn.deterministic, cudnn.benchmark, cudnn.allow_tf32, matmul.allow_tf32)
+    torch.use_deterministic_algorithms(True)
+    cudnn.deterministic, cudnn.benchmark = True, False
+    cudnn.allow_tf32 = matmul.allow_tf32 = False
+    try:
+        yield
+    finally:
+        torch.use_deterministic_algorithms(before[0], warn_only=before[1])
+        cudnn.deterministic, cudnn.benchmark, cudnn.allow_tf32 = before[2:5]
+        matmul.allow_tf32 = before[5]

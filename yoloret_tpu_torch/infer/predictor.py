@@ -277,3 +277,44 @@ def draw_detections(image, detections: Sequence[Detection], class_names: Sequenc
         draw.text((x1 + 2, max(y1 - 12, 0)), f"{d.class_name} {d.score:.2f}", fill=color,
                   font=font)
     return image
+
+
+def int8_options(cfg) -> dict:
+    """Predictor arguments for a ``RunConfig``'s ``int8``: the W8A8
+    backbone calibrated on up to ``quantize_samples`` images of
+    ``test_dataset`` (else
+    ``train_dataset``; text lists and TFRecord shards, in sorted glob
+    order), letterboxed to uint8 at the input size; on noise when neither
+    is set. {} without ``int8``. The CLI and the tools call it."""
+    if not cfg.int8:
+        return {}
+    import glob
+    import io
+
+    from PIL import Image
+
+    from yoloret_tpu_torch.data.annotations import parse_annotation_line
+    from yoloret_tpu_torch.data.tfrecord import Example, index_tfrecord, read_record_at
+
+    def encoded(path):
+        for off, ln in index_tfrecord(path):
+            yield io.BytesIO(Example.parse(read_record_at(path, off, ln)).features[
+                "image/encoded"])
+
+    def listed(path):
+        with open(path) as fh:
+            for line in fh:
+                if line.strip():
+                    yield parse_annotation_line(line)[0]
+
+    imgs = []
+    source = cfg.test_dataset or cfg.train_dataset
+    for path in sorted(glob.glob(source)) if source else ():
+        for f in encoded(path) if path.endswith(".tfrecord") else listed(path):
+            arr = np.asarray(Image.open(f).convert("RGB"), np.uint8)
+            imgs.append(letterbox_numpy_u8(arr, cfg.input_size))
+            if len(imgs) >= cfg.quantize_samples:
+                break
+        if len(imgs) >= cfg.quantize_samples:
+            break
+    return dict(use_int8=True, calibration_images=np.stack(imgs) if imgs else None)

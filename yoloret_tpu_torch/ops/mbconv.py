@@ -50,6 +50,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+from collections import Counter
 from typing import NamedTuple, Optional
 
 import torch
@@ -400,9 +401,11 @@ def fused_mbconv(
     """One fused block, [B, H, W, Cin] -> [B, H/stride, W/stride, Cout].
 
     A CPU tensor takes the plain version. A CUDA tensor launches a kernel
-    (and adds one to ``fused_mbconv.launches``), or raises: bfloat16 the
-    Hopper kernel, on ``packed`` (``pack_mbconv`` of these weights) or on
-    weights packed for this call; float32 the CUDA-core kernel."""
+    (and adds one to ``fused_mbconv.launches`` and to
+    ``fused_mbconv.kernel_launches`` under the kernel's name), or raises:
+    bfloat16 the Hopper kernel ``mbconv_wgmma``, on ``packed``
+    (``pack_mbconv`` of these weights) or on weights packed for this
+    call; float32 the CUDA-core kernel ``mbconv_f32``."""
     _check(x, we, be, wd, bd, wp, bp, stride, residual)
     if x.device.type == "cpu":
         return reference_mbconv(x, we, be, wd, bd, wp, bp, stride=stride, residual=residual)
@@ -455,7 +458,10 @@ def fused_mbconv(
     if rc != 0:
         raise RuntimeError(f"mbconv kernel launch failed: {lib.yrt_error_string(rc).decode()}")
     fused_mbconv.launches += 1
+    fused_mbconv.kernel_launches["mbconv_wgmma" if x.dtype == torch.bfloat16
+                                 else "mbconv_f32"] += 1
     return out
 
 
 fused_mbconv.launches = 0
+fused_mbconv.kernel_launches = Counter()

@@ -31,8 +31,10 @@ optimizer state, the step and the early stopper; ``--resume`` restarts
 at the next epoch, with each size's data stream at the batch where it
 stopped.
 
-Not ported (each stops with a message naming its ROADMAP.md item):
-data parallelism and multihost, and Orbax weight files.
+``--model`` and ``--train_unfreeze`` take a port weight file or a JAX
+weight directory (``utils.checkpoint.load_params``). Not ported (it
+stops with a message naming its ROADMAP.md item): data parallelism and
+multihost.
 """
 
 from __future__ import annotations
@@ -118,7 +120,6 @@ def train(cfg: RunConfig, device: DeviceLike = "cuda") -> str:
             raise ValueError(f"--multi_scale sizes must be multiples of 32: {cfg.multi_scale}")
 
     log_dir = os.path.join(cfg.log_dir, f"{cfg.backbone}_stage{stage}")
-    os.makedirs(log_dir, exist_ok=True)
 
     common = dict(anchors=anchors, num_classes=num_classes, num_scales=cfg.num_scales,
                   max_boxes=cfg.max_boxes, seed=cfg.seed, device=dev)
@@ -154,6 +155,7 @@ def train(cfg: RunConfig, device: DeviceLike = "cuda") -> str:
         class_loss_kind=cfg.class_loss, backbone_train=not cfg.freeze, use_adv=cfg.use_adv,
         ema_decay=cfg.ema_decay)
 
+    os.makedirs(log_dir, exist_ok=True)  # once the weights have loaded
     ckpt = CheckpointManager(os.path.join(log_dir, "ckpt"), every=cfg.checkpoint_every)
     stopper = (EarlyStopper(cfg.early_stopping_patience or epochs // 2)
                if cfg.early_stopping else None)

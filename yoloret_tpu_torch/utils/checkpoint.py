@@ -1,11 +1,16 @@
 """Weight files and training checkpoints in the port's own ``torch.save``
 format. Port of ``yoloret_tpu/utils/checkpoint.py``, whose files are
-Orbax directories; reading those waits for ROADMAP.md, queue 1, item 5.
+Orbax directories.
 
   * ``save_params`` / ``load_params``: one weight file, the stage-end
     ``*_trained_weights_{stage_1,final}.pt`` that ``--mode=MAP --model=``
     and ``--train_unfreeze`` read: the model's state dict, with the EMA
     of the parameters under ``ema_params.<name>`` when there is one.
+    ``load_params`` also reads the JAX package's weight directories (its
+    ``save_params``, e.g. its trainer's stage-end
+    ``*_trained_weights_{stage_1,final}``) with ``tensorstore`` alone:
+    ``orbax.checkpoint`` imports JAX, which the port does not. The port
+    writes only its own files.
   * ``CheckpointManager``: a checkpoint every ``every`` epochs, at most
     ``max_to_keep`` kept, the best by validation loss (the reference's
     ModelCheckpoint(period=3, save_best_only=True, monitor='val_loss')),
@@ -19,6 +24,7 @@ import json
 import os
 from typing import Any, Dict, Mapping, Optional
 
+import numpy as np
 import torch
 
 EMA_PREFIX = "ema_params."
@@ -45,12 +51,10 @@ def load_params(path: str, use_ema: bool = False) -> Dict[str, torch.Tensor]:
     """The model state dict of a weight file: its parameters, or with
     ``use_ema`` its EMA parameters (the BatchNorm statistics are the
     model's either way). A plain state dict (``torch.save(model.
-    state_dict())``) reads as it is."""
+    state_dict())``) reads as it is; a directory is read by
+    ``load_orbax_params``."""
     if os.path.isdir(path):
-        raise NotImplementedError(
-            f"{path} is a directory (an Orbax checkpoint of the JAX package?): reading Orbax "
-            "weight files is not ported to yoloret_tpu_torch yet: it waits for side paths, "
-            "item 5 (ROADMAP.md, queue 1)")
+        return load_orbax_params(path, use_ema)
     tree = torch.load(path, map_location="cpu", weights_only=True)
     sd = {k: v for k, v in tree.items() if not k.startswith(EMA_PREFIX)}
     if use_ema:
@@ -59,6 +63,62 @@ def load_params(path: str, use_ema: bool = False) -> Dict[str, torch.Tensor]:
             raise ValueError(f"{path} holds no EMA weights (train with --use_ema)")
         sd.update(ema)
     return sd
+
+
+ORBAX_COLLECTIONS = ("params", "batch_stats", "ema_params")
+
+
+def read_orbax_tree(path: str) -> dict:
+    """The ``ORBAX_COLLECTIONS`` of an Orbax weight directory written by
+    the JAX package's ``save_params`` (a ``StandardCheckpointer`` tree,
+    OCDBT), as a nested dict of numpy arrays in their stored dtype.
+
+    ``_METADATA`` (JSON) names every leaf by its key path; a leaf
+    ``('params', 'a', 'kernel')`` is the zarr array ``params.a.kernel/``
+    inside the OCDBT store at the directory's root. Needs
+    ``tensorstore``."""
+    import tensorstore as ts
+
+    path = os.path.abspath(path)
+    meta_path = os.path.join(path, "_METADATA")
+    if not os.path.exists(meta_path):
+        raise ValueError(f"{path} is a directory without _METADATA: not a weight directory "
+                         "of the JAX package's save_params")
+    with open(meta_path) as f:
+        meta = json.load(f)
+    if not meta.get("use_ocdbt", False) or meta.get("use_zarr3", False):
+        raise ValueError(f"{path}: only OCDBT checkpoints of zarr v2 arrays are read, as "
+                         "save_params writes them")
+    tree: dict = {}
+    for entry in meta["tree_metadata"].values():
+        keys = [str(k["key"]) for k in entry["key_metadata"]]
+        if keys[0] not in ORBAX_COLLECTIONS:
+            continue
+        store = ts.open({"driver": "zarr", "kvstore": {
+            "driver": "ocdbt", "base": f"file://{path}/", "path": ".".join(keys) + "/"}},
+            open=True, read=True).result()
+        node = tree
+        for k in keys[:-1]:
+            node = node.setdefault(k, {})
+        node[keys[-1]] = np.asarray(store.read().result())
+    return tree
+
+
+def load_orbax_params(path: str, use_ema: bool = False) -> Dict[str, torch.Tensor]:
+    """The port's state dict (float32) of a JAX weight directory: its
+    ``params`` and ``batch_stats`` through ``weights.from_flax``; with
+    ``use_ema`` its ``ema_params`` in place of the parameters where the
+    tree has them, as the JAX ``Predictor`` reads it. The directory's
+    other entries are not read: a JAX training checkpoint's optimizer
+    state is optax's, so ``--resume`` reads only the port's own
+    ``CheckpointManager``."""
+    from yoloret_tpu_torch.weights import from_flax
+
+    tree = read_orbax_tree(path)
+    if "params" not in tree:
+        raise ValueError(f"{path} holds no params")
+    params = tree["ema_params"] if use_ema and "ema_params" in tree else tree["params"]
+    return from_flax({"params": params, "batch_stats": tree.get("batch_stats", {})})
 
 
 class CheckpointManager:
