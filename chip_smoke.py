@@ -13,9 +13,12 @@ Phases (any failure exits non-zero and prints no result):
    registers and spills.
 2. Each kernel against its plain PyTorch version on the card, at the
    serving path's shapes: the fused MBConv at all 16 backbone blocks of
-   MobileNetV2 x0.75 @ 320 (float32 with TF32 off at b2; bfloat16, the
-   Hopper kernel on the packed weights, at b2 and at b128, where the
-   work items outnumber the persistent CTAs); the suppression kernels,
+   MobileNetV2 x0.75 (float32, ``mbconv_f32``, with TF32 off at [2, 320]
+   and at the float32 path's own shapes, the learn phase's [8, 96] and
+   [8, 160] (clusters) and the eval's [128, 320], each launch repeated and
+   held bitwise equal to the first; bfloat16, the Hopper kernel on the
+   packed weights, at b2 and at b128 @320, where the work items outnumber
+   the persistent CTAs); the suppression kernels,
    exactly: the shared-pool kernel on model candidates at C=20, M=64
    (t=0.3) and M=512 (t=0) for B=128, 8 and 1, on tied scores and on
    pairs at IoU 0.5; the per-class kernel on per-class pools; the
@@ -51,8 +54,11 @@ Phases (any failure exits non-zero and prints no result):
 6. Each kernel's device time (L2 flushed, the device kept behind the
    host) beside its plain version, a library yardstick and its bound
    (bytes at 3.35 TB/s, operations at the peak rate of their type); per
-   MBConv block also the tile plan (tile, warpgroups, pipeline stages,
-   persistent grid, shared memory); NMS at the serving and the MAP-grade
+   MBConv block also the tile plan (bf16: tile, warpgroups, pipeline
+   stages, persistent grid, shared memory; float32: tile, pixels a
+   thread, cluster, grid, shared memory); ``mbconv_f32`` block by block
+   at b128 on a float32 Predictor of the same weights (phase 5's float32
+   runs); NMS at the serving and the MAP-grade
    shape, each with its launch plan, and the large-pool variant at the
    exact evaluation's shape, its pools sorted as the path gives them and
    shuffled; the bound counts only the boxes a sorted pool needs (up to
@@ -96,9 +102,10 @@ Phases (any failure exits non-zero and prints no result):
    ``configs/coco_efficientnetb3_416.yaml``; class names and anchors from
    the files they name), each with seeded, calibrated weights: for
    MobileNetV2 x1.4 @224 the MBConv kernel against its plain version at
-   all 16 blocks (float32 b2, bf16 b2 and b128, the tile plan of each
-   block and the ptxas line of the NB=11 instance its Cout 136 and 224
-   take); for both, the suppression kernels exactly on model candidates
+   all 16 blocks (float32 b2 and b128, bitwise repeats; bf16 b2 and b128,
+   the tile plan of each block and the ptxas line of the NB=11 instance
+   its Cout 136 and 224 take) and ``mbconv_f32`` timed block by block at
+   b128; for both, the suppression kernels exactly on model candidates
    (shared pool M=64 and M=512 at B=128, 8 and 1; the large-pool kernel
    on the exact evaluation's whole grid, K=3,087 and 10,647, at B=128 and
    1); ``detect_arrays`` on 1, 8 and 130 images (and the HTTP server for
@@ -162,7 +169,8 @@ Phases (any failure exits non-zero and prints no result):
    study's table on those weights (shared and per-class pools of 64, 256
    and 512 and the per-class pools of the whole grid, 1,575 candidates:
    ``nms_large_walk``), every AP finite and the gate mAP above 0.05; each
-   run with its launch counts; then ``mbconv_f32`` at [8, 96] and [8, 160],
+   run with its launch counts; then ``mbconv_f32`` at [8, 96] and [8, 160]
+   (block by block, with each block's plan and its repeat bitwise equal),
    ``mbconv_wgmma`` at [8, 96] and each NMS kernel at the phase's pools
    against its plain version on the trained weights, and timed.
 
@@ -611,48 +619,68 @@ def make_predictor(seed, weights=None, *, size=None, class_names=None, mixed=Fal
     return pred
 
 
-def check_mbconv(pred, report, key="mbconv_check"):
+def check_mbconv(pred, report, key="mbconv_check", f32_shapes=()):
+    """Each MBConv kernel against its plain version at all 16 blocks:
+    float32 (``mbconv_f32``) at b2 and at ``f32_shapes`` ((batch, size)
+    pairs: the float32 path's own shapes), each float32 launch repeated
+    and held bitwise equal to the first; bfloat16 (the Hopper kernel, on
+    the packed weights of the main path) at b2 and at b128, where the
+    work items outnumber the persistent CTAs. Returns (the largest error,
+    the largest float32 error)."""
     import torch
 
     from yoloret_tpu_torch.nn.fused_infer import _block_meta
-    from yoloret_tpu_torch.ops.mbconv import fused_mbconv, reference_mbconv
+    from yoloret_tpu_torch.ops.mbconv import fused_mbconv, plan_tile_f32, reference_mbconv
 
     rows = []
-    # float32 (CUDA-core kernel) at b2; bfloat16 (Hopper kernel, on the
-    # packed weights of the main path) at b2 and at b128, where the work
-    # items outnumber the persistent CTAs
-    for dtype, batch in ((torch.float32, 2), (torch.bfloat16, 2), (torch.bfloat16, BATCH)):
+    size = pred.input_hw[0]
+    num_sms = torch.cuda.get_device_properties(0).multi_processor_count
+    runs = ([(torch.float32, 2, size)] + [(torch.float32, b, s) for b, s in f32_shapes]
+            + [(torch.bfloat16, 2, size), (torch.bfloat16, BATCH, size)])
+    for dtype, batch, sz in runs:
         metas = _block_meta(pred.model.body, dtype)
-        ins = block_inputs(pred, batch, seed=11)
+        ins = block_inputs(pred, batch, seed=11, size=sz)
         for meta, x in zip(metas, ins):
             x = x.to(dtype)
             kw = dict(stride=meta.stride, residual=meta.residual)
             got = fused_mbconv(x, *meta.args, packed=meta.packed, **kw)
             want = reference_mbconv(x, *meta.args, **kw)
+            row = dict(block=meta.block_id, dtype=str(dtype), batch=batch, size=sz,
+                       shape=list(x.shape), stride=meta.stride)
+            if dtype == torch.float32:
+                again = fused_mbconv(x, *meta.args, packed=meta.packed, **kw)
+                row["bitwise_repeat"] = bool(torch.equal(got, again))
+                row["cluster"] = plan_tile_f32(
+                    x.shape[1] // meta.stride, x.shape[2] // meta.stride, meta.stride,
+                    x.shape[3], meta.args[2].shape[-1], meta.args[4].shape[-1],
+                    meta.args[0] is not None, batch, num_sms).cluster
+                if not row["bitwise_repeat"]:
+                    raise AssertionError(f"mbconv_f32 block {meta.block_id} [{batch}, {sz}]: "
+                                         "two launches on one input differ")
             torch.cuda.synchronize()
             tol = MBCONV_TOL[str(dtype).split(".")[-1]]
             err = max_err(got, want)
             ok = torch.allclose(got.float(), want.float(), atol=tol, rtol=tol)
-            rows.append(dict(block=meta.block_id, dtype=str(dtype), batch=batch,
-                             shape=list(x.shape), stride=meta.stride, max_abs_err=err, tol=tol,
-                             ok=ok, max_abs_ref=want.float().abs().max().item()))
+            rows.append(dict(row, max_abs_err=err, tol=tol, ok=ok,
+                             max_abs_ref=want.float().abs().max().item()))
             if not ok:
-                raise AssertionError(f"mbconv block {meta.block_id} {dtype} b{batch}: "
+                raise AssertionError(f"mbconv block {meta.block_id} {dtype} [{batch}, {sz}]: "
                                      f"max err {err}")
         del ins
     report[key] = rows
-    worst = {f"{d} b{n}": max(r["max_abs_err"] for r in rows
-                              if r["dtype"] == d and r["batch"] == n)
-             for d, n in (("torch.float32", 2), ("torch.bfloat16", 2),
-                          ("torch.bfloat16", BATCH))}
+    worst = {f"{str(d)[6:]} [{n}, {sz}]": max(r["max_abs_err"] for r in rows
+                                              if r["dtype"] == str(d) and r["batch"] == n
+                                              and r["size"] == sz)
+             for d, n, sz in runs}
     scale = min(r["max_abs_ref"] for r in rows)
-    log(f"mbconv kernel vs plain, {pred.model.backbone} @{pred.input_hw[0]}, "
-        f"{len(pred._fused.blocks)} blocks x (float32 b2, bfloat16 b2, bfloat16 b{BATCH}): "
-        f"max abs err {worst} (tolerance atol=rtol {MBCONV_TOL}; smallest block max |out| "
-        f"{scale:.3g})")
+    clusters = sorted({r["cluster"] for r in rows if "cluster" in r})
+    log(f"mbconv kernel vs plain, {pred.model.backbone}, {len(pred._fused.blocks)} blocks at "
+        f"each [batch, size]: max abs err {worst} (tolerance atol=rtol {MBCONV_TOL}; smallest "
+        f"block max |out| {scale:.3g}); every float32 launch bitwise equal to its repeat "
+        f"(cluster sizes {clusters})")
     if scale < 0.1:
         raise AssertionError(f"block outputs too small ({scale}) for the check to mean much")
-    return max(worst.values())
+    return max(worst.values()), max(v for k, v in worst.items() if k.startswith("float32"))
 
 
 def model_candidates(pred, k, seed, per_class=False, batch=BATCH, size=None, images=None,
@@ -1278,6 +1306,7 @@ def eval_phase(map_pred, state, seed, report, *, n_images=None, config=None,
             cli.insert(1, f"--config={config}")
 
         fused_mbconv.launches = suppress.launches = 0
+        fused_mbconv.kernel_launches.clear()
         suppress.variant_launches.clear()
         log("eval on the card, float32, shared pool M=512 (evaluate_map):")
         runs["card_f32_shared"] = evaluate(f32, dataset(DEVICE), names)
@@ -1287,10 +1316,13 @@ def eval_phase(map_pred, state, seed, report, *, n_images=None, config=None,
             runs["card_f32_exact_cli"] = evaluate_cli(cli, names)
         log("eval on the card, bf16, shared pool M=512 (evaluate_map):")
         runs["card_bf16_shared"] = evaluate(map_pred, dataset(DEVICE), names)
-        launches = {"mbconv": fused_mbconv.launches, "nms": suppress.launches,
+        launches = {"mbconv": fused_mbconv.launches,
+                    "mbconv_f32": fused_mbconv.kernel_launches["mbconv_f32"],
+                    "nms": suppress.launches,
                     **{f"nms_{k}": v for k, v in suppress.variant_launches.items()}}
         log(f"eval path: 3 runs of {n_batches} batches, launches {launches}")
         assert launches["mbconv"] == mbconv_per_forward * 3 * n_batches, launches
+        assert launches["mbconv_f32"] == mbconv_per_forward * 2 * n_batches, launches
         assert launches["nms"] == 3 * n_batches, launches
         assert launches.get("nms_per_class_large") == n_batches, launches
         assert launches.get("nms_shared") == 2 * n_batches, launches
@@ -1385,9 +1417,11 @@ def time_mbconv(pred, flush, batch=BATCH, size=None):
     returns (rows, sums)."""
     import torch
 
-    from yoloret_tpu_torch.ops.mbconv import fused_mbconv, plan_tile, reference_mbconv
+    from yoloret_tpu_torch.ops.mbconv import (fused_mbconv, plan_tile, plan_tile_f32,
+                                              reference_mbconv)
 
     rows, tot = [], dict(ms=0.0, plain_ms=0.0, library_ms=0.0, bound_ms=0.0)
+    num_sms = torch.cuda.get_device_properties(0).multi_processor_count
     with torch.inference_mode():
         ins = block_inputs(pred, batch, seed=12, size=size)
         for meta, x in zip(pred._fused.blocks, ins):
@@ -1398,13 +1432,11 @@ def time_mbconv(pred, flush, batch=BATCH, size=None):
             lib = cuda_time_ms(lambda: library_mbconv(x, *meta.args, **a), 5, 1, flush)
             bound, by, nbytes, flops = mbconv_bound(x, meta, x.element_size())
             ce, cout = meta.args[2].shape[-1], meta.args[4].shape[-1]
-            plan = None
-            if x.dtype == torch.bfloat16:  # the float32 kernel has no tile plan
-                plan = plan_tile(x.shape[1] // meta.stride, x.shape[2] // meta.stride,
-                                 meta.stride, x.shape[3], ce, cout, meta.args[0] is not None,
-                                 x.shape[0],
-                                 torch.cuda.get_device_properties(0).multi_processor_count)
-            tile = plan and plan._asdict()
+            shape = (x.shape[1] // meta.stride, x.shape[2] // meta.stride, meta.stride,
+                     x.shape[3], ce, cout, meta.args[0] is not None, x.shape[0], num_sms)
+            bf16 = x.dtype == torch.bfloat16
+            plan = plan_tile(*shape) if bf16 else plan_tile_f32(*shape)
+            tile = plan._asdict()
             rows.append(dict(block=meta.block_id, shape=list(x.shape), stride=meta.stride,
                              ce=ce, cout=cout, tile=tile, ms=ms,
                              plain_ms=plain, library_ms=lib, bound_ms=bound, bound_by=by,
@@ -1414,7 +1446,10 @@ def time_mbconv(pred, flush, batch=BATCH, size=None):
                 tot[k] += v
             how = (f"tile {plan.th}x{plan.tw} ({plan.nc} warpgroups), stages {plan.xst} input / "
                    f"{plan.wst} weights, grid {plan.grid} for {plan.items} items, smem "
-                   f"{plan.smem}" if plan else "float32")
+                   f"{plan.smem}" if bf16 else
+                   f"float32 tile {plan.th}x{plan.tw}, {plan.rq} project / {plan.px} expand "
+                   f"pixels a thread, cluster {plan.cluster}, grid {plan.ctas} CTAs, smem "
+                   f"{plan.smem}")
             log(f"  mbconv block {meta.block_id:2d} {tuple(x.shape)} s{meta.stride} Ce {ce} Cout "
                 f"{cout} {how}: kernel {ms:.4f} ms, plain {plain:.4f}, cuDNN {lib:.4f}, "
                 f"bound {bound:.4f} ({by})")
@@ -1525,10 +1560,14 @@ def check_mbconv_at(pred, size, batch, report, key):
             kw = dict(stride=meta.stride, residual=meta.residual)
             got = fused_mbconv(x, *meta.args, packed=meta.packed, **kw)
             want = reference_mbconv(x, *meta.args, **kw)
+            same = torch.equal(got, fused_mbconv(x, *meta.args, packed=meta.packed, **kw))
             torch.cuda.synchronize()
             err = max_err(got, want)
             rows.append(dict(block=meta.block_id, shape=list(x.shape), max_abs_err=err,
-                             max_abs_ref=want.float().abs().max().item()))
+                             max_abs_ref=want.float().abs().max().item(), bitwise_repeat=same))
+            if not same:
+                raise AssertionError(f"mbconv block {meta.block_id} {dtype} [{batch}, {size}]: "
+                                     "two launches on one input differ")
             if not torch.allclose(got.float(), want.float(), atol=tol, rtol=tol):
                 raise AssertionError(f"mbconv block {meta.block_id} {dtype} [{batch}, {size}]: "
                                      f"max err {err}")
@@ -1537,7 +1576,8 @@ def check_mbconv_at(pred, size, batch, report, key):
     scale = min(r["max_abs_ref"] for r in rows)
     log(f"  mbconv kernel vs plain, {pred.model.backbone} {dtype} [{batch}, {size}, {size}, 3], 16 "
         f"blocks (last map {rows[-1]['shape'][1]}x{rows[-1]['shape'][2]}): max abs err "
-        f"{worst:.3g} (tolerance atol=rtol {tol}; smallest block max |out| {scale:.3g})")
+        f"{worst:.3g} (tolerance atol=rtol {tol}; smallest block max |out| {scale:.3g}); each "
+        "launch bitwise equal to its repeat")
     if scale < 0.1:
         raise AssertionError(f"block outputs too small ({scale}) for the check to mean much")
     return worst
@@ -1601,7 +1641,10 @@ def kernel_entries(pred, suffix, launches, eval_launches, errs, mbconv, nms):
     return out
 
 
-def time_kernels(pred, launches, eval_launches, errs, report):
+def time_kernels(pred, state, launches, eval_launches, errs, report):
+    """Phase 6: each kernel of the flagship timed at b128 @320 (the bf16
+    serving path; ``mbconv_f32`` on a float32 Predictor of ``state``, the
+    eval's float32 runs); returns the kernels line's rows."""
     import torch
 
     flush = make_flush()
@@ -1612,8 +1655,15 @@ def time_kernels(pred, launches, eval_launches, errs, report):
     log(f"  timer floor: an empty kernel reads {report['timer_floor_ms']:.4f} ms")
     mbconv = time_mbconv(pred, flush)
     report["mbconv_timing"] = mbconv[0]
+    f32 = make_predictor(0, weights=state, bf16=False)
+    f32_mbconv = time_mbconv(f32, flush)
+    report["mbconv_f32_timing"] = f32_mbconv[0]
     report["nms_timing"] = time_nms(pred, flush)
-    return kernel_entries(pred, "", launches, eval_launches, errs, mbconv, report["nms_timing"])
+    rows = kernel_entries(pred, "", launches, eval_launches, errs, mbconv, report["nms_timing"])
+    rows.insert(1, mbconv_entry(f32, f"_f32@eval{SIZE}_b{BATCH}", eval_launches["mbconv_f32"],
+                                errs["mbconv_f32"], f32_mbconv, BATCH, SIZE,
+                                "the eval path's two float32 runs (phase 5)"))
+    return rows
 
 
 # -- phases 7 and 8: the COCO configurations and the rest of the registry ----
@@ -1651,7 +1701,8 @@ def coco_phase(name, config, seed, report):
             eleven = [ln for ln in ptxas_lines(_build.ptxas_log("mbconv")) if ",11>" in ln]
             for line in eleven:
                 log(f"  ptxas mbconv, the NB=11 instances (Cout 144-264): {line}")
-            errs["mbconv"] = check_mbconv(pred, out)
+            errs["mbconv"], errs["mbconv_f32"] = check_mbconv(pred, out,
+                                                              f32_shapes=((BATCH, size),))
         nms_err = check_nms(pred, out, synthetic=False)
         errs.update(nms=nms_err["small"], nms_large=nms_err["large"])
     launches = drive_main_path(pred, map_pred, seed, out, mbconv_per_forward=per_forward,
@@ -1664,12 +1715,20 @@ def coco_phase(name, config, seed, report):
     flush = make_flush()
     mbconv = time_mbconv(pred, flush) if fused else None
     out["nms_timing"] = time_nms(pred, flush)
+    f32_rows = []
     if mbconv is not None:
         out["mbconv_timing"] = mbconv[0]
+        f32 = make_predictor(seed, weights=state, bf16=False, **kw)
+        f32_mbconv = time_mbconv(f32, flush)
+        out["mbconv_f32_timing"] = f32_mbconv[0]
+        f32_rows.append(mbconv_entry(f32, f"_f32@{name}", ev["launches"]["mbconv_f32"],
+                                     errs["mbconv_f32"], f32_mbconv, BATCH, size,
+                                     "the eval path's two float32 runs (phase 9)"))
+        del f32
     out["seconds"] = time.perf_counter() - t0
     log(f"== {name}: {out['seconds']:.1f} s")
     kernels = kernel_entries(pred, f"@{name}", launches, ev["launches"], errs, mbconv,
-                             out["nms_timing"])
+                             out["nms_timing"]) + f32_rows
     del pred, map_pred
     torch.cuda.empty_cache()
     return kernels
@@ -1960,7 +2019,7 @@ def train_cli_phase(weights, seed, report):
         import torch
 
         with torch.no_grad():
-            out["mbconv_err"] = check_mbconv(trained, report, key="mbconv_trained_check")
+            out["mbconv_err"] = check_mbconv(trained, report, key="mbconv_trained_check")[0]
         del trained
         out["anchors"] = anchors_cli(root, lst)
         warm = os.path.join(root, "flagship.pt")
@@ -3452,7 +3511,11 @@ def main(argv=None) -> int:
     map_pred = make_predictor(args.seed, weights=state, score_threshold=0.0, num_candidates=512)
 
     with torch.no_grad():
-        errs = {"mbconv": check_mbconv(pred, report)}
+        # float32 also at the float32 path's shapes: the learn phase's [8, 96]
+        # and [8, 160] and the eval's [128, 320]
+        mb_err, mb_f32_err = check_mbconv(pred, report, f32_shapes=(
+            (LEARN_BATCH, LEARN_SIZE), (LEARN_BATCH, GATE_SIZE), (BATCH, SIZE)))
+        errs = {"mbconv": mb_err, "mbconv_f32": mb_f32_err}
         nms_err = check_nms(pred, report)
         errs.update(nms=nms_err["small"], nms_large=nms_err["large"])
     launches = drive_main_path(pred, map_pred, args.seed, report)
@@ -3462,7 +3525,7 @@ def main(argv=None) -> int:
     # phase 5's dataset stays for phase 11's --mode=MAP --int8
     with tempfile.TemporaryDirectory(prefix="yoloret_eval_") as eval_root:
         ev = eval_phase(map_pred, state, args.seed, report, root=eval_root)
-        kernels = time_kernels(pred, launches, ev["launches"], errs, report)
+        kernels = time_kernels(pred, state, launches, ev["launches"], errs, report)
         log(f"flagship phases done at {time.perf_counter() - t_start:.1f} s")
         del pred, map_pred
         torch.cuda.empty_cache()

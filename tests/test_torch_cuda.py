@@ -17,7 +17,9 @@ import numpy as np
 import pytest
 import torch
 
-from yoloret_tpu_torch.ops.mbconv import fused_mbconv, reference_mbconv
+from yoloret_tpu_torch.ops import mbconv as M
+from yoloret_tpu_torch.ops.mbconv import (fused_mbconv, pack_mbconv_f32, packed_like,
+                                          reference_mbconv)
 from yoloret_tpu_torch.ops.nms_kernel import plan_nms, suppress, suppress_plain
 
 MBCONV_CASES = [
@@ -117,6 +119,78 @@ def test_mbconv_kernel_matches_plain(cuda, case):
     want = reference_mbconv(*bf, stride=stride, residual=residual)
     assert got.dtype == torch.bfloat16
     torch.testing.assert_close(got.float(), want.float(), atol=2e-2, rtol=2e-2)
+
+
+# The float32 kernel at the float32 path's own shapes: the learn phase's
+# evaluations at b8 ([8, 96]: 6x6 and 3x3 maps; [8, 160]: 10x10 and 5x5),
+# where the plan takes clusters, b1 @320 (cluster sizes 1-8) and x1.4's
+# Cout 448 block (224 -> 448, Ce 1344; at b128 without a cluster, 4 pixels
+# an owner).
+F32_CASES = [
+    (12, 12, 24, 144, 48, 2, True, False, 8),  # [8, 96] block 6: 12x12 -> 6x6
+    (6, 6, 48, 288, 48, 1, True, True, 8),  # blocks 7-9
+    (6, 6, 48, 288, 72, 1, True, False, 8),  # block 10
+    (6, 6, 72, 432, 72, 1, True, True, 8),  # blocks 11-12
+    (6, 6, 72, 432, 120, 2, True, False, 8),  # block 13: 6x6 -> 3x3
+    (3, 3, 120, 720, 120, 1, True, True, 8),  # blocks 14-15
+    (20, 20, 24, 144, 48, 2, True, False, 8),  # [8, 160] block 6: 20x20 -> 10x10
+    (10, 10, 48, 288, 48, 1, True, True, 8),
+    (10, 10, 72, 432, 72, 1, True, True, 8),
+    (10, 10, 72, 432, 120, 2, True, False, 8),  # 10x10 -> 5x5
+    (5, 5, 120, 720, 120, 1, True, True, 8),
+    (48, 48, 24, 24, 16, 1, False, False, 8),  # [8, 96] block 0, no expand
+    (7, 7, 224, 1344, 448, 1, True, False, 2),  # x1.4's Cout 448
+    (7, 7, 224, 1344, 448, 1, True, False, 128),
+] + [s + (1,) for s in BLOCK_SHAPES]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", F32_CASES)
+def test_mbconv_f32_kernel_at_the_float32_shapes(cuda, case):
+    """``mbconv_f32`` under its plan (clusters where the (tile, image)
+    pairs leave SMs idle) within 1e-4 of the plain version, on weights
+    packed once as the main path packs them; a second launch on the same
+    input gives the same bits (no atomics: each output is one sum in one
+    order)."""
+    h, w, cin, ce, cout, stride, expand, residual, batch = case
+    args = _mbconv_inputs(1, h, w, cin, ce, cout, expand, cuda, batch)
+    packed = pack_mbconv_f32(*args[1:6])
+    got = fused_mbconv(*args, stride=stride, residual=residual, packed=packed)
+    again = fused_mbconv(*args, stride=stride, residual=residual, packed=packed)
+    want = reference_mbconv(*args, stride=stride, residual=residual)
+    torch.testing.assert_close(got, want, atol=1e-4, rtol=1e-4)
+    assert torch.equal(got, again)
+    assert torch.equal(got, fused_mbconv(*args, stride=stride, residual=residual))  # packs itself
+
+
+def _f32_plan(case, th, tw, px, cluster):
+    h, w, cin, ce, cout, stride, expand = case[:7]
+    n = -(-ce // M.F32_CH)
+    cluster = min(cluster, n)
+    rq = M._rq(th * tw, cout) if cluster == 1 else 1
+    lay = M.kernel_layout_f32(stride, th, tw, rq, cin, cout, expand, cluster, n)
+    tiles = -(-(h // stride) // th) * -(-(w // stride) // tw)
+    return M.F32Plan(th, tw, rq, px, cluster, lay.smem, tiles, 8 * tiles * cluster,
+                     min(2, M.SM_SHARED // (lay.smem + 1024)))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", [(6, 6, 72, 432, 120, 2, True, False),
+                                  (3, 3, 120, 720, 120, 1, True, True),
+                                  (12, 12, 24, 144, 48, 2, True, False)])
+def test_mbconv_f32_same_bits_under_every_plan(cuda, case, monkeypatch):
+    """Each output is one sum in one order (chunks, then channels) under
+    every plan: forced tiles, pixels a thread and clusters of 1 to 8 give
+    the bits of the kernel's own plan (at [8, 96], a cluster)."""
+    h, w, cin, ce, cout, stride, expand, residual = case
+    args = _mbconv_inputs(3, h, w, cin, ce, cout, expand, cuda, 8)
+    want = fused_mbconv(*args, stride=stride, residual=residual)
+    ho, wo = h // stride, w // stride
+    for th, tw, px, cluster in ((ho, wo, 1, 1), (1, wo, 4, 1), (ho, wo, 2, 8), (2, 3, 1, 5),
+                                (ho, 2, 4, 3)):
+        plan = _f32_plan(case, th, tw, px, cluster)
+        monkeypatch.setattr(M, "plan_tile_f32", lambda *a, plan=plan: plan)
+        assert torch.equal(fused_mbconv(*args, stride=stride, residual=residual), want), plan
 
 
 NMS_MAX_DET = 20
@@ -550,6 +624,11 @@ def test_export_bundle_on_the_card(cuda, tmp_path, bf16):
     bundle = load_bundle(str(tmp_path / "bundle"), device=cuda)
     assert bundle_graph_counts(bundle.program) == {"mbconv": 16, "nms": 1, "argmax": 0,
                                                    "tensors": 0}
+    # each block's packed weights go into yoloret::mbconv, in the layout of
+    # the model's dtype (float32: mbconv_f32's chunks)
+    for i in range(16):
+        w = [bundle.weights.get(f"block_{i}.{n}") for n in ("we", "wd", "wp", "packed")]
+        assert packed_like(w[3], *w[:3]).layout == ("wgmma" if bf16 else "f32")
     images = torch.rand((2, 64, 64, 3), generator=g, device=cuda)
     hw = torch.tensor([[480.0, 640.0], [300.0, 200.0]], device=cuda)
     fused_mbconv.launches = suppress.launches = 0

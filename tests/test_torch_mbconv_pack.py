@@ -123,8 +123,11 @@ def test_fused_params_packs_once_and_forwards_do_not_repack(monkeypatch):
     fused_infer.fused_detector_apply(model, images, params)
     fused_infer.fused_detector_apply(model, images, params)
     assert len(calls) == 16
-    # float32 models (the card's float32 checks) run the CUDA-core kernel, unpacked
-    assert all(b.packed is None for b in fused_infer.fused_params(YoloReT().eval()).blocks)
+    # float32 models run the CUDA-core kernel on weights packed once for it
+    f32 = fused_infer.fused_params(YoloReT().eval()).blocks
+    assert len(calls) == 16  # (not through pack_mbconv)
+    assert all(b.packed is not None and (b.packed.dtype, b.packed.layout) ==
+               (torch.float32, "f32") for b in f32)
 
 
 def _block_shapes(size, alpha=0.75):
@@ -184,3 +187,260 @@ def _check_plans(shapes, batch):
         assert p.items == batch * tiles
         assert 1 <= p.grid <= min(p.items, 132 * p.ctas_per_sm)
         assert 1 <= p.xst <= 2 and 2 <= p.wst <= 3
+
+
+# -- the float32 kernel (mbconv_f32): packing, a model of the kernel, the plan --
+
+# x0.75's real widths at its 3x3 and 6x6 maps (the learn phase's [8, 96])
+# and x1.4's Cout 448 block (Ce 1344 over 42 chunks), besides PACK_CASES
+F32_CASES = PACK_CASES + [
+    (3, 3, 120, 720, 120, 1, True, True),  # x0.75 blocks 14-15 at 96
+    (3, 3, 72, 432, 120, 2, True, False),  # block 13: 6x6 -> 3x3
+    (6, 6, 48, 288, 72, 1, True, False),  # block 10
+    (6, 6, 72, 432, 72, 1, True, True),  # blocks 11-12
+    (6, 6, 24, 144, 48, 2, True, False),  # block 6: 12x12 -> 6x6
+    (3, 3, 224, 1344, 448, 1, True, False),  # x1.4's Cout 448
+]
+
+
+@pytest.mark.parametrize("case", F32_CASES)
+def test_f32_packed_plain_version_equals_reference(case):
+    """The float32 packed weights (``pack_mbconv_f32``), unpacked and run
+    through ``reference_mbconv``, give the unpacked weights' result bit for
+    bit; the padding of Ce is zeros and every chunk is whole 16-byte
+    copies. (The plain version over the padded problem is not bitwise: a
+    CPU GEMM blocks a K of 448 otherwise than one of 432.)"""
+    stride, residual, cin, ce, cout, expand = case[5], case[7], case[2], case[3], case[4], case[6]
+    x, we, be, wd, bd, wp, bp = _block(case, torch.float32)
+    p = M.pack_mbconv_f32(we, be, wd, bd, wp)
+    assert (p.layout, p.dtype, p.kpad, p.coutp) == ("f32", torch.float32, cin, cout)
+    assert p.nchunks == -(-ce // M.F32_CH) and p.w.dtype == torch.uint8
+    lay = M.kernel_layout_f32(stride, 1, 1, 1, cin, cout, expand, 1)
+    assert p.w.numel() == p.nchunks * lay.chunk_bytes and lay.chunk_bytes % 16 == 0
+    assert M.packed_like(p.w, we, wd, wp) == p
+    we2, be2, wd2, bd2, wp2 = M.unpack_mbconv(p)
+    assert torch.equal(wd2[..., :ce], wd) and not wd2[..., ce:].any()
+    assert torch.equal(bd2[:ce], bd) and not bd2[ce:].any()
+    assert torch.equal(wp2[:ce], wp) and not wp2[ce:].any()
+    if expand:
+        assert torch.equal(we2[:, :ce], we) and not we2[:, ce:].any()
+        assert torch.equal(be2[:ce], be) and not be2[ce:].any()
+    got = M.reference_mbconv(x, we2[:, :ce] if expand else None, be2[:ce] if expand else None,
+                             wd2[..., :ce], bd2[:ce], wp2[:ce], bp, stride=stride,
+                             residual=residual)
+    want = M.reference_mbconv(x, we, be, wd, bd, wp, bp, stride=stride, residual=residual)
+    assert torch.equal(got, want)
+
+
+def kernel_model_f32(x, packed, bp, stride, residual, plan):
+    """numpy model of ``mbconv_f32`` (csrc/mbconv.cu), index for index: per
+    (image, tile, cluster rank) the in-image halo rectangle and its pixel
+    groups, the rank's chunks, the shared-memory layout and weight rings of
+    ``kernel_layout_f32`` with their two stages, the pipeline and which
+    stage each step reads; without a cluster the project owners; with one,
+    each rank's depthwise chunks kept, then each rank's project slice of
+    Cout over all chunks, each chunk read from the rank that made it.
+    Buffers start as NaN where the kernel leaves them unwritten, so a read
+    of the wrong stage, rank or chunk, or of a pixel no thread computed,
+    shows in the output. float64 arithmetic."""
+    th, tw, rq, px, R = plan.th, plan.tw, plan.rq, plan.px, plan.cluster
+    xb = x.numpy().astype(np.float64)
+    B, H, W, cin = xb.shape
+    cout, n, expand = packed.cout, packed.nchunks, packed.expand
+    w = packed.w.view(torch.float32).numpy().astype(np.float64).reshape(n, -1)
+    S, PAD, CH = stride, 1 if stride == 1 else 0, M.F32_CH
+    lay = M.kernel_layout_f32(S, th, tw, rq, cin, cout, expand, R, n)
+    assert plan.smem == lay.smem <= M.SMEM_LIMIT
+    e_part, d_part = ((cin + 1) * CH if expand else 0), 10 * CH
+    Ho, Wo = H // S, W // S
+    tiles_w, tiles_h = -(-Wo // tw), -(-Ho // th)
+    cgs = cout // 8
+    owners = [(t // cgs * rq, t % cgs * 8) for t in range(M.F32_NT)
+              if R == 1 and t < lay.poutp // rq * cgs]
+    out = np.full((B, Ho, Wo, cout), np.nan)
+    for b in range(B):
+        for tile in range(tiles_w * tiles_h):
+            oy0, ox0 = tile // tiles_w * th, tile % tiles_w * tw
+            iy0, ix0 = oy0 * S - PAD, ox0 * S - PAD
+            ry0, ry1 = max(0, -iy0), min(lay.hin, H - iy0)
+            rx0, rx1 = max(0, -ix0), min(lay.win, W - ix0)
+            rw, npix = rx1 - rx0, (ry1 - ry0) * (rx1 - rx0)
+            G = -(-npix // px)
+            cover = sorted(g + r * G for g in range(G) for r in range(px) if g + r * G < npix)
+            assert cover == list(range(npix))  # each in-image halo pixel once
+            pix = [(ry0 + m // rw) * lay.win + rx0 + m % rw for m in cover]
+            x_s = np.full((lay.pin, lay.xs), np.nan)
+            for m, p in zip(cover, pix):
+                x_s[p, :cin] = xb[b, iy0 + ry0 + m // rw, ix0 + rx0 + m % rw]
+            total = np.full((lay.pout, cout), np.nan)
+            kept = []  # with a cluster: each rank's depthwise chunks
+            for rank in range(R):
+                c0 = rank * n // R
+                nloc = (rank + 1) * n // R - c0
+                assert 1 <= nloc <= lay.nloc
+                e_s = np.zeros((2, lay.pin, CH))
+                d_s = np.full((2 if R == 1 else nloc, lay.poutp, CH), np.nan)
+                ring = {k: np.full((2, size), np.nan) for k, size in
+                        (("e", e_part), ("d", d_part), ("p", CH * cout))}
+
+                def stage(kind, slot, c):
+                    off = {"e": 0, "d": e_part, "p": e_part + d_part}[kind]
+                    ring[kind][slot] = w[c0 + c, off:off + ring[kind].shape[1]]
+
+                if expand:
+                    stage("e", 0, 0)
+                    if nloc > 1:
+                        stage("e", 1, 1)
+                stage("d", 0, 0)
+                acc = np.full((lay.poutp, cout), np.nan)
+                for q0, co0 in owners:
+                    acc[q0:q0 + rq, co0:co0 + 8] = 0.0
+                for i in range(nloc + (2 if R == 1 else 1)):
+                    if i < nloc:  # expand of chunk i
+                        e = e_s[i & 1]
+                        if expand:
+                            we = ring["e"][i & 1][:cin * CH].reshape(cin, CH)
+                            be = ring["e"][i & 1][cin * CH:]
+                            e[pix] = np.clip(x_s[pix, :cin] @ we + be, 0, 6)
+                        else:
+                            ch = (c0 + i) * CH + np.arange(CH)
+                            e[pix] = np.where(ch < cin, x_s[pix][:, np.minimum(ch, cin - 1)], 0)
+                    if 1 <= i <= nloc:  # depthwise of chunk i - 1
+                        wd = ring["d"][(i - 1) & 1]
+                        e, d = e_s[(i - 1) & 1], d_s[(i - 1) & 1 if R == 1 else i - 1]
+                        d[:] = 0.0
+                        for q in range(lay.pout):
+                            oy, ox = divmod(q, tw)
+                            a = sum(e[(oy * S + di) * lay.win + ox * S + dj] * wd[(di * 3 + dj)
+                                    * CH:(di * 3 + dj + 1) * CH] for di in range(3)
+                                    for dj in range(3))
+                            d[q] = np.clip(a + wd[9 * CH:], 0, 6)
+                    if i >= 2 and R == 1:  # project of chunk i - 2
+                        wp = ring["p"][i & 1].reshape(CH, cout)
+                        for q0, co0 in owners:
+                            acc[q0:q0 + rq, co0:co0 + 8] += d_s[i & 1][q0:q0 + rq] @ wp[:,
+                                                                                      co0:co0 + 8]
+                    if expand and i + 2 < nloc:
+                        stage("e", i & 1, i + 2)
+                    if i + 1 < nloc:
+                        stage("d", (i + 1) & 1, i + 1)
+                    if R == 1 and i < nloc:
+                        stage("p", i & 1, i)
+                if R == 1:
+                    total = acc[:lay.pout]
+                kept.append(d_s)
+            for rank in range(R if R > 1 else 0):  # with a cluster: each rank's slice
+                g0, g1 = rank * cgs // R, (rank + 1) * cgs // R
+                nq4 = (g1 - g0) * 2
+                assert nq4 * 4 <= lay.slice and lay.pout * nq4 <= M.F32_MAX_UNITS * M.F32_NT
+                units = [(u // nq4, g0 * 8 + u % nq4 * 4) for u in range(lay.pout * nq4)]
+                acc = {u: np.zeros(4) for u in units}
+                for c in range(n):
+                    k = ((c + 1) * R - 1) // n  # the rank whose chunks hold c
+                    assert k * n // R <= c < (k + 1) * n // R
+                    dc = kept[k][c - k * n // R][:lay.pout]
+                    wp = w[c, e_part + d_part:].reshape(CH, cout)
+                    for q, co in units:
+                        acc[(q, co)] += dc[q] @ wp[:, co:co + 4]
+                for (q, co), v in acc.items():
+                    total[q, co:co + 4] = v
+            for q in range(lay.pout):
+                qy, qx = divmod(q, tw)
+                oy, ox = oy0 + qy, ox0 + qx
+                if oy < Ho and ox < Wo:
+                    v = total[q] + bp.numpy()
+                    if S == 1 and residual:
+                        v = v + x_s[(qy + 1) * lay.win + qx + 1, :cout]
+                    out[b, oy, ox] = v
+    return out
+
+
+def _forced_plan(case, batch, **kw):
+    h, w, cin, ce, cout, stride, expand, _ = case
+    n = -(-ce // M.F32_CH)
+    p = M.plan_tile_f32(h, w, stride, cin, ce, cout, expand, batch)._replace(**kw)
+    cluster = min(p.cluster, n)
+    rq = M._rq(p.th * p.tw, cout) if cluster == 1 else 1
+    lay = M.kernel_layout_f32(stride, p.th, p.tw, rq, cin, cout, expand, cluster, n)
+    return p._replace(rq=rq, cluster=cluster, smem=lay.smem)
+
+
+@pytest.mark.parametrize("variant", ["plan_b2", "plan_b1_px1", "cluster1", "ragged_tiles",
+                                     "whole_map"])
+@pytest.mark.parametrize("case", F32_CASES)
+def test_f32_kernel_model_matches_reference(case, variant):
+    """The model of the kernel, under its own plan at b2 and under forced
+    ones (one pixel a thread; no cluster; tiles that overhang the map; the
+    whole map as one tile, whose owners take 2 or 4 pixels), computes the
+    block within atol = rtol = 1e-5 of the float32 reference."""
+    stride, residual = case[5], case[7]
+    x, we, be, wd, bd, wp, bp = _block(case, torch.float32)
+    packed = M.pack_mbconv_f32(we, be, wd, bd, wp)
+    plan = {"plan_b2": lambda: _forced_plan(case, 2),
+            "plan_b1_px1": lambda: _forced_plan(case, 1, px=1),
+            "cluster1": lambda: _forced_plan(case, 2, cluster=1, px=2),
+            "ragged_tiles": lambda: _forced_plan(case, 2, th=min(case[0], 4), tw=min(case[1], 3),
+                                                 px=4),
+            "whole_map": lambda: _forced_plan(case, 2, th=case[0], tw=case[1], px=2)}[variant]()
+    got = kernel_model_f32(x, packed, bp, stride, residual, plan)
+    want = M.reference_mbconv(x, we, be, wd, bd, wp, bp, stride=stride, residual=residual)
+    assert not np.isnan(got).any()
+    np.testing.assert_allclose(got, want.double().numpy(), atol=1e-5, rtol=1e-5)
+
+
+def _f32_plans(shapes, batch, num_sms=132):
+    for ho, wo, stride, cin, ce, cout, expand in shapes:
+        p = M.plan_tile_f32(ho, wo, stride, cin, ce, cout, expand, batch, num_sms)
+        n = -(-ce // M.F32_CH)
+        lay = M.kernel_layout_f32(stride, p.th, p.tw, p.rq, cin, cout, expand, p.cluster, n)
+        # shared memory: the layout's, within the 227 KB a block may use
+        assert p.smem == lay.smem <= M.SMEM_LIMIT
+        assert p.ctas_per_sm == min(2, M.SM_SHARED // (p.smem + 1024)) >= 1
+        # the tiles cover every output pixel exactly once
+        assert 1 <= p.th <= min(ho, M.F32_MAX_TILE) and 1 <= p.tw <= min(wo, M.F32_MAX_TILE)
+        cover = np.zeros((ho, wo), int)
+        for t in range(p.tiles):
+            oy, ox = t // -(-wo // p.tw) * p.th, t % -(-wo // p.tw) * p.tw
+            cover[oy:oy + p.th, ox:ox + p.tw] += 1
+        assert p.tiles == -(-ho // p.th) * -(-wo // p.tw) and (cover == 1).all()
+        # the project owners fit the CTA (a cluster: each rank's units of its
+        # slice of Cout fit F32_MAX_UNITS a thread, and the slices cover Cout)
+        assert p.rq in (1, 2, 4) and p.px in (1, 2, 4) and lay.poutp >= p.th * p.tw
+        if p.cluster == 1:
+            assert lay.poutp // p.rq * (cout // 8) <= M.F32_NT
+        else:
+            groups = [(k + 1) * (cout // 8) // p.cluster - k * (cout // 8) // p.cluster
+                      for k in range(p.cluster)]
+            assert p.rq == 1 and sum(groups) == cout // 8 and max(groups) * 8 <= lay.slice
+            assert p.th * p.tw * max(groups) * 2 <= M.F32_MAX_UNITS * M.F32_NT
+        # the cluster's ranks split the chunks, none left out, none empty
+        assert 1 <= p.cluster <= min(M.F32_MAX_CLUSTER, n)
+        shares = [(k * n // p.cluster, (k + 1) * n // p.cluster) for k in range(p.cluster)]
+        assert shares[0][0] == 0 and shares[-1][1] == n
+        assert all(a < b for a, b in shares) and all(s[1] == t[0] for s, t in
+                                                     zip(shares, shares[1:]))
+        # the grid fills the card where batch x tiles x 8 allows it
+        assert p.ctas == batch * p.tiles * p.cluster
+        if batch * p.tiles * min(M.F32_MAX_CLUSTER, n) >= num_sms:
+            assert p.ctas >= num_sms
+        if batch * p.tiles >= num_sms:
+            assert p.cluster == 1  # the plain tiled path where the grid already fills the card
+
+
+@pytest.mark.parametrize("alpha,size,batch", [(0.75, 96, 8), (0.75, 160, 8), (0.75, 320, 128),
+                                              (0.75, 320, 2), (0.75, 320, 1), (1.4, 224, 128),
+                                              (1.4, 224, 2), (0.75, 224, 128), (0.75, 416, 4)])
+def test_f32_tile_plan(alpha, size, batch):
+    """``plan_tile_f32`` at the float32 path's shapes: the learn phase's
+    [8, 96] and [8, 160], the eval's b128 @320, the checks' b1/b2, x1.4's
+    COCO shapes, the zoom crop and an odd 13x13 map."""
+    _f32_plans(_block_shapes(size, alpha), batch)
+
+
+def test_f32_tile_plan_wide_and_on_fewer_sms():
+    """x1.4's Cout 448 (owners need 4 pixels a thread), and a card with
+    fewer SMs (the cluster follows ``num_sms``)."""
+    _f32_plans([(3, 3, 1, 224, 1344, 448, True), (7, 7, 1, 224, 1344, 448, True)], 8)
+    _f32_plans(_block_shapes(96), 8, num_sms=66)
+    p = M.plan_tile_f32(3, 3, 1, 120, 720, 120, True, 8, 132)
+    assert p.cluster > 1 and p.ctas >= 64  # 8 images of a 3x3 map spread over the card

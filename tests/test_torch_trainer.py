@@ -176,7 +176,8 @@ NEW_MODULES = ("yoloret_tpu_torch.train", "yoloret_tpu_torch.train.freeze",
                "yoloret_tpu_torch.data.pipeline", "yoloret_tpu_torch.infer.predictor",
                "yoloret_tpu_torch.cli.main", "yoloret_tpu_torch.utils.keras_import",
                "yoloret_tpu_torch.tools.selfcheck", "yoloret_tpu_torch.tools.accuracy_gate",
-               "yoloret_tpu_torch.tools.topk_study", "yoloret_tpu_torch.tools.selfcheck_spread")
+               "yoloret_tpu_torch.tools.topk_study", "yoloret_tpu_torch.tools.selfcheck_spread",
+               "yoloret_tpu_torch.ops.mbconv", "yoloret_tpu_torch.tools.mbconv_f32_bench")
 
 
 def test_training_modules_import_no_jax():

@@ -56,9 +56,36 @@
 // Values are rounded to bf16 where the JAX kernel rounds (after the
 // expand, after the depthwise, at the output); sums are float32.
 //
-// float32 (checks against the plain version), mbconv_f32: the same steps
-// as fp32 FMAs on the CUDA cores, register-blocked, one output tile per
-// thread block; its tile is chosen here (choose_tile_f32).
+// float32, mbconv_f32: the port's exact mode, the float32 evaluation path
+// (the self-check's verdict, the accuracy gate, the top-k study, every
+// --no-bf16 run). The same steps as fp32 FMAs with fp32 sums on the CUDA
+// cores (TF32 would keep ~3 digits), register-blocked: the expand px (1, 2
+// or 4) pixels x 4 channels a thread, the depthwise a lane per channel, the
+// project rq pixels x 8 channels. Float32 doubles the bytes and runs at
+// 1/15 of the bf16 tensor cores' rate, so at b128 its blocks are bound by
+// operations (in practice by the shared-memory wavefronts of the 16-byte
+// operand loads); at the learn phase's b8 a block is a few microseconds of
+// work and what bounds it is latency. The design, against the first
+// version's (commit 63bfe4e):
+// - weights packed once per model (ops/mbconv.py::pack_mbconv_f32), one
+//   contiguous run per chunk of 32 expanded channels, staged by cp.async
+//   into two-stage rings one pipeline step ahead, instead of scalar
+//   gathers from device memory in every chunk;
+// - a three-step software pipeline (expand of chunk i, depthwise of i - 1,
+//   project of i - 2) with one barrier a step, instead of four a chunk;
+// - the expand only over the halo pixels inside the image (a 3x3 map's
+//   5x5 halo holds 9);
+// - where (tile, image) pairs leave SMs idle, a thread-block cluster of up
+//   to 8 CTAs splits each pair: each CTA runs the expand and depthwise of
+//   a contiguous share of the chunks and keeps them in its shared memory;
+//   after a cluster barrier each runs the project of a slice of Cout over
+//   all chunks, reading the others' depthwise chunks through distributed
+//   shared memory. Each output is summed over the chunks in order, as
+//   without a cluster: no atomics, and the same bits under every plan and
+//   on every run (the first version's bits; partial sums added across the
+//   cluster would round otherwise). ops/mbconv.py::plan_tile_f32 chooses
+//   the tile, the pixels per thread and the cluster, counting waves over
+//   the card's SMs.
 
 #include <cuda.h>
 #include <cuda_bf16.h>
@@ -72,253 +99,446 @@ using bf16 = __nv_bfloat16;
 __device__ __forceinline__ float relu6f(float v) { return fminf(fmaxf(v, 0.f), 6.f); }
 __host__ __device__ constexpr size_t align16(size_t v) { return (v + 15) & ~size_t(15); }
 __host__ __device__ constexpr int round_up(int v, int m) { return (v + m - 1) / m * m; }
+constexpr int SMEM_LIMIT = 232448;  // 227 KB a block can use on sm_90
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
 
 // ---------------------------------------------------------------------------
-// float32: CUDA-core kernel, one output tile per thread block
+// float32: CUDA-core kernel, chunk-pipelined, clusters on small grids
 // ---------------------------------------------------------------------------
 
-constexpr int F_NT = 256;      // threads per block
-constexpr int F_CH = 32;       // expanded channels per chunk
-constexpr int F_ES = F_CH + 8; // row stride of the expanded chunk (no bank conflicts)
-constexpr int F_DS = F_CH + 1; // row stride of the depthwise chunk (no bank conflicts)
-constexpr int F_MAX_TILE = 16; // output tile side limit
-constexpr int F_MAX_RQ = 4;    // project pixels per thread
+constexpr int F_NT = 256;         // threads per block
+constexpr int F_CH = 32;          // expanded channels per chunk (a lane each in the depthwise)
+constexpr int F_DS = F_CH + 1;    // row stride of the depthwise chunk (no bank conflicts)
+constexpr int F_MAX_RQ = 4;       // project pixels per thread
+constexpr int F_MAX_CLUSTER = 8;  // CTAs of a cluster (the portable limit)
+constexpr int F_BG = 4;           // chunks a step of a cluster's project
+constexpr int F_MAX_UNITS = 4;    // project units (1 pixel x 4 channels) a thread, with a cluster
+
+// Tile geometry and shared-memory layout of a float32 launch; the same
+// formulas as ops/mbconv.py::kernel_layout_f32, which chose the plan.
+// Without a cluster: the input tile, two expanded chunks, two depthwise
+// chunks and two stages of each weight part. With one: the input tile,
+// this CTA's depthwise chunks (all of them, read by the whole cluster),
+// two expanded chunks and the expand and depthwise rings; then the
+// project's two stages of F_BG depthwise chunks and project-weight slices
+// alias everything after the depthwise chunks.
+struct FLayout {
+  int win, hin, pin, pout, poutp;
+  int xs;                      // row stride of the input tile, = 8 (mod 16) floats
+  int e_part, d_part, p_part;  // floats of one packed chunk's parts
+  int nloc, slice;             // with a cluster: chunks a CTA holds, project channels a CTA
+  size_t dl, e, d, we, wd, wp, bd, bw, total;  // byte offsets
+};
+
+__host__ __device__ inline FLayout f_layout(int stride, int th, int tw, int rq, int cin, int cout,
+                                            int expand, int cluster, int nchunks) {
+  FLayout l;
+  l.win = (tw - 1) * stride + 3;
+  l.hin = (th - 1) * stride + 3;
+  l.pin = l.hin * l.win;
+  l.pout = th * tw;
+  l.poutp = round_up(l.pout, rq);
+  l.xs = cin + (24 - cin % 16) % 16;
+  l.e_part = expand ? cin * F_CH + F_CH : 0;  // we [Cin][32], be [32]
+  l.d_part = 9 * F_CH + F_CH;                 // wd [9][32], bd [32]
+  l.p_part = F_CH * cout;                     // wp [32][Cout]
+  l.nloc = (nchunks + cluster - 1) / cluster;
+  l.slice = (cout / 8 + cluster - 1) / cluster * 8;
+  const size_t x_end = align16(size_t(l.pin) * l.xs * 4);  // x tile [PIN][XS]
+  if (cluster == 1) {
+    l.dl = l.bd = l.bw = 0;
+    l.e = x_end;                                           // expanded chunks 2 x [PIN][32]
+    l.d = l.e + size_t(2) * l.pin * F_CH * 4;              // depthwise chunks 2 x [POUTP][DS]
+    l.we = align16(l.d + size_t(2) * l.poutp * F_DS * 4);  // weight rings, two stages each
+    l.wd = l.we + size_t(2) * l.e_part * 4;
+    l.wp = l.wd + size_t(2) * l.d_part * 4;
+    l.total = l.wp + size_t(2) * l.p_part * 4;
+  } else {
+    l.d = 0;
+    l.dl = x_end;                                        // depthwise chunks nloc x [POUTP][32]
+    l.e = l.dl + size_t(l.nloc) * l.poutp * F_CH * 4;    // expanded chunks 2 x [PIN][32]
+    l.we = l.e + size_t(2) * l.pin * F_CH * 4;           // expand and depthwise rings
+    l.wd = l.we + size_t(2) * l.e_part * 4;
+    l.wp = l.wd + size_t(2) * l.d_part * 4;              // (no project ring)
+    l.bd = l.e;                                          // project: 2 x F_BG x [POUT][32]
+    l.bw = l.bd + size_t(2) * F_BG * l.pout * F_CH * 4;  // and 2 x F_BG x [32][slice]
+    const size_t b_end = l.bw + size_t(2) * F_BG * F_CH * l.slice * 4;
+    l.total = l.wp > b_end ? l.wp : b_end;
+  }
+  return l;
+}
+
+struct FParams {
+  const float* x;
+  const float* w;  // packed weights, nchunks x (e_part + d_part + p_part) floats
+  const float* bp;
+  float* out;
+  int H, W, Cin, Cout, nchunks, expand, residual;
+  int th, tw, rq, px, cluster, tiles_w;
+};
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;" ::"r"(smem_u32(dst)), "l"(src)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;" ::: "memory");
+}
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_all;" ::: "memory");
+}
+__device__ __forceinline__ void cluster_sync() {
+  asm volatile("barrier.cluster.arrive.aligned;\n\tbarrier.cluster.wait.aligned;" ::: "memory");
+}
+__device__ __forceinline__ uint32_t cluster_rank() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;" : "=r"(r));
+  return r;
+}
+// Four floats of the shared memory of CTA `rank` of this cluster, at the
+// address `addr` has in this CTA.
+__device__ __forceinline__ float4 ld_cluster_f4(uint32_t addr, uint32_t rank) {
+  uint32_t ra;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;" : "=r"(ra) : "r"(addr), "r"(rank));
+  float4 v;
+  asm volatile("ld.shared::cluster.v4.f32 {%0, %1, %2, %3}, [%4];"
+               : "=f"(v.x), "=f"(v.y), "=f"(v.z), "=f"(v.w)
+               : "r"(ra)
+               : "memory");
+  return v;
+}
 
 __device__ __forceinline__ void load4(const float* p, float v[4]) {
   const float4 t = *reinterpret_cast<const float4*>(p);
   v[0] = t.x; v[1] = t.y; v[2] = t.z; v[3] = t.w;
 }
-
-struct FLayout {  // tile geometry and byte offsets into dynamic shared memory
-  int win, pin, pinr, pout, poutp;
-  size_t e, d, we, wp, wd, total;
-};
-
-__host__ __device__ inline FLayout f_layout(int stride, int th, int tw, int rq, int cin,
-                                            int cout) {
-  FLayout l;
-  l.win = (tw - 1) * stride + 3;
-  l.pin = ((th - 1) * stride + 3) * l.win;
-  l.pout = th * tw;
-  l.pinr = round_up(l.pin, 4);
-  l.poutp = round_up(l.pout, rq);
-  l.e = align16(size_t(l.pinr) * cin * 4);            // x tile [PINR][Cin]
-  l.d = l.e + align16(size_t(l.pin) * F_ES * 4);      // expanded chunk [PIN][ES]
-  l.we = l.d + align16(size_t(l.poutp) * F_DS * 4);   // depthwise chunk [POUTP][DS]
-  l.wp = l.we + align16(size_t(cin) * F_CH * 4);      // expand weights [Cin][CH]
-  l.wd = l.wp + align16(size_t(F_CH) * cout * 4);     // project weights [CH][Cout]
-  l.total = l.wd + align16(size_t(9) * F_CH * 4);     // depthwise weights [9][CH]
-  return l;
+__device__ __forceinline__ float4 relu6f4(float4 v) {
+  return make_float4(relu6f(v.x), relu6f(v.y), relu6f(v.z), relu6f(v.w));
+}
+__device__ __forceinline__ void add4(float4& a, const float4 b) {
+  a.x += b.x; a.y += b.y; a.z += b.z; a.w += b.w;
 }
 
+// One CTA: one (output tile, image), or with a cluster of `cluster` CTAs
+// the expand and depthwise of chunks [rank * n / cluster, (rank + 1) * n /
+// cluster) of it and the project of a slice of Cout over all n chunks.
+// Every output is the same sum in the same order (chunks, then channels,
+// ascending, one fmaf each) under every plan: a cluster changes which SM
+// adds, never the bits.
 template <int S>
-__global__ void __launch_bounds__(F_NT) mbconv_f32(
-    const float* __restrict__ x, const float* __restrict__ we, const float* __restrict__ be,
-    const float* __restrict__ wd, const float* __restrict__ bd, const float* __restrict__ wp,
-    const float* __restrict__ bp, float* __restrict__ out, int H, int W, int Cin, int Ce,
-    int Cout, int expand, int residual, int th, int tw, int rq, int tiles_w) {
+__global__ void __launch_bounds__(F_NT, 2) mbconv_f32(const FParams p) {
   constexpr int PAD = S == 1 ? 1 : 0;  // "SAME": (1, 1) at stride 1, (0, 1) at stride 2
-  const FLayout L = f_layout(S, th, tw, rq, Cin, Cout);
-  const int win = L.win, PIN = L.pin;
-  const int Ho = H / S, Wo = W / S;
-  const int b = blockIdx.y;
-  const int oy0 = (blockIdx.x / tiles_w) * th, ox0 = (blockIdx.x % tiles_w) * tw;
+  const FLayout L = f_layout(S, p.th, p.tw, p.rq, p.Cin, p.Cout, p.expand, p.cluster, p.nchunks);
+  const int win = L.win, XS = L.xs, Cin = p.Cin, Cout = p.Cout, R = p.cluster;
+  const bool clustered = R > 1;
+  const int Ho = p.H / S, Wo = p.W / S;
+  const int b = blockIdx.y, tile = blockIdx.x / R;
+  const int rank = clustered ? int(cluster_rank()) : 0;
+  const int oy0 = (tile / p.tiles_w) * p.th, ox0 = (tile % p.tiles_w) * p.tw;
   const int iy0 = oy0 * S - PAD, ix0 = ox0 * S - PAD;
+  // the halo pixels inside the image: a rectangle; the others are padding
+  const int ry0 = max(0, -iy0), ry1 = min(L.hin, p.H - iy0);
+  const int rx0 = max(0, -ix0), rx1 = min(win, p.W - ix0);
+  const int rw = rx1 - rx0, npix = (ry1 - ry0) * rw;
+  const int c_begin = rank * p.nchunks / R;
+  const int nloc = (rank + 1) * p.nchunks / R - c_begin;
   const int tid = threadIdx.x;
 
   extern __shared__ __align__(16) unsigned char smem[];
   float* x_s = reinterpret_cast<float*>(smem);
   float* e_s = reinterpret_cast<float*>(smem + L.e);
-  float* d_s = reinterpret_cast<float*>(smem + L.d);
+  float* d_s = reinterpret_cast<float*>(smem + (clustered ? L.dl : L.d));
   float* we_s = reinterpret_cast<float*>(smem + L.we);
-  float* wp_s = reinterpret_cast<float*>(smem + L.wp);
   float* wd_s = reinterpret_cast<float*>(smem + L.wd);
+  float* wp_s = reinterpret_cast<float*>(smem + L.wp);
+  const int ebuf = L.pin * F_CH;
+  // without a cluster two depthwise buffers [POUTP][DS]; with one, this
+  // CTA's chunk i at i * dbuf, [POUTP][32]
+  const int dstride = clustered ? F_CH : F_DS, dbuf = L.poutp * dstride;
+  const size_t chunk = size_t(L.e_part) + L.d_part + L.p_part;
+  const float* wg = p.w + size_t(c_begin) * chunk;  // this CTA's first chunk
 
-  // input tile with its halo, 16 bytes a load; image padding is zero
-  const float* xb = x + size_t(b) * H * W * Cin;
-  for (int i = tid; i < L.pinr * (Cin / 4); i += F_NT) {
-    const int p = i / (Cin / 4), c = (i - p * (Cin / 4)) * 4;
-    const int gy = iy0 + p / win, gx = ix0 + p % win;
-    float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
-    if (p < PIN && gy >= 0 && gy < H && gx >= 0 && gx < W)
-      v = *reinterpret_cast<const float4*>(xb + (size_t(gy) * W + gx) * Cin + c);
-    *reinterpret_cast<float4*>(x_s + p * Cin + c) = v;
+  // chunk c's part (offset off, n floats) into dst, 16 bytes a thread a step
+  auto stage = [&](float* dst, int c, int off, int n) {
+    const float* src = wg + size_t(c) * chunk + off;
+    for (int i = tid * 4; i < n; i += F_NT * 4) cp_async16(dst + i, src + i);
+  };
+
+  // both expanded buffers start at zero: halo pixels outside the image
+  // are never written, so they stay the depthwise's zero padding
+  for (int i = tid; i < 2 * ebuf / 4; i += F_NT)
+    reinterpret_cast<float4*>(e_s)[i] = make_float4(0.f, 0.f, 0.f, 0.f);
+  // first copies: the input tile (the pixels inside the image) and the
+  // first chunk's expand weights
+  const float* xb = p.x + size_t(b) * p.H * p.W * Cin;
+  const int cq = Cin / 4;
+  for (int i = tid; i < npix * cq; i += F_NT) {
+    const int n = i / cq, c = (i - n * cq) * 4;
+    const int hy = ry0 + n / rw, hx = rx0 + n % rw;
+    cp_async16(x_s + (hy * win + hx) * XS + c,
+               xb + (size_t(iy0 + hy) * p.W + ix0 + hx) * Cin + c);
   }
+  if (p.expand && nloc > 0) stage(we_s, 0, 0, L.e_part);
+  cp_async_commit();
+  cp_async_wait_all();
+  __syncthreads();
+  if (p.expand && nloc > 1) stage(we_s + L.e_part, 1, 0, L.e_part);
+  if (nloc > 0) stage(wd_s, 0, L.e_part, L.d_part);
+  cp_async_commit();
 
-  // project accumulators: rq pixels x 8 channels per thread
-  const int cgs = Cout / 8;
-  const bool owner = tid < (L.poutp / rq) * cgs;
-  const int q0 = (tid / cgs) * rq, co0 = (tid % cgs) * 8;
-  float acc[F_MAX_RQ * 8];
-#pragma unroll
-  for (int r = 0; r < F_MAX_RQ * 8; ++r) acc[r] = 0.f;
-
-  for (int c0 = 0; c0 < Ce; c0 += F_CH) {
-    const int nc = min(F_CH, Ce - c0);
-    if (expand) {
-      for (int i = tid; i < Cin * F_CH; i += F_NT) {
-        const int k = i / F_CH, j = i - k * F_CH;
-        we_s[i] = j < nc ? we[size_t(k) * Ce + c0 + j] : 0.f;
-      }
-    }
-    for (int i = tid; i < F_CH * Cout; i += F_NT) {
-      const int j = i / Cout, co = i - j * Cout;
-      wp_s[i] = j < nc ? wp[size_t(c0 + j) * Cout + co] : 0.f;
-    }
-    for (int i = tid; i < 9 * F_CH; i += F_NT) {
-      const int tap = i / F_CH, j = i - tap * F_CH;
-      wd_s[i] = j < nc ? wd[tap * Ce + c0 + j] : 0.f;
-    }
-    __syncthreads();
-
-    // expand + ReLU6 over the halo tile; image padding stays zero
-    for (int i = tid; i < (L.pinr / 4) * F_CH; i += F_NT) {
-      const int p0 = (i / F_CH) * 4, j = i % F_CH;
-      float a[4] = {0.f, 0.f, 0.f, 0.f};
-      if (j < nc && expand) {
-        for (int k = 0; k < Cin; k += 4) {
-          const float w0 = we_s[k * F_CH + j], w1 = we_s[(k + 1) * F_CH + j];
-          const float w2 = we_s[(k + 2) * F_CH + j], w3 = we_s[(k + 3) * F_CH + j];
-#pragma unroll
-          for (int r = 0; r < 4; ++r) {
-            float xv[4];
-            load4(x_s + (p0 + r) * Cin + k, xv);
-            a[r] += xv[0] * w0;
-            a[r] += xv[1] * w1;
-            a[r] += xv[2] * w2;
-            a[r] += xv[3] * w3;
-          }
-        }
-      }
+  // expand + ReLU6 of local chunk c into e: a thread computes px (1, 2
+  // or 4) pixels x 4 channels; a warp takes 4 pixel groups x the chunk's
+  // 32 channels, and pixel r of group g is in-image pixel g + r * G, so a
+  // warp's four x reads are neighbouring pixels (XS = 8 mod 16: distinct
+  // banks)
+  auto expand = [&](int c, const float* w_e, float* e) {
+    const int G = (npix + p.px - 1) / p.px;
+    for (int i = tid; i < G * 8; i += F_NT) {
+      const int g = i >> 3, jq = (i & 7) * 4;
+      int pr[4];
 #pragma unroll
       for (int r = 0; r < 4; ++r) {
-        const int p = p0 + r;
-        if (p >= PIN) continue;
-        const int gy = iy0 + p / win, gx = ix0 + p % win;
-        float v = 0.f;
-        if (j < nc && gy >= 0 && gy < H && gx >= 0 && gx < W)
-          v = expand ? relu6f(a[r] + be[c0 + j]) : x_s[p * Cin + c0 + j];
-        e_s[p * F_ES + j] = v;
+        const int n = g + r * G;
+        pr[r] = r < p.px && n < npix ? (ry0 + n / rw) * win + rx0 + n % rw : -1;
+      }
+      if (p.expand) {
+        float a[4][4];
+#pragma unroll
+        for (int r = 0; r < 4; ++r)
+#pragma unroll
+          for (int k = 0; k < 4; ++k) a[r][k] = 0.f;
+        const float* xr[4];
+#pragma unroll
+        for (int r = 0; r < 4; ++r) xr[r] = x_s + (pr[r] >= 0 ? pr[r] : pr[0]) * XS;
+        for (int k = 0; k < Cin; k += 4) {
+          float4 w[4];
+#pragma unroll
+          for (int kk = 0; kk < 4; ++kk)
+            w[kk] = *reinterpret_cast<const float4*>(w_e + (k + kk) * F_CH + jq);
+#pragma unroll
+          for (int r = 0; r < 4; ++r) {
+            if (r >= p.px) break;
+            const float4 xv = *reinterpret_cast<const float4*>(xr[r] + k);
+            const float xk[4] = {xv.x, xv.y, xv.z, xv.w};
+#pragma unroll
+            for (int kk = 0; kk < 4; ++kk) {
+              a[r][0] = fmaf(xk[kk], w[kk].x, a[r][0]);
+              a[r][1] = fmaf(xk[kk], w[kk].y, a[r][1]);
+              a[r][2] = fmaf(xk[kk], w[kk].z, a[r][2]);
+              a[r][3] = fmaf(xk[kk], w[kk].w, a[r][3]);
+            }
+          }
+        }
+        const float4 be = *reinterpret_cast<const float4*>(w_e + Cin * F_CH + jq);
+#pragma unroll
+        for (int r = 0; r < 4; ++r)
+          if (pr[r] >= 0)
+            *reinterpret_cast<float4*>(e + pr[r] * F_CH + jq) = relu6f4(
+                make_float4(a[r][0] + be.x, a[r][1] + be.y, a[r][2] + be.z, a[r][3] + be.w));
+      } else {  // no expand: the chunk's channels of the input (zero past Cin)
+        const int ch = (c_begin + c) * F_CH + jq;
+#pragma unroll
+        for (int r = 0; r < 4; ++r) {
+          if (pr[r] < 0) continue;
+          float v[4];
+#pragma unroll
+          for (int k = 0; k < 4; ++k) v[k] = ch + k < Cin ? x_s[pr[r] * XS + ch + k] : 0.f;
+          *reinterpret_cast<float4*>(e + pr[r] * F_CH + jq) = make_float4(v[0], v[1], v[2], v[3]);
+        }
       }
     }
-    __syncthreads();
+  };
 
-    // depthwise 3x3 + ReLU6 at the output pixels; padded rows are zero
-    for (int i = tid; i < L.poutp * F_CH; i += F_NT) {
-      const int q = i / F_CH, j = i - q * F_CH;
+  // depthwise 3x3 + ReLU6 at the output pixels; a lane per channel, its
+  // nine weights and bias in registers; padded rows are zero
+  auto depthwise = [&](const float* w_d, const float* e, float* d) {
+    const int j = tid & (F_CH - 1);
+    float wr[9];
+#pragma unroll
+    for (int t = 0; t < 9; ++t) wr[t] = w_d[t * F_CH + j];
+    const float bias = w_d[9 * F_CH + j];
+    for (int q = tid / F_CH; q < L.poutp; q += F_NT / F_CH) {
       float v = 0.f;
-      if (q < L.pout && j < nc) {
-        const int oy = q / tw, ox = q - oy * tw;
+      if (q < L.pout) {
+        const int oy = q / p.tw, ox = q - oy * p.tw;
+        const float* er = e + (oy * S * win + ox * S) * F_CH + j;
         float a = 0.f;
 #pragma unroll
         for (int di = 0; di < 3; ++di)
 #pragma unroll
-          for (int dj = 0; dj < 3; ++dj)
-            a += e_s[((oy * S + di) * win + ox * S + dj) * F_ES + j] *
-                 wd_s[(di * 3 + dj) * F_CH + j];
-        v = relu6f(a + bd[c0 + j]);
+          for (int dj = 0; dj < 3; ++dj) a = fmaf(er[(di * win + dj) * F_CH], wr[di * 3 + dj], a);
+        v = relu6f(a + bias);
       }
-      d_s[q * F_DS + j] = v;
+      d[q * dstride + j] = v;
     }
-    __syncthreads();
+  };
 
-    // project partial sums
-    if (owner) {
-      for (int j = 0; j < F_CH; ++j) {
-        float w[8];
-        load4(wp_s + j * Cout + co0, w);
-        load4(wp_s + j * Cout + co0 + 4, w + 4);
+  // project sums (no cluster): rq pixels x 8 channels per owner
+  const int cgs = Cout / 8;
+  const bool owner = !clustered && tid < (L.poutp / p.rq) * cgs;
+  const int q0 = (tid / cgs) * p.rq, co0 = (tid % cgs) * 8;
+  float acc[F_MAX_RQ * 8];
 #pragma unroll
-        for (int r = 0; r < F_MAX_RQ; ++r) {
-          if (r < rq) {
-            const float dv = d_s[(q0 + r) * F_DS + j];
+  for (int r = 0; r < F_MAX_RQ * 8; ++r) acc[r] = 0.f;
+  auto project = [&](const float* w_p, const float* d) {
+    if (!owner) return;
+    for (int j = 0; j < F_CH; ++j) {
+      float w[8];
+      load4(w_p + j * Cout + co0, w);
+      load4(w_p + j * Cout + co0 + 4, w + 4);
 #pragma unroll
-            for (int c = 0; c < 8; ++c) acc[r * 8 + c] += dv * w[c];
-          }
+      for (int r = 0; r < F_MAX_RQ; ++r) {
+        if (r < p.rq) {
+          const float dv = d[(q0 + r) * F_DS + j];
+#pragma unroll
+          for (int c = 0; c < 8; ++c) acc[r * 8 + c] = fmaf(dv, w[c], acc[r * 8 + c]);
         }
       }
     }
-    __syncthreads();  // the next chunk overwrites the weights and both tiles
+  };
+
+  // A software pipeline with one barrier per step: step i runs the expand
+  // of chunk i, the depthwise of chunk i - 1 and (no cluster) the project
+  // of chunk i - 2; each reads what the step before wrote, so the buffers
+  // alternate (with a cluster each depthwise chunk keeps its own). After
+  // the barrier the weights of the chunks step i + 2 needs go in flight
+  // (cp.async) into the ring stages step i released.
+  for (int i = 0; i < nloc + (clustered ? 1 : 2); ++i) {
+    if (i < nloc) expand(i, we_s + (i & 1) * L.e_part, e_s + (i & 1) * ebuf);
+    if (i >= 1 && i <= nloc)
+      depthwise(wd_s + ((i - 1) & 1) * L.d_part, e_s + ((i - 1) & 1) * ebuf,
+                d_s + (clustered ? i - 1 : (i - 1) & 1) * dbuf);
+    if (i >= 2) project(wp_s + (i & 1) * L.p_part, d_s + (i & 1) * dbuf);
+    cp_async_wait_all();
+    __syncthreads();
+    if (p.expand && i + 2 < nloc) stage(we_s + (i & 1) * L.e_part, i + 2, 0, L.e_part);
+    if (i + 1 < nloc) stage(wd_s + ((i + 1) & 1) * L.d_part, i + 1, L.e_part, L.d_part);
+    if (!clustered && i < nloc) stage(wp_s + (i & 1) * L.p_part, i, L.e_part + L.d_part, L.p_part);
+    cp_async_commit();
   }
 
   // epilogue: + bias [+ residual], store the pixels inside the map
-  if (!owner) return;
-  float* ob = out + size_t(b) * Ho * Wo * Cout;
-#pragma unroll
-  for (int r = 0; r < F_MAX_RQ; ++r) {
-    const int q = q0 + r;
-    if (r >= rq || q >= L.pout) continue;
-    const int qy = q / tw, qx = q - qy * tw;
+  float* ob = p.out + size_t(b) * Ho * Wo * Cout;
+  auto store = [&](int q, int co, float4 v) {
+    const int qy = q / p.tw, qx = q - qy * p.tw;
     const int oy = oy0 + qy, ox = ox0 + qx;
-    if (oy >= Ho || ox >= Wo) continue;
+    if (oy >= Ho || ox >= Wo) return;
+    add4(v, *reinterpret_cast<const float4*>(p.bp + co));
+    if (S == 1 && p.residual)
+      add4(v, *reinterpret_cast<const float4*>(x_s + ((qy + 1) * win + qx + 1) * XS + co));
+    *reinterpret_cast<float4*>(ob + (size_t(oy) * Wo + ox) * Cout + co) = v;
+  };
+  if (!clustered) {
+    if (!owner) return;
 #pragma unroll
-    for (int c = 0; c < 8; c += 2) {
-      const int co = co0 + c;
-      float v0 = acc[r * 8 + c] + bp[co], v1 = acc[r * 8 + c + 1] + bp[co + 1];
-      if (S == 1 && residual) {
-        const float* xr = x_s + ((qy + 1) * win + qx + 1) * Cin + co;
-        v0 += xr[0];
-        v1 += xr[1];
-      }
-      *reinterpret_cast<float2*>(ob + (size_t(oy) * Wo + ox) * Cout + co) = make_float2(v0, v1);
+    for (int r = 0; r < F_MAX_RQ; ++r) {
+      if (r >= p.rq || q0 + r >= L.pout) continue;
+#pragma unroll
+      for (int c = 0; c < 8; c += 4)
+        store(q0 + r, co0 + c, make_float4(acc[r * 8 + c], acc[r * 8 + c + 1],
+                                           acc[r * 8 + c + 2], acc[r * 8 + c + 3]));
     }
+    return;
   }
-}
 
-struct FTile {
-  int th, tw, rq;
-};
-
-// The output tile with the lowest modelled cost per image: tiles x (the
-// expand, depthwise and project steps of one tile + weight staging),
-// counted per thread. A tile must fit the project accumulators (F_MAX_RQ
-// x 8 per thread) and shared memory, for two resident blocks if possible.
-bool choose_tile_f32(int Ho, int Wo, int stride, int Cin, int Cout, FTile* best) {
-  double best_cost = 0;
-  bool found = false;
-  const size_t limits[2] = {113 * 1024, 227 * 1024};
-  for (size_t limit : limits) {
-    for (int th = 1; th <= F_MAX_TILE && th <= Ho; ++th) {
-      for (int tw = 1; tw <= F_MAX_TILE && tw <= Wo; ++tw) {
-        int rq = 1;
-        while (rq <= F_MAX_RQ && (round_up(th * tw, rq) / rq) * (Cout / 8) > F_NT) rq *= 2;
-        if (rq > F_MAX_RQ) continue;
-        const FLayout l = f_layout(stride, th, tw, rq, Cin, Cout);
-        if (l.total > limit) continue;
-        const double tiles = double((Ho + th - 1) / th) * ((Wo + tw - 1) / tw);
-        const double depthwise = double((l.poutp * F_CH + F_NT - 1) / F_NT) * 9;
-        const double staging = 4.0 * double((Cin + Cout) * F_CH) / F_NT;
-        const double expand = double((l.pinr / 4 * F_CH + F_NT - 1) / F_NT) * 4 * Cin;
-        const double project = double(F_CH) * rq * 8;
-        const double cost = tiles * (expand + depthwise + project + staging);
-        if (!found || cost < best_cost) {
-          best_cost = cost;
-          *best = FTile{th, tw, rq};
-          found = true;
+  // Cluster: the project of channel groups [g0, g1) over all n chunks, in
+  // steps of F_BG chunks: each step's depthwise chunks are read from the
+  // CTA that made them (distributed shared memory) and its project-weight
+  // slices copied from device memory, one step ahead, into two stages. A
+  // unit is one pixel x 4 channels; each adds its chunks and channels in
+  // order, as the CTA without a cluster does.
+  cluster_sync();  // every CTA's depthwise chunks are complete
+  const int g0 = rank * cgs / R, g1 = (rank + 1) * cgs / R;
+  const int nq4 = (g1 - g0) * 2, units = L.pout * nq4, sl = L.slice;
+  float* bd_s = reinterpret_cast<float*>(smem + L.bd);
+  float* bw_s = reinterpret_cast<float*>(smem + L.bw);
+  const uint32_t dl_addr = smem_u32(smem + L.dl);
+  const int bstage_d = F_BG * L.pout * F_CH, bstage_w = F_BG * F_CH * sl;
+  auto stage_b = [&](int s, int slot) {
+    for (int cc = 0; cc < F_BG; ++cc) {
+      const int c = s * F_BG + cc;
+      if (c >= p.nchunks) break;
+      const int k = ((c + 1) * R - 1) / p.nchunks;  // the CTA whose chunks hold c
+      const int li = c - k * p.nchunks / R;
+      float* dst = bd_s + slot * bstage_d + cc * L.pout * F_CH;
+      for (int i = tid; i < L.pout * F_CH / 4; i += F_NT)
+        reinterpret_cast<float4*>(dst)[i] = ld_cluster_f4(dl_addr + (li * dbuf + i * 4) * 4, k);
+      const float* src = p.w + size_t(c) * chunk + L.e_part + L.d_part + g0 * 8;
+      float* wdst = bw_s + slot * bstage_w + cc * F_CH * sl;
+      for (int i = tid; i < F_CH * nq4; i += F_NT) {
+        const int j = i / nq4, q4 = i - j * nq4;
+        cp_async16(wdst + j * sl + q4 * 4, src + j * Cout + q4 * 4);
+      }
+    }
+    cp_async_commit();
+  };
+  float4 acc2[F_MAX_UNITS];
+#pragma unroll
+  for (int m = 0; m < F_MAX_UNITS; ++m) acc2[m] = make_float4(0.f, 0.f, 0.f, 0.f);
+  const int nsteps = (p.nchunks + F_BG - 1) / F_BG;
+  stage_b(0, 0);
+  for (int s = 0; s < nsteps; ++s) {
+    cp_async_wait_all();
+    __syncthreads();  // step s is in its stage; the other stage is free
+    if (s + 1 < nsteps) stage_b(s + 1, (s + 1) & 1);
+    const float* bd = bd_s + (s & 1) * bstage_d;
+    const float* bw = bw_s + (s & 1) * bstage_w;
+    const int ncc = min(F_BG, p.nchunks - s * F_BG);
+#pragma unroll
+    for (int m = 0; m < F_MAX_UNITS; ++m) {
+      const int u = tid + m * F_NT;
+      if (u >= units) break;
+      const int q = u / nq4, q4 = u - q * nq4;
+      for (int cc = 0; cc < ncc; ++cc) {
+        const float* dr = bd + (cc * L.pout + q) * F_CH;
+        const float* wr = bw + cc * F_CH * sl + q4 * 4;
+#pragma unroll 8
+        for (int j = 0; j < F_CH; ++j) {
+          const float dv = dr[j];
+          const float4 w = *reinterpret_cast<const float4*>(wr + j * sl);
+          acc2[m].x = fmaf(dv, w.x, acc2[m].x);
+          acc2[m].y = fmaf(dv, w.y, acc2[m].y);
+          acc2[m].z = fmaf(dv, w.z, acc2[m].z);
+          acc2[m].w = fmaf(dv, w.w, acc2[m].w);
         }
       }
     }
-    if (found) return true;
   }
-  return false;
+#pragma unroll
+  for (int m = 0; m < F_MAX_UNITS; ++m) {
+    const int u = tid + m * F_NT;
+    if (u >= units) break;
+    const int q = u / nq4, q4 = u - q * nq4;
+    store(q, g0 * 8 + q4 * 4, acc2[m]);
+  }
+  cluster_sync();  // no CTA leaves while another reads its depthwise chunks
 }
 
 template <int S>
-cudaError_t launch_f32(const float* x, const float* we, const float* be, const float* wd,
-                       const float* bd, const float* wp, const float* bp, float* out, int B,
-                       int H, int W, int Cin, int Ce, int Cout, int expand, int residual,
-                       cudaStream_t stream) {
-  const int Ho = H / S, Wo = W / S;
-  FTile t;
-  if (!choose_tile_f32(Ho, Wo, S, Cin, Cout, &t)) return cudaErrorInvalidValue;
-  const int tiles_w = (Wo + t.tw - 1) / t.tw, tiles_h = (Ho + t.th - 1) / t.th;
-  const size_t smem = f_layout(S, t.th, t.tw, t.rq, Cin, Cout).total;
-  cudaError_t e =
-      cudaFuncSetAttribute(mbconv_f32<S>, cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
+cudaError_t launch_f32(const FParams& p, int B, int tiles, size_t smem, cudaStream_t stream) {
+  static bool opted_in = false;  // the shared-memory limit is set once per kernel
+  if (!opted_in) {
+    cudaError_t e = cudaFuncSetAttribute(mbconv_f32<S>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_LIMIT);
+    if (e != cudaSuccess) return e;
+    opted_in = true;
+  }
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(tiles * p.cluster, B);
+  cfg.blockDim = dim3(F_NT);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = p.cluster;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = p.cluster > 1 ? 1 : 0;  // a cluster of one is a plain launch
+  cudaError_t e = cudaLaunchKernelEx(&cfg, mbconv_f32<S>, p);
   if (e != cudaSuccess) return e;
-  mbconv_f32<S><<<dim3(tiles_w * tiles_h, B), F_NT, smem, stream>>>(
-      x, we, be, wd, bd, wp, bp, out, H, W, Cin, Ce, Cout, expand, residual, t.th, t.tw, t.rq,
-      tiles_w);
   return cudaGetLastError();
 }
 
@@ -342,7 +562,6 @@ constexpr int MAX_NC = 4;       // consumer warpgroups, 64 output pixels each
 __host__ __device__ constexpr int max_nc(int nb) { return nb <= 2 ? 4 : 3; }
 constexpr int BAR_BYTES = 128;  // mbarriers at the start of shared memory
 constexpr int MAX_STAGES = 3;
-constexpr int SMEM_LIMIT = 232448;  // 227 KB a block can use on sm_90
 
 // Geometry of one launch; the host fills it (h_layout) from the tile plan.
 struct HParams {
@@ -357,9 +576,6 @@ struct HParams {
   uint32_t x_off, w_off, e_off, e_bytes, smem;
 };
 
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
 __device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
   asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(bar), "r"(count) : "memory");
 }
@@ -858,26 +1074,43 @@ cudaError_t launch_wgmma_nb(const CUtensorMap& map, const HParams& p, int grid,
 
 extern "C" {
 
-// float32: x [B, H, W, Cin]; we [Cin, Ce] (unused when !expand); wd [3, 3, Ce];
-// wp [Ce, Cout]; be [Ce], bd [Ce], bp [Cout]; out [B, H/stride, W/stride, Cout].
-// Needs Cin % 4 == 0 and Cout % 8 == 0. Returns the CUDA error (0 on success).
-int yrt_mbconv_f32(const void* x, const void* we, const void* be, const void* wd, const void* bd,
-                   const void* wp, const void* bp, void* out, int B, int H, int W, int Cin,
-                   int Ce, int Cout, int stride, int expand, int residual, void* stream) {
+// float32: x [B, H, W, Cin]; w the packed weights of ops/mbconv.py::
+// pack_mbconv_f32 (nchunks chunks of 32 expanded channels); bp [Cout];
+// out [B, H/stride, W/stride, Cout]. The plan (th x tw output pixels, rq
+// project and px expand pixels per thread, `cluster` CTAs per (tile,
+// image), `smem` bytes) comes from ops/mbconv.py::plan_tile_f32; a plan this file would
+// lay out differently is refused. Needs Cin % 4 == 0, Cout % 8 == 0 and
+// x, w, bp, out 16-byte aligned. Returns the CUDA error (0 on success).
+int yrt_mbconv_f32(const void* x, const void* w, const void* bp, void* out, int B, int H, int W,
+                   int Cin, int Ce, int Cout, int nchunks, int stride, int expand, int residual,
+                   int th, int tw, int rq, int px, int cluster, int smem, void* stream) {
+  auto misaligned = [](const void* v) { return reinterpret_cast<uintptr_t>(v) % 16 != 0; };
   if (Cin % 4 || Cout % 8 || (stride != 1 && stride != 2) ||
       (stride == 2 && (H % 2 || W % 2)) || (residual && (stride != 1 || Cin != Cout)) ||
-      (!expand && Ce != Cin))
+      (!expand && Ce != Cin) || nchunks != (Ce + F_CH - 1) / F_CH || misaligned(x) ||
+      misaligned(w) || misaligned(bp) || misaligned(out) || th < 1 || tw < 1 ||
+      (rq != 1 && rq != 2 && rq != 4) || (px != 1 && px != 2 && px != 4) || cluster < 1 ||
+      cluster > F_MAX_CLUSTER || cluster > nchunks ||
+      (cluster == 1 && (round_up(th * tw, rq) / rq) * (Cout / 8) > F_NT) ||
+      (cluster > 1 && rq != 1) ||
+      (cluster > 1 && th * tw * ((Cout / 8 + cluster - 1) / cluster) * 2 > F_MAX_UNITS * F_NT) ||
+      B < 1 || B > 65535)
     return int(cudaErrorInvalidValue);
-  auto f = [](const void* v) { return static_cast<const float*>(v); };
+  const FLayout L = f_layout(stride, th, tw, rq, Cin, Cout, expand, cluster, nchunks);
+  if (L.total != size_t(smem) || L.total > size_t(SMEM_LIMIT)) return int(cudaErrorInvalidValue);
+  FParams p;
+  p.x = static_cast<const float*>(x);
+  p.w = static_cast<const float*>(w);
+  p.bp = static_cast<const float*>(bp);
+  p.out = static_cast<float*>(out);
+  p.H = H; p.W = W; p.Cin = Cin; p.Cout = Cout; p.nchunks = nchunks;
+  p.expand = expand; p.residual = residual;
+  p.th = th; p.tw = tw; p.rq = rq; p.px = px; p.cluster = cluster;
+  p.tiles_w = (W / stride + tw - 1) / tw;
+  const int tiles = p.tiles_w * ((H / stride + th - 1) / th);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  cudaError_t e =
-      stride == 1 ? launch_f32<1>(f(x), f(we), f(be), f(wd), f(bd), f(wp), f(bp),
-                                  static_cast<float*>(out), B, H, W, Cin, Ce, Cout, expand,
-                                  residual, s)
-                  : launch_f32<2>(f(x), f(we), f(be), f(wd), f(bd), f(wp), f(bp),
-                                  static_cast<float*>(out), B, H, W, Cin, Ce, Cout, expand,
-                                  residual, s);
-  return int(e);
+  return int(stride == 1 ? launch_f32<1>(p, B, tiles, smem, s)
+                         : launch_f32<2>(p, B, tiles, smem, s));
 }
 
 // bfloat16: x [B, H, W, Cin]; w the packed weights of ops/mbconv.py::

@@ -12,7 +12,7 @@ weights beside it. The port does the same with ``torch.export``:
     tensor: ``weights`` is a dict of tensors (``program_weights``). For a
     MobileNetV2 backbone the program runs the stem, then 16
     ``yoloret::mbconv`` nodes (the fused block, BatchNorm folded and the
-    bf16 weights packed by ``nn/fused_infer.fused_params`` at load), then
+    weights packed by ``nn/fused_infer.fused_params`` at load), then
     the RFCR and the neck from their module weights; any other backbone
     its stock modules. Then exact top-M with M=256 over the shared pool
     and one ``yoloret::nms`` node (``ops/library.py``).
@@ -70,8 +70,9 @@ def program_weights(model: YoloReT, anchors) -> Dict[str, torch.Tensor]:
     """The exported program's first argument, on the model's device:
     ``anchors`` [9, 2]; for a MobileNetV2 backbone the folded stem
     (``stem.weight``, ``stem.bias``), each block's folded weights
-    (``block_<i>.we`` ... ``.bp``, layouts as ``fused_mbconv``'s) and, for
-    a bf16 model, its packed weights (``block_<i>.packed``), then the
+    (``block_<i>.we`` ... ``.bp``, layouts as ``fused_mbconv``'s) and its
+    packed weights (``block_<i>.packed``: the bf16 kernel's layout or the
+    float32 kernel's, by the model's dtype), then the
     RFCR and neck entries of the state dict; any other backbone the
     whole state dict."""
     state = model.state_dict()

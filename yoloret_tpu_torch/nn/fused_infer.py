@@ -12,8 +12,10 @@ module weights:
   * the stem is one ``F.conv2d`` with the folded BN;
   * all 16 inverted-residual blocks (block_0..block_15, the stride-2
     blocks 1/3/6/13 included) run as one kernel launch each
-    (``ops/mbconv.py``), on weights packed once here into the bf16
-    kernel's shared-memory layout (``pack_mbconv``);
+    (``ops/mbconv.py``), on weights packed once here for the kernel of
+    the model's dtype (``pack_mbconv`` for the bf16 kernel's
+    shared-memory layout, ``pack_mbconv_f32`` for the float32 kernel's
+    chunks);
   * RFCR, neck and the head split stay the stock modules.
 
 A kernel or its planner that refuses a block's shape raises; a
@@ -32,7 +34,8 @@ import torch
 from yoloret_tpu_torch.nn.detector import YoloReT
 from yoloret_tpu_torch.nn.layers import conv2d_same, fold_bn, relu6
 from yoloret_tpu_torch.nn.mobilenetv2 import _TAP_BLOCKS, InvertedResidual, MobileNetV2
-from yoloret_tpu_torch.ops.mbconv import PackedMBConv, fused_mbconv, pack_mbconv
+from yoloret_tpu_torch.ops.mbconv import (PackedMBConv, fused_mbconv, pack_mbconv,
+                                          pack_mbconv_f32)
 
 
 class BlockMeta(NamedTuple):
@@ -40,7 +43,7 @@ class BlockMeta(NamedTuple):
     stride: int
     residual: bool
     args: Tuple  # (we, be, wd, bd, wp, bp) in the kernel's layouts
-    packed: Optional[PackedMBConv]  # the bf16 kernel's packed weights (bf16 models)
+    packed: Optional[PackedMBConv]  # the weights packed for the kernel of the dtype
 
 
 class FusedParams(NamedTuple):
@@ -65,13 +68,14 @@ def _block_args(block: InvertedResidual, dtype: torch.dtype):
 
 
 def _block_meta(body: MobileNetV2, dtype: torch.dtype) -> List[BlockMeta]:
-    """One entry per block, 0..last tap, BN folded; bf16 weights are also
-    packed for the Hopper kernel, once."""
+    """One entry per block, 0..last tap, BN folded; the weights are also
+    packed, once, for the kernel of ``dtype`` (bf16: the Hopper kernel's
+    layout; float32: ``mbconv_f32``'s chunks)."""
     meta = []
     for block_id, name in enumerate(body.block_names):
         block = getattr(body, name)
         args = _block_args(block, dtype)
-        packed = pack_mbconv(*args[:5]) if dtype == torch.bfloat16 else None
+        packed = (pack_mbconv if dtype == torch.bfloat16 else pack_mbconv_f32)(*args[:5])
         meta.append(BlockMeta(block_id, block.stride, block.residual, args, packed))
     return meta
 
@@ -83,7 +87,7 @@ def is_fused(model: YoloReT) -> bool:
 
 @torch.no_grad()
 def fused_params(model: YoloReT) -> Optional[FusedParams]:
-    """The folded stem and block weights (and the packed bf16 weights),
+    """The folded stem and block weights (and the packed weights),
     computed once per model; None for a backbone without a fused path."""
     if not is_fused(model):
         return None

@@ -43,8 +43,8 @@ def mbconv(x: Tensor, we: Optional[Tensor], be: Optional[Tensor], wd: Tensor, bd
            wp: Tensor, bp: Tensor, packed: Optional[Tensor], stride: int,
            residual: bool) -> Tensor:
     """One fused block, [B, H, W, Cin] -> [B, H/stride, W/stride, Cout]
-    (layouts as ``fused_mbconv``'s; ``packed`` the bf16 kernel's packed
-    weights or None). On the CPU: the plain version."""
+    (layouts as ``fused_mbconv``'s; ``packed`` the weights packed for the
+    kernel of x's dtype, or None). On the CPU: the plain version."""
     return reference_mbconv(x, we, be, wd, bd, wp, bp, stride=stride, residual=residual)
 
 

@@ -30,8 +30,16 @@ through shared memory (see the note at the top of the CUDA source).
 stages and the persistent grid, and checks shared memory against the
 227 KB a block may use.
 
-float32 (``mbconv_f32``, for checks against the plain version): the same
-steps as fp32 FMAs on the CUDA cores; its tile is chosen in the CUDA source.
+float32 (``mbconv_f32``), the port's exact mode: the float32 evaluation
+path (the self-check's verdict, the accuracy gate, the top-k study, every
+``--no-bf16`` run). The same steps as fp32 FMAs with fp32 sums on the CUDA
+cores, on weights packed once per model (``pack_mbconv_f32``, chunks of 32
+expanded channels) and staged by ``cp.async`` a pipeline step ahead, one
+barrier a step. ``plan_tile_f32`` chooses the output tile, the pixels per
+thread and, where the (tile, image) pairs leave SMs idle, a thread-block
+cluster of up to 8 CTAs per pair: each runs the expand and depthwise of a
+share of the chunks, then the project of a slice of Cout over all chunks,
+in order, so every plan gives the same bits.
 
 Block semantics, BN folded into the weights (``nn/fused_infer.fold_bn``):
 expand 1x1 + ReLU6 -> depthwise 3x3 "SAME" + ReLU6 -> project 1x1
@@ -61,7 +69,7 @@ from yoloret_tpu_torch.ops import _build
 
 _vp, _ci = ctypes.c_void_p, ctypes.c_int
 _PROTOTYPES = {
-    "yrt_mbconv_f32": ([_vp] * 8 + [_ci] * 9 + [_vp], _ci),
+    "yrt_mbconv_f32": ([_vp] * 4 + [_ci] * 16 + [_vp], _ci),
     "yrt_mbconv_bf16": ([_vp] * 4 + [_ci] * 17 + [_vp], _ci),
     "yrt_error_string": ([_ci], ctypes.c_char_p),
 }
@@ -73,6 +81,14 @@ MAX_NB = 11  # project accumulator blocks: Cout <= 264
 SMEM_LIMIT = 232448  # 227 KB, what one block may use on sm_90
 SM_SHARED = 233472  # 228 KB of shared memory per SM, 1 KB reserved per block
 BAR_BYTES = 128
+# The float32 kernel's constants.
+F32_CH = 32  # expanded channels per chunk
+F32_NT = 256  # threads per CTA
+F32_DS = F32_CH + 1  # row stride of the depthwise chunk
+F32_MAX_TILE = 16  # output tile side
+F32_MAX_CLUSTER = 8  # CTAs of a cluster (the portable limit)
+F32_BG = 4  # chunks a step of a cluster's project
+F32_MAX_UNITS = 4  # project units (1 pixel x 4 channels) a thread, with a cluster
 
 
 def _lib() -> ctypes.CDLL:
@@ -141,6 +157,7 @@ class PackedMBConv(NamedTuple):
     nchunks: int
     expand: bool
     dtype: torch.dtype
+    layout: str = "wgmma"  # "wgmma": the bf16 kernel's; "f32": pack_mbconv_f32's
 
 
 # Row k of a k16 step of the project's B operand is expanded channel
@@ -189,21 +206,82 @@ def pack_mbconv(we, be, wd, bd, wp) -> PackedMBConv:
     zeros = torch.zeros(ce, dtype=torch.float32, device=dev)
     for b in (be if be is not None else zeros, bd):
         parts.append(_bytes(padded(b.reshape(-1), (cep,), torch.float32).reshape(n, CH), n))
-    return packed_like(torch.cat(parts, 1).reshape(-1), we, wd, wp)
+    return _packed_wgmma(torch.cat(parts, 1).reshape(-1), we, wd, wp)
 
 
-def packed_like(w: torch.Tensor, we, wd, wp) -> PackedMBConv:
-    """The ``PackedMBConv`` of the packed bytes ``w`` of the block whose
-    weights are (we, wd, wp): its ints follow from their shapes."""
+def _packed_wgmma(w, we, wd, wp) -> PackedMBConv:
     ce, cout = wd.shape[-1], wp.shape[-1]
     cin = we.shape[0] if we is not None else ce
     return PackedMBConv(w, cin, ce, cout, _round_up(cin, 16), _round_up(cout, NBW),
                         -(-ce // CH), we is not None, wd.dtype)
 
 
+def pack_mbconv_f32(we, be, wd, bd, wp) -> PackedMBConv:
+    """Pack one block's float32 folded weights once, on their device, for
+    ``mbconv_f32``: ``w`` is uint8 [nchunks, chunk bytes], chunk c holding,
+    for expanded channels [32c, 32c + 32), float32 each and in this order:
+    the expand weights [Cin][32] and bias [32] (only with expand), the
+    depthwise weights [9 taps][32] and bias [32], and the project weights
+    [32][Cout]. Ce is padded to whole chunks with zero weights and biases
+    (a padded channel is relu6(0) = 0 and adds nothing to the project);
+    Cin and Cout are not padded. Each part is a multiple of 16 bytes, so
+    the kernel stages a chunk's parts by 16-byte copies."""
+    ce, cout = wd.shape[-1], wp.shape[-1]
+    cin = we.shape[0] if we is not None else ce
+    dev = wd.device
+    n = -(-ce // F32_CH)
+
+    def chunked(t, rows):  # [rows, ce] -> [n, rows * 32], Ce padded with zeros
+        out = torch.zeros((rows, n * F32_CH), dtype=torch.float32, device=dev)
+        out[:, :ce] = t.reshape(rows, ce).float()
+        return out.reshape(rows, n, F32_CH).transpose(0, 1).reshape(n, -1)
+
+    parts = [chunked(we, cin), chunked(be, 1)] if we is not None else []
+    parts += [chunked(wd, 9), chunked(bd, 1), chunked(wp.t(), cout).reshape(n, cout, F32_CH)
+              .transpose(1, 2).reshape(n, -1)]
+    w = torch.cat(parts, 1).contiguous().view(torch.uint8).reshape(-1)
+    return packed_like(w, we, wd, wp)
+
+
+def packed_like(w: torch.Tensor, we, wd, wp) -> PackedMBConv:
+    """The ``PackedMBConv`` of the packed bytes ``w`` of the block whose
+    weights are (we, wd, wp): its ints follow from their shapes, its
+    layout from their dtype (float32: ``pack_mbconv_f32``'s; else
+    ``pack_mbconv``'s)."""
+    if wd.dtype != torch.float32:
+        return _packed_wgmma(w, we, wd, wp)
+    ce, cout = wd.shape[-1], wp.shape[-1]
+    cin = we.shape[0] if we is not None else ce
+    return PackedMBConv(w, cin, ce, cout, cin, cout, -(-ce // F32_CH), we is not None,
+                        torch.float32, "f32")
+
+
+def _unpack_f32(p: PackedMBConv):
+    n, cin, cout = p.nchunks, p.cin, p.cout
+    w = p.w.view(torch.float32).reshape(n, -1)
+    off = 0
+
+    def take(rows):  # [n, rows * 32] -> [rows, n * 32]
+        nonlocal off
+        t = w[:, off:off + rows * F32_CH].reshape(n, rows, F32_CH)
+        off += rows * F32_CH
+        return t.transpose(0, 1).reshape(rows, n * F32_CH)
+
+    we = be = None
+    if p.expand:
+        we, be = take(cin), take(1).reshape(-1)
+    wd = take(9).reshape(3, 3, -1)
+    bd = take(1).reshape(-1)
+    wp = w[:, off:].reshape(n * F32_CH, cout)  # [32][Cout] a chunk
+    return we, be, wd, bd, wp
+
+
 def unpack_mbconv(p: PackedMBConv):
     """The padded weights back from the packed form: we [kpad, cep] (None
-    without expand), be [cep], wd [3, 3, cep], bd [cep], wp [cep, coutp]."""
+    without expand), be [cep], wd [3, 3, cep], bd [cep], wp [cep, coutp]
+    (the float32 layout pads only Ce: kpad = Cin, coutp = Cout)."""
+    if p.layout == "f32":
+        return _unpack_f32(p)
     n, kpad, coutp, dt = p.nchunks, p.kpad, p.coutp, p.dtype
     el = torch.empty((), dtype=dt).element_size()
     w = p.w.reshape(n, -1)
@@ -359,6 +437,184 @@ def max_warpgroups(cout: int) -> int:
     return 4 if _round_up(cout, NBW) <= 2 * NBW else 3
 
 
+class F32Layout(NamedTuple):
+    win: int
+    hin: int
+    pin: int  # halo pixels of a tile
+    pout: int
+    poutp: int  # ... padded to whole rq groups
+    xs: int  # row stride of the input tile in floats, = 8 (mod 16)
+    chunk_bytes: int  # one packed chunk (``pack_mbconv_f32``)
+    nloc: int  # with a cluster: the chunks a CTA holds at most
+    slice: int  # with a cluster: the project channels a CTA takes at most
+    smem: int  # dynamic shared memory of the launch
+
+
+def kernel_layout_f32(stride: int, th: int, tw: int, rq: int, cin: int, cout: int,
+                      expand: bool, cluster: int, nchunks: int = 1) -> F32Layout:
+    """Shared-memory layout of ``mbconv_f32`` for a th x tw output tile (the
+    same formulas as ``f_layout`` in csrc/mbconv.cu). Without a cluster:
+    the input tile [pin][xs], two expanded chunks [pin][32], two
+    depthwise chunks [poutp][33] and two stages of each weight part
+    (expand, depthwise, project). With one: the input tile, the CTA's
+    depthwise chunks [nloc][poutp][32] (read by the whole cluster), two
+    expanded chunks and the expand and depthwise rings; the project's two
+    stages of F32_BG depthwise chunks [pout][32] and project-weight slices
+    [32][slice] alias everything after the depthwise chunks."""
+    win, hin = (tw - 1) * stride + 3, (th - 1) * stride + 3
+    pin, pout = hin * win, th * tw
+    poutp = _round_up(pout, rq)
+    xs = cin + (24 - cin % 16) % 16
+    e_part = (cin + 1) * F32_CH if expand else 0
+    d_part, p_part = 10 * F32_CH, F32_CH * cout
+    nloc = -(-nchunks // cluster)
+    slice_ = -(-(cout // 8) // cluster) * 8
+    x_end = _round_up(pin * xs * 4, 16)
+    if cluster == 1:
+        d = x_end + 2 * pin * F32_CH * 4
+        total = _round_up(d + 2 * poutp * F32_DS * 4, 16) + 2 * 4 * (e_part + d_part + p_part)
+    else:
+        e = x_end + nloc * poutp * F32_CH * 4
+        rings_end = e + 2 * pin * F32_CH * 4 + 2 * 4 * (e_part + d_part)
+        b_end = e + 2 * F32_BG * pout * F32_CH * 4 + 2 * F32_BG * F32_CH * slice_ * 4
+        total = max(rings_end, b_end)
+    return F32Layout(win, hin, pin, pout, poutp, xs, 4 * (e_part + d_part + p_part), nloc,
+                     slice_, total)
+
+
+class F32Plan(NamedTuple):
+    th: int  # output tile rows
+    tw: int  # output tile columns
+    rq: int  # project pixels per thread
+    px: int  # expand pixels per thread
+    cluster: int  # CTAs per (tile, image), each a share of the chunks
+    smem: int  # dynamic shared memory, bytes
+    tiles: int  # tiles per image
+    ctas: int  # the grid: batch x tiles x cluster
+    ctas_per_sm: int
+
+
+# plan_tile_f32's time model, fitted to the kernel's block times at the
+# four float32 shapes of tools/mbconv_f32_bench.py on an H100 (63 blocks;
+# log-error 1.21x rms): cycles per instruction of a CTA's busiest thread
+# (latency, few warps an SM), cycles per shared-memory wavefront of all
+# its warps (throughput: a warp's 16-byte load takes four), instructions
+# of a pipeline step's barrier and copies, of a cluster's barriers and
+# first remote reads. Plans it ranks within ~10% of each other are a toss
+# (it ranks 13 of 24 measured pairs right)
+F32_LAT, F32_LSU, F32_STEP_COST, F32_CLUSTER_COST = 5.35, 1.14, 847, 1504
+
+
+def _rq(pout: int, cout: int) -> Optional[int]:
+    """The fewest project pixels per thread whose owners fit the CTA."""
+    for rq in (1, 2, 4):
+        if _round_up(pout, rq) // rq * (cout // 8) <= F32_NT:
+            return rq
+    return None
+
+
+def f32_units(th: int, tw: int, cout: int, cluster: int) -> int:
+    """Project units (1 pixel x 4 channels) of the busiest CTA of a cluster."""
+    return th * tw * -(-(cout // 8) // cluster) * 2
+
+
+def f32_cycles(h_out: int, w_out: int, stride: int, cin: int, ce: int, cout: int, expand: bool,
+               batch: int, th: int, tw: int, rq: int, px: int, cluster: int,
+               num_sms: int = 132) -> float:
+    """``plan_tile_f32``'s modelled cycles of one launch under a plan.
+
+    A CTA runs ceil(chunks / cluster) pipeline steps and one or two to
+    drain. Each step's busiest thread runs its rounds of expand items (px
+    pixels x 4 channels: per 4 inputs, 4 + px 16-byte loads and 16 px
+    FMAs), of depthwise pixels and, without a cluster, one owner's
+    project (32 channels x (2 + 9 rq)); with one, the project follows in
+    steps of F32_BG chunks over all chunks, ceil(units / 256) units (32 x
+    (2 loads + 4 FMAs) a chunk) a thread. All of a CTA's warps together
+    issue the shared-memory wavefronts of those loads (a 16-byte load of a
+    warp is four). An SM holding k CTAs (up to two, by shared memory)
+    takes the larger of the busiest thread's instructions x F32_LAT and k
+    x the wavefronts x F32_LSU; the launch takes its waves of CTAs over
+    ``num_sms`` SMs."""
+    n = -(-ce // F32_CH)
+    lay = kernel_layout_f32(stride, th, tw, rq, cin, cout, expand, cluster, n)
+    steps = -(-n // cluster)
+    npix = min(lay.hin, h_out * stride) * min(lay.win, w_out * stride)
+    items = -(-npix // px) * 8
+    if expand:
+        e_inst = -(-items // F32_NT) * (cin / 4 * (4 + 17 * px) + 30)
+        e_lsu = -(-items // 32) * cin / 4 * (16 + 4 * px)
+    else:
+        e_inst, e_lsu = -(-items // F32_NT) * 20, -(-items // 32) * 10
+    d_inst, d_lsu = -(-lay.poutp // 8) * 25, lay.poutp * 11
+    if cluster == 1:
+        p_inst = F32_CH * (2 + 9 * rq)
+        p_lsu = -(-(lay.poutp // rq * (cout // 8)) // 32) * F32_CH * (8 + rq)
+        inst = steps * (e_inst + d_inst + p_inst + F32_STEP_COST) + 2 * (
+            d_inst + p_inst + F32_STEP_COST)
+        lsu = steps * (e_lsu + d_lsu + p_lsu + F32_STEP_COST) + 2 * (
+            d_lsu + p_lsu + F32_STEP_COST)
+    else:
+        units = f32_units(th, tw, cout, cluster)
+        b_steps = -(-n // F32_BG)
+        inst = (steps * (e_inst + d_inst + F32_STEP_COST) + d_inst + F32_STEP_COST
+                + F32_CLUSTER_COST + b_steps * (-(-units // F32_NT) * F32_BG * F32_CH * 6
+                                                + F32_STEP_COST))
+        lsu = (steps * (e_lsu + d_lsu + F32_STEP_COST) + d_lsu + F32_STEP_COST
+               + F32_CLUSTER_COST + b_steps * (-(-units // 32) * F32_BG * F32_CH * 5
+                                               + F32_STEP_COST))
+    ctas = batch * -(-h_out // th) * -(-w_out // tw) * cluster
+    per_sm = min(2, SM_SHARED // (lay.smem + 1024))
+    k, waves = min(per_sm, -(-ctas // num_sms)), -(-ctas // (num_sms * per_sm))
+    return waves * max(inst * F32_LAT, k * lsu * F32_LSU)
+
+
+@functools.lru_cache(maxsize=None)
+def plan_tile_f32(h_out: int, w_out: int, stride: int, cin: int, ce: int, cout: int,
+                  expand: bool, batch: int, num_sms: int = 132) -> F32Plan:
+    """The float32 kernel's launch for one block shape: the output tile
+    (sides up to 16), the project pixels per thread (without a cluster the
+    fewest whose owners fit 256 threads; with one, 1), the expand pixels
+    per thread (1, 2 or 4) and the cluster, with the fewest modelled
+    cycles (``f32_cycles``); ties go to the smaller halo, then the fewer
+    pixels per thread.
+
+    The cluster fills the card: where batch x tiles (tile, image) pairs
+    are fewer than ``num_sms``, each pair takes ceil(num_sms / pairs) CTAs,
+    at most 8 and at most one per chunk of 32 expanded channels, each a
+    contiguous share of the chunks and a slice of Cout; with enough pairs
+    it is 1. A tile whose slices take more than F32_MAX_UNITS project
+    units a thread is left out."""
+    n = -(-ce // F32_CH)
+    best, best_key = None, None
+    for th in range(1, min(h_out, F32_MAX_TILE) + 1):
+        for tw in range(1, min(w_out, F32_MAX_TILE) + 1):
+            tiles = -(-h_out // th) * -(-w_out // tw)
+            cluster = max(1, min(F32_MAX_CLUSTER, n, -(-num_sms // (batch * tiles))))
+            if cluster == 1:
+                rq = _rq(th * tw, cout)
+                if rq is None:
+                    continue
+            else:
+                rq = 1
+                if f32_units(th, tw, cout, cluster) > F32_MAX_UNITS * F32_NT:
+                    continue
+            lay = kernel_layout_f32(stride, th, tw, rq, cin, cout, expand, cluster, n)
+            if lay.smem > SMEM_LIMIT:
+                continue
+            for px in (1, 2, 4):
+                key = (f32_cycles(h_out, w_out, stride, cin, ce, cout, expand, batch, th, tw, rq,
+                                  px, cluster, num_sms), lay.pin, px)
+                if best_key is None or key < best_key:
+                    best_key = key
+                    best = F32Plan(th, tw, rq, px, cluster, lay.smem, tiles,
+                                   batch * tiles * cluster,
+                                   min(2, SM_SHARED // (lay.smem + 1024)))
+    if best is None:
+        raise ValueError(f"no tile of the float32 kernel fits {h_out}x{w_out}, Cin={cin}, "
+                         f"Cout={cout} in {SMEM_LIMIT} bytes of shared memory")
+    return best
+
+
 @functools.lru_cache(maxsize=None)
 def _num_sms(index: int) -> int:
     return torch.cuda.get_device_properties(index).multi_processor_count
@@ -403,9 +659,10 @@ def fused_mbconv(
     A CPU tensor takes the plain version. A CUDA tensor launches a kernel
     (and adds one to ``fused_mbconv.launches`` and to
     ``fused_mbconv.kernel_launches`` under the kernel's name), or raises:
-    bfloat16 the Hopper kernel ``mbconv_wgmma``, on ``packed``
-    (``pack_mbconv`` of these weights) or on weights packed for this
-    call; float32 the CUDA-core kernel ``mbconv_f32``."""
+    bfloat16 the Hopper kernel ``mbconv_wgmma``, float32 the CUDA-core
+    kernel ``mbconv_f32``, each on ``packed`` (``pack_mbconv`` /
+    ``pack_mbconv_f32`` of these weights) or on weights packed for this
+    call."""
     _check(x, we, be, wd, bd, wp, bp, stride, residual)
     if x.device.type == "cpu":
         return reference_mbconv(x, we, be, wd, bd, wp, bp, stride=stride, residual=residual)
@@ -435,26 +692,28 @@ def fused_mbconv(
     if out.numel() == 0:
         return out
     stream = torch.cuda.current_stream(x.device).cuda_stream
+    expand = we is not None
+    layout = "wgmma" if x.dtype == torch.bfloat16 else "f32"
+    if packed is None:
+        packed = (pack_mbconv if layout == "wgmma" else pack_mbconv_f32)(we, be, wd, bd, wp)
+    elif ((packed.cin, packed.ce, packed.cout, packed.expand, packed.dtype, packed.layout)
+          != (cin, ce, cout, expand, x.dtype, layout) or packed.w.device != x.device):
+        raise ValueError("packed weights do not belong to this block")
+    num_sms = _num_sms(x.device.index if x.device.index is not None
+                       else torch.cuda.current_device())
     if x.dtype == torch.bfloat16:
-        expand = we is not None
-        if packed is None:
-            packed = pack_mbconv(we, be, wd, bd, wp)
-        elif ((packed.cin, packed.ce, packed.cout, packed.expand, packed.dtype)
-              != (cin, ce, cout, expand, x.dtype) or packed.w.device != x.device):
-            raise ValueError("packed weights do not belong to this block")
-        plan = plan_tile(h // stride, w // stride, stride, cin, ce, cout, expand, b,
-                         _num_sms(x.device.index if x.device.index is not None
-                                  else torch.cuda.current_device()))
+        plan = plan_tile(h // stride, w // stride, stride, cin, ce, cout, expand, b, num_sms)
         rc = lib.yrt_mbconv_bf16(
             x.data_ptr(), packed.w.data_ptr(), bp.data_ptr(), out.data_ptr(), b, h, w, cin, ce,
             cout, packed.nchunks, stride, int(expand), int(residual), plan.th, plan.tw,
             plan.nc, plan.xst, plan.wst, plan.grid, plan.smem, stream)
     else:
+        plan = plan_tile_f32(h // stride, w // stride, stride, cin, ce, cout, expand, b,
+                             num_sms)
         rc = lib.yrt_mbconv_f32(
-            x.data_ptr(), None if we is None else we.data_ptr(),
-            None if be is None else be.data_ptr(), wd.data_ptr(), bd.data_ptr(),
-            wp.data_ptr(), bp.data_ptr(), out.data_ptr(),
-            b, h, w, cin, ce, cout, stride, int(we is not None), int(residual), stream)
+            x.data_ptr(), packed.w.data_ptr(), bp.data_ptr(), out.data_ptr(), b, h, w, cin, ce,
+            cout, packed.nchunks, stride, int(expand), int(residual), plan.th, plan.tw, plan.rq,
+            plan.px, plan.cluster, plan.smem, stream)
     if rc != 0:
         raise RuntimeError(f"mbconv kernel launch failed: {lib.yrt_error_string(rc).decode()}")
     fused_mbconv.launches += 1
