@@ -173,6 +173,18 @@ Phases (any failure exits non-zero and prints no result):
    (block by block, with each block's plan and its repeat bitwise equal),
    ``mbconv_wgmma`` at [8, 96] and each NMS kernel at the phase's pools
    against its plain version on the trained weights, and timed.
+14. VIDEO: the frame loop of ``Predictor.detect_video``
+   (``infer.predictor.frame_schedule``, its per-frame schedule without
+   OpenCV) over a seeded 640x480 "webcam" of 240 frames with moving boxes,
+   made frame by frame, every frame detected (``track_interval=1``) by
+   ``detect_arrays`` (the flagship @320, bf16, the launch counts set to 0
+   just before the loop and read just after: 16 MBConv + 1 NMS a frame,
+   added to the b1 rows of the kernel table); frames/s and the per-frame
+   ms (median, p90) by the host clock; each frame's detections against a
+   second ``detect_arrays([frame])``, bit for bit; 4 frames in float32
+   card vs CPU. OpenCV's capture and trackers and the TensorFlow flavours
+   of EXPORT are not driven here (the card's machine has neither package);
+   tier-1 holds them on the CPU.
 
 The line before the last is the kernel table as JSON; the last line is
 ``{"ok": true, "device": {...}}``. Details go to chiprun_out/chip_smoke.json.
@@ -368,6 +380,16 @@ JAX_GATE_BAND = (0.22, 0.45)
 # the NMS kernel each plan variant launches on the learn phase's pools
 NMS_KERNELS = {"shared": "nms_shared", "per_class": "nms_kernel",
                "per_class_large": "nms_large_walk"}
+# Phase 14, VIDEO: the port's frame loop (``infer.predictor.frame_schedule``,
+# detect_video's schedule) over a seeded 640x480 "webcam" of VIDEO_FRAMES
+# frames with VIDEO_BOXES moving boxes, detecting every frame (bf16, the
+# flagship @320, score IMAGE_SCORE); then VIDEO_F32_FRAMES of them in
+# float32 on the card and on the CPU.
+VIDEO_HW = (480, 640)
+VIDEO_FRAMES = 240
+VIDEO_BOXES = 6
+VIDEO_WARMUP = 5
+VIDEO_F32_FRAMES = 4
 
 
 def log(*a):
@@ -3465,6 +3487,127 @@ def learn_phase(report):
     return kernel_rows
 
 
+def webcam_frames(seed, n, hw=VIDEO_HW):
+    """A seeded "webcam" clip, yielded frame by frame (never held whole):
+    ``n`` RGB uint8 frames of ``hw``, a still background of uniform noise
+    (the flagship weights' calibration images are uniform noise: on flat
+    colours their scores saturate and tie near 1) with VIDEO_BOXES boxes of
+    seeded sizes, noise textures and speeds moving over it and bouncing
+    off the edges; frame i depends on ``seed`` and i alone."""
+    import numpy as np
+
+    h, w = hw
+    rs = np.random.RandomState(seed)
+    background = rs.randint(0, 256, (h, w, 3), dtype=np.uint8)
+    sizes = rs.randint(40, 160, (VIDEO_BOXES, 2))
+    room = np.asarray([h, w]) - sizes
+    start = rs.rand(VIDEO_BOXES, 2) * room
+    speed = rs.uniform(-8.0, 8.0, (VIDEO_BOXES, 2))
+    textures = [rs.randint(0, 128, (bh, bw, 3), dtype=np.uint8) * 2 for bh, bw in sizes]
+    for i in range(n):
+        frame = background.copy()
+        pos = np.abs((start + speed * i + room) % (2 * room) - room).astype(int)  # bounce
+        for (y, x), tex in zip(pos, textures):
+            frame[y:y + tex.shape[0], x:x + tex.shape[1]] = tex
+        yield frame
+
+
+def video_phase(state, seed, report, kernels):
+    """Phase 14, VIDEO: ``infer.predictor.frame_schedule`` (the per-frame
+    schedule of ``Predictor.detect_video``, without OpenCV) over
+    ``webcam_frames`` at ``track_interval=1``, each frame through
+    ``Predictor(device="cuda").detect_arrays`` (bf16, the flagship @320,
+    the launch counts set to 0 just before the loop and read just after:
+    16 MBConv + 1 NMS a frame, added to the kernels line's b1 rows); frames/s
+    and the per-frame ms by the host clock; each frame's detections against
+    a second ``detect_arrays([frame])`` on the same Predictor, bit for bit;
+    VIDEO_F32_FRAMES frames in float32 on the card against the same loop on
+    the CPU (``matched_detections``)."""
+    import importlib.util
+
+    import numpy as np
+    import torch
+
+    from yoloret_tpu_torch.infer import Predictor
+    from yoloret_tpu_torch.infer.predictor import frame_schedule
+    from yoloret_tpu_torch.ops.mbconv import fused_mbconv
+    from yoloret_tpu_torch.ops.nms_kernel import suppress
+
+    t_phase = time.perf_counter()
+    out = report.setdefault("video", {})
+    absent = [m for m in ("cv2", "tensorflow") if importlib.util.find_spec(m) is None]
+    log(f"== VIDEO: the frame loop of detect_video over a seeded {VIDEO_HW[1]}x{VIDEO_HW[0]} "
+        f"webcam of {VIDEO_FRAMES} frames, every frame detected (bf16 @{SIZE}, score "
+        f"{IMAGE_SCORE}). Not driven here: detect_video's OpenCV capture, writer and trackers, "
+        f"and the TensorFlow flavours of EXPORT (not importable in this process: "
+        f"{', '.join(absent) or 'none'}); tier-1 holds them on the CPU "
+        "(tests/test_torch_video.py, tests/test_torch_tf_export.py)")
+    pred = make_predictor(seed, weights=state, score_threshold=IMAGE_SCORE)
+    for frame in webcam_frames(seed + 1, VIDEO_WARMUP):
+        pred.detect_arrays([frame])
+    frame_ms, seen = [], []
+
+    def detect(frame):
+        t0 = time.perf_counter()
+        dets = pred.detect_arrays([frame])[0]
+        frame_ms.append((time.perf_counter() - t0) * 1e3)
+        return dets
+
+    fused_mbconv.launches = suppress.launches = 0
+    t0 = time.perf_counter()
+    for _, dets in frame_schedule(webcam_frames(seed, VIDEO_FRAMES), detect):
+        seen.append(dets)
+    loop_s = time.perf_counter() - t0
+    launches = out["launches"] = {"mbconv": fused_mbconv.launches, "nms": suppress.launches}
+    want = {"mbconv": 16 * VIDEO_FRAMES, "nms": VIDEO_FRAMES}
+    assert launches == want, (launches, want)
+    assert len(seen) == VIDEO_FRAMES
+    ms = sorted(frame_ms)
+    out.update(frames=VIDEO_FRAMES, frames_per_s=VIDEO_FRAMES / loop_s, loop_s=loop_s,
+               frame_ms=dict(median=ms[len(ms) // 2], p90=ms[int(len(ms) * 0.9)],
+                             mean=sum(ms) / len(ms), max=ms[-1]),
+               detections=sum(len(d) for d in seen))
+    f = out["frame_ms"]
+    log(f"  VIDEO loop: {VIDEO_FRAMES} frames in {loop_s:.3f} s: {out['frames_per_s']:.2f} "
+        f"frames/s; per frame (detect_arrays, host clock: letterbox, upload, forward, NMS, "
+        f"readback) median {f['median']:.3f} ms, p90 {f['p90']:.3f}, mean {f['mean']:.3f}, max "
+        f"{f['max']:.3f}; {out['detections']} detections; launches {launches} "
+        "(16 MBConv + 1 NMS a frame)")
+    assert out["detections"] > 0, "the seeded weights gave no detection on the clip"
+
+    same = sum(pred.detect_arrays([frame])[0] == dets
+               for frame, dets in zip(webcam_frames(seed, VIDEO_FRAMES), seen))
+    out["bitwise_equal_frames"] = same
+    log(f"  each frame's detections vs a second detect_arrays([frame]): {same} of "
+        f"{VIDEO_FRAMES} equal bit for bit")
+    assert same == VIDEO_FRAMES, (same, VIDEO_FRAMES)
+
+    kw = dict(class_names=pred.class_names, anchors=pred.anchors, input_hw=pred.input_hw,
+              score_threshold=IMAGE_SCORE, bf16=False, batch_buckets=(1,))
+    got, ref = ([dets for _, dets in frame_schedule(
+        webcam_frames(seed, VIDEO_F32_FRAMES), lambda fr, p=p: p.detect_arrays([fr])[0])]
+        for p in (Predictor(weights=state, device=DEVICE, **kw),
+                  Predictor(weights=state, device="cpu", **kw)))
+    n = matched_detections(got, ref)
+    counts = ([len(d) for d in got], [len(d) for d in ref])
+    out["float32_card_vs_cpu"] = dict(matched=n, counts=counts)
+    log(f"  VIDEO float32, {VIDEO_F32_FRAMES} frames, card vs CPU: {n} of {sum(counts[1])} "
+        "detections agree (class, score rtol 1e-4, box atol 0.05 px)")
+    assert counts[0] == counts[1] and n == sum(counts[1]) > 0, (counts, n)
+
+    for row in kernels:
+        if row["name"] in (f"mbconv@{SIZE}_b1", f"nms@{SIZE}_b1"):
+            key = "mbconv" if row["name"].startswith("mbconv") else "nms"
+            row["video_launches"] = launches[key]
+            row["launches"] += launches[key]
+            row["shapes"] += f" and VIDEO's {VIDEO_FRAMES}-frame loop (phase 14)"
+    assert sum("video_launches" in r for r in kernels) == 2, "the b1 rows are missing"
+    del pred
+    torch.cuda.empty_cache()
+    out["seconds"] = time.perf_counter() - t_phase
+    log(f"== VIDEO phase: {out['seconds']:.1f} s")
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -3543,6 +3686,7 @@ def main(argv=None) -> int:
     kernels += zoom_phase(state, args.seed, report)
     kernels += export_phase(state, args.seed, report, kernels)
     kernels += learn_phase(report)
+    video_phase(state, args.seed, report, kernels)
 
     report["kernels"] = kernels
     report["seconds"] = time.perf_counter() - t_start
@@ -3605,6 +3749,9 @@ def main(argv=None) -> int:
                         topk_table={f"{r['pool']} {r['depth']}": r["map"]
                                     for r in report["learn"]["gate"]["table"]},
                         seconds=report["learn"]["seconds"]),
+                    "video": {k: report["video"][k] for k in
+                              ("frames_per_s", "frame_ms", "launches", "bitwise_equal_frames",
+                               "float32_card_vs_cpu", "seconds")},
                     "seconds": report["seconds"],
                     "card": smi}))
     log(json.dumps({"kernels": kernels}))

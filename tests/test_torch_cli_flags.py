@@ -3,7 +3,7 @@
 main.py:45,114,130``) into the same ``RunConfig`` fields; ``--opt=DEBUG``
 (the flag or a config's ``opt: DEBUG``) sets the seed to 0 as the JAX
 ``main`` does, and turns on autograd's anomaly check in TRAIN; VIDEO
-reaches the refusal that names its ROADMAP.md item."""
+takes ``--video`` and ``--track_interval`` into ``detect_video``."""
 
 import dataclasses
 
@@ -18,6 +18,7 @@ from yoloret_tpu.cli.main import build_parser as jax_build_parser
 from yoloret_tpu.cli.main import main as jax_main
 from yoloret_tpu_torch.cli.main import args_to_config, build_parser
 from yoloret_tpu_torch.cli.main import main as cli_main
+from yoloret_tpu_torch.infer.predictor import Predictor
 
 ARGV = ["--mode=VIDEO", "--num_scales", "2", "--opt", "MKL", "--prune", "--video", "clip.mp4",
         "--track_interval", "5", "--seed", "7", "--input_size", "96", "--no-bf16"]
@@ -71,7 +72,21 @@ def test_debug_sets_seed_0_as_jax_does(monkeypatch, tmp_path, how):
     assert seen["cfg"].seed == 7 and not seen["anomaly"]
 
 
-def test_video_reaches_the_refusal_naming_item_7(capsys):
-    assert cli_main(["--mode=VIDEO", "--video=clip.mp4", "--track_interval=3"]) == 2
-    err = capsys.readouterr().err
-    assert "ROADMAP.md" in err and "item 7" in err
+def test_video_reaches_the_refusal_naming_item_7(monkeypatch, tmp_path, capsys):
+    """Named for where VIDEO stopped before it was ported. Now
+    ``--track_interval=3`` reaches ``Predictor.detect_video`` with the clip
+    and ``--output``, and a clip that does not open raises ``IOError``, as
+    the JAX CLI lets it."""
+    (tmp_path / "classes.txt").write_text("a\n")
+    (tmp_path / "anchors.txt").write_text(", ".join(["10,13"] * 9) + "\n")
+    argv = ["--mode=VIDEO", "--device=cpu", "--input_size=64", "--no-bf16",
+            f"--classes_path={tmp_path / 'classes.txt'}",
+            f"--anchors_path={tmp_path / 'anchors.txt'}"]
+    with pytest.raises(IOError, match="cannot open video source"):
+        cli_main(argv + [f"--video={tmp_path / 'missing.mp4'}"])
+    seen = []
+    monkeypatch.setattr(Predictor, "detect_video",
+                        lambda self, *a, **kw: seen.append((a, kw)) or 7)
+    assert cli_main(argv + ["--video=clip.mp4", "--track_interval=3", "--output=o.mp4"]) == 0
+    assert seen == [(("clip.mp4", "o.mp4"), {"track_interval": 3})]
+    assert capsys.readouterr().out.strip().splitlines()[-1] == "processed 7 frames"

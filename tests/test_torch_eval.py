@@ -247,8 +247,10 @@ def test_cli_map_prints_the_same_map(eval_setup, exact, tmp_path, capsys):
 
 
 def test_cli_refuses_what_is_not_ported(capsys, tmp_path):
-    for argv in (["--mode=VIDEO"],
-                 ["--mode=MAP", "--mesh_data=4"],
+    for argv in (["--mode=MAP", "--mesh_data=4"],
                  ["--mode=TRAIN", "--mesh_data=2"], ["--mode=bogus"]):
         assert cli_main(argv) == 2
         assert "ROADMAP.md" in capsys.readouterr().err
+    # VIDEO is ported: without --video it answers as the JAX CLI does
+    assert cli_main(["--mode=VIDEO"]) == 2
+    assert "--video required" in capsys.readouterr().err

@@ -237,16 +237,28 @@ def test_cli_export_quantized_round_trip(setup, tflite_bundle, capsys):
     np.testing.assert_array_equal(c_q, c_fp)
 
 
+TF_ARTIFACTS = {"TFLITE": ["model.tflite", "saved_model"], "SERVING": ["saved_model"],
+                "TFJS": ["saved_model", "tfjs_model"]}
+
+
 @pytest.mark.parametrize("mode", ["TFLITE", "SERVING", "TFJS"])
-def test_cli_tf_flavours_refused_where_tensorflow_imports(setup, monkeypatch, capsys, mode):
-    monkeypatch.setitem(sys.modules, "tensorflow", types.ModuleType("tensorflow"))
-    out = setup.root / f"refused_{mode}"
-    rc = cli_main([f"--mode={mode}", "--device=cpu", f"--export={out}",
-                   f"--classes_path={setup.files['classes_path']}",
-                   f"--anchors_path={setup.files['anchors_path']}"])
-    err = capsys.readouterr().err
-    assert rc == 2 and "ROADMAP.md" in err and "item 5" in err
-    assert not out.exists()
+def test_cli_tf_flavours_refused_where_tensorflow_imports(setup, capsys, mode):
+    """Named for what these modes did before TensorFlow's formats were
+    ported (they refused where TensorFlow imports). Now, with TensorFlow,
+    each writes its artifacts (``export_tf_flavor``; held against the JAX
+    package and the port's program by tests/test_torch_tf_export.py):
+    rc 0, the SavedModel, and ``model.tflite``, the warm-up records or
+    the tfjs graph model."""
+    pytest.importorskip("tensorflow")
+    out = setup.root / f"tf_{mode}"
+    rc = _cli(setup, f"--mode={mode}", f"--export={out}")
+    assert rc == 0, capsys.readouterr().err
+    assert sorted(os.listdir(out)) == TF_ARTIFACTS[mode]
+    assert os.path.exists(os.path.join(out, "saved_model", "saved_model.pb"))
+    extra = {"TFLITE": "model.tflite",
+             "SERVING": "saved_model/assets.extra/tf_serving_warmup_requests",
+             "TFJS": "tfjs_model/model.json"}[mode]
+    assert os.path.getsize(os.path.join(out, extra)) > 0
 
 
 def _block(seed, cin, ce, cout, expand):

@@ -13,8 +13,6 @@ annotation list; PRUNE answers with the JAX package's message and exit
 code 2."""
 
 import os
-import sys
-import types
 
 import numpy as np
 import pytest
@@ -131,10 +129,14 @@ def test_training_options_are_taken(flags, field, value):
     assert unported_options(cfg) is None
 
 
-def test_other_modes_still_refused(capsys, monkeypatch):
-    # the TensorFlow flavours of EXPORT where TensorFlow can be imported
-    monkeypatch.setitem(sys.modules, "tensorflow", types.ModuleType("tensorflow"))
-    for mode in ("VIDEO", "TFLITE", "SERVING", "TFJS"):
-        assert cli_main([f"--mode={mode}"]) == 2
+def test_other_modes_still_refused(capsys):
+    """VIDEO and the TensorFlow flavours are ported (tests/test_torch_video.py,
+    tests/test_torch_tf_export.py); ``--mesh_data`` above 1 in any mode
+    still refuses, naming ROADMAP.md's item 6, and VIDEO without
+    ``--video`` answers as the JAX CLI does."""
+    for mode in ("IMAGE", "VIDEO", "TFLITE", "SERVING", "TFJS"):
+        assert cli_main([f"--mode={mode}", "--mesh_data=2"]) == 2
         err = capsys.readouterr().err
-        assert "ROADMAP.md" in err and ("item 7" in err if mode == "VIDEO" else "item 5" in err)
+        assert "ROADMAP.md" in err and "item 6" in err
+    assert cli_main(["--mode=VIDEO"]) == 2
+    assert "--video required" in capsys.readouterr().err

@@ -177,13 +177,17 @@ NEW_MODULES = ("yoloret_tpu_torch.train", "yoloret_tpu_torch.train.freeze",
                "yoloret_tpu_torch.cli.main", "yoloret_tpu_torch.utils.keras_import",
                "yoloret_tpu_torch.tools.selfcheck", "yoloret_tpu_torch.tools.accuracy_gate",
                "yoloret_tpu_torch.tools.topk_study", "yoloret_tpu_torch.tools.selfcheck_spread",
-               "yoloret_tpu_torch.ops.mbconv", "yoloret_tpu_torch.tools.mbconv_f32_bench")
+               "yoloret_tpu_torch.ops.mbconv", "yoloret_tpu_torch.tools.mbconv_f32_bench",
+               "yoloret_tpu_torch.export.tfjs", "yoloret_tpu_torch.export.warmup",
+               "yoloret_tpu_torch.export.tf_postprocess", "yoloret_tpu_torch.export.export")
 
 
 def test_training_modules_import_no_jax():
-    """The training modules, and chip_smoke.py, import nothing of JAX or of
-    the JAX package: they import with jax, flax, orbax and yoloret_tpu
-    blocked, and no import line of theirs names them."""
+    """The training modules, the TensorFlow export's, and chip_smoke.py,
+    import nothing of JAX or of the JAX package: they import with jax,
+    flax, orbax and yoloret_tpu blocked, and no import line of theirs names
+    them; importing them loads neither TensorFlow nor OpenCV (the card's
+    machine has neither)."""
     import re
     import subprocess
     import sys
@@ -191,6 +195,7 @@ def test_training_modules_import_no_jax():
     code = ("import sys, importlib\n"
             "for m in ('jax', 'flax', 'orbax', 'yoloret_tpu'): sys.modules[m] = None\n"
             f"for n in {NEW_MODULES!r}: importlib.import_module(n)\n"
+            "assert not {'tensorflow', 'cv2'} & set(sys.modules), 'tensorflow or cv2 imported'\n"
             "print('ok')\n")
     out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
                          timeout=120, cwd=os.path.dirname(os.path.dirname(__file__)))

@@ -1,7 +1,6 @@
 """Command line of the port, with the JAX package's flags
-(``yoloret_tpu/cli/main.py``) for the modes ported so far: IMAGE (the
-default), TRAIN, MAP, ANCHORS, EXPORT (and its TFLITE, SERVING and TFJS
-names) and PRUNE.
+(``yoloret_tpu/cli/main.py``) and modes: IMAGE (the default), VIDEO,
+TRAIN, MAP, ANCHORS, EXPORT, TFLITE, SERVING, TFJS and PRUNE.
 
 Detection on one image, written with its boxes drawn (the default image
 is the port's ``assets/demo.jpg``, the default output ``demo_out.png``):
@@ -62,12 +61,32 @@ traced on ``--device``, where it is to run (``export/export.py``):
         --classes_path=voc_classes.txt --anchors_path=yolo_anchors.txt \
         [--bf16 | --no-bf16] [--quantize] [--export=bundle_dir]
 
-TFLITE, SERVING and TFJS write the same bundle with a message where
-TensorFlow cannot be imported, as the JAX package does; where it can,
-they stop (exit code 2): converting to TensorFlow's formats is not
-ported. VIDEO and ``--mesh_data`` above 1 stop with a message that
-names their place in ROADMAP.md. PRUNE answers as the JAX package does
-(exit code 2).
+TensorFlow's formats, built from the same weights by TensorFlow ops
+(``export/tfjs.py``, ``export/tf_postprocess.py``; float32 whatever
+``--bf16`` says): TFLITE writes ``saved_model/`` (the whole program:
+``images``, ``image_hw`` -> boxes, scores, classes, valid) and
+``model.tflite`` (dynamic-range), with ``--quantize`` also
+``model_int8.tflite`` (the conv stack in int8, calibrated on
+``quantize_samples`` images of the test or train list); SERVING writes
+``saved_model/`` with TF-Serving's warm-up records; TFJS writes
+``saved_model/`` and ``tfjs_model/`` (a tfjs graph model of the conv
+stack). Where TensorFlow cannot be imported they write the PyTorch
+bundle with a message, as the JAX package writes its StableHLO bundle:
+
+    python -m yoloret_tpu_torch.cli.main --mode=TFLITE --model=weights.pt \
+        --classes_path=voc_classes.txt --anchors_path=yolo_anchors.txt --export=tf_dir
+
+Detection on a video file or the camera (``--video=0``), every frame
+or every ``--track_interval`` frames with OpenCV trackers between,
+written with boxes and FPS to ``--output`` when given; prints
+``processed N frames``:
+
+    python -m yoloret_tpu_torch.cli.main --mode=VIDEO --video=clip.mp4 \
+        --classes_path=voc_classes.txt --anchors_path=yolo_anchors.txt \
+        [--track_interval=3] [--output=out.mp4]
+
+``--mesh_data`` above 1 stops with a message that names its place in
+ROADMAP.md. PRUNE answers as the JAX package does (exit code 2).
 
 ``--opt=DEBUG`` (the flag or ``opt: DEBUG`` in a config) sets the seed to
 0, as the JAX package does (the reference's ``main.py:140-144``), and in
@@ -88,10 +107,6 @@ import sys
 from yoloret_tpu_torch.configs import RunConfig, load_config
 from yoloret_tpu_torch.nn.detector import BACKBONES
 
-# What each mode that is not ported waits for (ROADMAP.md, queue 1).
-NOT_PORTED = {
-    "VIDEO": "VIDEO (OpenCV capture and trackers), item 7",
-}
 EXPORT_MODES = ("EXPORT", "TFLITE", "SERVING", "TFJS")
 PRUNE_MESSAGE = ("PRUNE: model pruning is not implemented (the reference declares the mode "
                  "without a handler); --quantize is likewise threaded but inert for parity")
@@ -112,8 +127,8 @@ def build_parser() -> argparse.ArgumentParser:
                                 argument_default=argparse.SUPPRESS)
     d = RunConfig()
     p.add_argument("--mode", type=str, default="IMAGE",
-                   help="IMAGE (default), TRAIN, MAP, ANCHORS, EXPORT, TFLITE, SERVING, TFJS "
-                        "or PRUNE (VIDEO is not ported yet)")
+                   help="IMAGE (default), VIDEO, TRAIN, MAP, ANCHORS, EXPORT, TFLITE, SERVING, "
+                        "TFJS or PRUNE")
     p.add_argument("--config", type=str, default=None, help="YAML config overlay")
     p.add_argument("--backbone", type=str,
                    help=f"default {d.backbone}; any of {', '.join(sorted(BACKBONES))}")
@@ -172,10 +187,10 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--int8", action="store_true",
                    help="IMAGE/MAP through the W8A8 backbone (nn/int8_infer.py)")
     p.add_argument("--image", type=str, help="image path (IMAGE mode)")
-    p.add_argument("--video", type=str, help="video path or 0 (VIDEO mode, not ported yet)")
+    p.add_argument("--video", type=str, help="video path or 0 for the camera (VIDEO mode)")
     p.add_argument("--track_interval", type=int,
                    help="VIDEO: re-detect every N frames, track between")
-    p.add_argument("--output", type=str, help="output path (IMAGE, ANCHORS, EXPORT)")
+    p.add_argument("--output", type=str, help="output path (IMAGE, VIDEO, ANCHORS, EXPORT)")
     p.add_argument("--export", type=str, help="export output dir")
     p.add_argument("--quantize", action="store_true",
                    help="EXPORT: int8 per-channel weights (export/quantize.py)")
@@ -230,10 +245,7 @@ def main(argv=None) -> int:
     if mode == "PRUNE":
         print(PRUNE_MESSAGE)  # as the JAX package answers it
         return 2
-    if mode not in ("IMAGE", "MAP", "TRAIN", "ANCHORS") + EXPORT_MODES:
-        if mode in NOT_PORTED:
-            return _refuse(f"--mode={mode} is not ported to yoloret_tpu_torch yet: it waits for "
-                           f"{NOT_PORTED[mode]}")
+    if mode not in ("IMAGE", "VIDEO", "MAP", "TRAIN", "ANCHORS") + EXPORT_MODES:
         return _refuse(f"unknown mode {args.mode!r}")
     if cfg.mesh_data and cfg.mesh_data > 1:
         return _refuse("--mesh_data above 1: data parallelism is not ported yet: it "
@@ -251,12 +263,15 @@ def main(argv=None) -> int:
     if mode == "IMAGE":
         return _image(cfg, args.device)
 
+    if mode == "VIDEO":
+        return _video(cfg, args.device)
+
     if mode in EXPORT_MODES:
         from yoloret_tpu_torch.export.export import export_model
 
         try:
             export_model(cfg, flavor=mode.lower(), device=args.device)
-        except (NotImplementedError, ValueError) as e:
+        except ValueError as e:
             print(e, file=sys.stderr)
             return 2
         return 0
@@ -321,6 +336,25 @@ def _image(cfg: RunConfig, device: str) -> int:
     for d in dets:
         print(f"{d.class_name} {d.score:.3f} {tuple(round(v, 1) for v in d.box)}")
     print(f"wrote {out}")
+    return 0
+
+
+def _video(cfg: RunConfig, device: str) -> int:
+    """VIDEO: ``Predictor.detect_video`` on ``--video`` (a file, or 0 for
+    the camera), re-detecting every ``--track_interval`` frames, written
+    to ``--output`` when given; prints ``processed N frames``."""
+    from yoloret_tpu_torch.infer.predictor import Predictor, int8_options
+
+    if not cfg.video:
+        print("--video required", file=sys.stderr)
+        return 2
+    pred = Predictor(
+        backbone=cfg.backbone, weights=cfg.model, classes_path=cfg.classes_path,
+        anchors_path=cfg.anchors_path, input_hw=cfg.input_size,
+        score_threshold=cfg.score_threshold, iou_threshold=cfg.nms_iou, bf16=cfg.bf16,
+        rfcr=cfg.rfcr, device=device, **int8_options(cfg))
+    n = pred.detect_video(cfg.video, cfg.output, track_interval=cfg.track_interval)
+    print(f"processed {n} frames")
     return 0
 
 

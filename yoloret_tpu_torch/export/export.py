@@ -1,6 +1,7 @@
 """Model export: the whole inference program as a ``torch.export``
-bundle. Port of ``yoloret_tpu/export/export.py`` (``export_stablehlo``,
-``export_model``).
+bundle, and TensorFlow's formats. Port of ``yoloret_tpu/export/
+export.py`` (``export_stablehlo``, ``_representative_dataset``,
+``_export_tflite_int8``, ``export_tf_flavor``, ``export_model``).
 
 The JAX package serialises its inference program (forward, decode, NMS)
 as StableHLO that takes the weights as an argument, and stores the
@@ -27,9 +28,15 @@ A program traced on one device type keeps it (``torch.arange`` and the
 like are recorded with their device): export on the device the bundle
 will run on. ``load_bundle`` refuses a bundle of another device type.
 
-The TensorFlow flavours (SavedModel, TFLite, the tfjs graph model) need
-a TensorFlow runtime, which the port does not convert to yet
-(ROADMAP.md, queue 1, item 5).
+The TensorFlow flavours (``export_tf_flavor``: the SavedModel, TFLite
+dynamic-range and calibrated int8, the tfjs graph model, TF-Serving's
+warm-up records) are built from the port's weights by TensorFlow ops:
+the detector's forward (``export/tfjs.py``) and the shared-pool
+postprocess (``export/tf_postprocess.py``), where the JAX package
+converts its program with ``jax2tf``. Their weights are read on the CPU
+and held in the graphs as numpy constants; no torch forward runs, and
+the artifacts run on TensorFlow's runtimes, not through the port's
+kernels.
 """
 
 from __future__ import annotations
@@ -272,15 +279,184 @@ def load_bundle(out_dir: str, device: DeviceLike = "cuda") -> Bundle:
     return Bundle(meta, program, program_weights(model, meta["anchors"]))
 
 
+def _representative_dataset(cfg: RunConfig, batch: int, n_samples: int = 32):
+    """Calibration feed of the full-int8 conversion: ``n_samples``
+    letterboxed images of the ``cfg.test_dataset``, else
+    ``cfg.train_dataset``, annotation list (a file, not a glob), cycled;
+    uniform noise of ``RandomState(0)`` without one. Each sample is a dict
+    ``{"images": [batch, H, W, 3] float32 in [0, 1], "image_hw": [batch,
+    2]}`` (the signature's input names: the calibrator need not take
+    them in the signature's order)."""
+    h, w = cfg.input_size
+
+    def gen():
+        from PIL import Image
+
+        from yoloret_tpu_torch.data.annotations import parse_annotation_line
+        from yoloret_tpu_torch.ops.letterbox import letterbox_numpy_u8
+
+        paths = []
+        for src in (cfg.test_dataset, cfg.train_dataset):
+            if src and os.path.exists(src) and not any(c in src for c in "*?["):
+                with open(src) as fh:
+                    paths = [parse_annotation_line(line)[0] for line in fh if line.strip()]
+                break
+        rng = np.random.RandomState(0)
+        for i in range(n_samples):
+            if paths:
+                arr = np.asarray(Image.open(paths[i % len(paths)]).convert("RGB"), np.uint8)
+                ih, iw = arr.shape[:2]
+                img = letterbox_numpy_u8(arr, (h, w)).astype(np.float32) / 255.0
+            else:
+                ih, iw = h, w
+                img = rng.rand(h, w, 3).astype(np.float32)
+            images = np.broadcast_to(img, (batch, h, w, 3)).copy()
+            hw = np.zeros((batch, 2), np.float32)
+            hw[:, 0], hw[:, 1] = float(ih), float(iw)
+            yield {"images": images, "image_hw": hw}
+
+    return gen
+
+
+def _export_tflite_int8(cfg: RunConfig, out_dir: str, batch: int, model: YoloReT) -> str:
+    """Full-int8 TFLite of the conv stack (``model_int8.tflite``, float
+    input and outputs: the three raw heads), calibrated on
+    ``cfg.quantize_samples`` samples of ``_representative_dataset``; the
+    graph the reference's own TFLite export covers (it converts its model
+    without the NMS tail, code/yolo.py:386-394). Decode and NMS stay
+    float32: run ``model.tflite``, or the heads through a float
+    postprocess. Returns the path, or "" with a message when the
+    conversion fails."""
+    import tensorflow as tf
+
+    from yoloret_tpu_torch.export.tfjs import tf_mirror
+
+    raw = tf_mirror(model, batch, cfg.input_size)
+    module = tf.Module()
+    module.raw = raw
+    raw_dir = os.path.join(out_dir, "saved_model_raw")
+    tf.saved_model.save(module, raw_dir, signatures={"serving_default": raw})
+    conv = tf.lite.TFLiteConverter.from_saved_model(raw_dir)
+    conv.optimizations = [tf.lite.Optimize.DEFAULT]
+    rep = _representative_dataset(cfg, batch, n_samples=cfg.quantize_samples)
+
+    def images_only():
+        for d in rep():
+            yield {"images": d["images"]}
+
+    conv.representative_dataset = images_only
+    conv.target_spec.supported_ops = [
+        tf.lite.OpsSet.TFLITE_BUILTINS_INT8,
+        tf.lite.OpsSet.TFLITE_BUILTINS,  # for the ops that do not quantize
+    ]
+    path = os.path.join(out_dir, "model_int8.tflite")
+    try:
+        blob = conv.convert()
+    except Exception as e:
+        print(f"full-int8 conversion failed for backbone {cfg.backbone!r} "
+              f"({type(e).__name__}: {str(e)[:200]}...); the dynamic-range "
+              f"f32 pipeline artifact model.tflite is still valid")
+        return ""
+    with open(path, "wb") as f:
+        f.write(blob)
+    print(f"TFLite flatbuffer (full-int8 conv stack, calibrated on "
+          f"{cfg.quantize_samples} samples) -> {path}")
+    return path
+
+
+def tf_program(cfg: RunConfig, model: YoloReT, batch: int = 1):
+    """tf.function ``infer(images, image_hw)`` -> (boxes [ymin, xmin,
+    ymax, xmax], scores, classes, valid): ``model``'s forward in TF ops
+    (``export/tfjs.py::tf_mirror``) and the shared-pool postprocess of
+    ``export/tf_postprocess.py`` at M=256 with ``cfg``'s thresholds, for
+    images [batch, H, W, 3] float32 in [0, 1] and image_hw [batch, 2]."""
+    import tensorflow as tf
+
+    from yoloret_tpu_torch.export import tf_postprocess
+    from yoloret_tpu_torch.export.tfjs import tf_mirror
+
+    raw = tf_mirror(model, batch, cfg.input_size)
+    anchors = load_anchors(cfg.anchors_path)
+
+    def infer(images, image_hw):
+        return tf_postprocess.detect(raw(images), anchors, image_hw,
+                                     score_threshold=cfg.score_threshold,
+                                     iou_threshold=cfg.nms_iou, num_candidates=NUM_CANDIDATES,
+                                     max_det=MAX_DET)
+
+    h, w = cfg.input_size
+    return tf.function(infer, input_signature=[
+        tf.TensorSpec([batch, h, w, 3], tf.float32, name="images"),
+        tf.TensorSpec([batch, 2], tf.float32, name="image_hw")], autograph=False)
+
+
+def export_tf_flavor(cfg: RunConfig, out_dir: str, flavor: str, batch: int = 1) -> str:
+    """The reference's TensorFlow artifacts (code/yolo.py:333-394) in
+    ``out_dir``, float32 whatever ``cfg.bf16`` says (bf16 is a compute
+    choice of the card with no meaning for an edge artifact, and the JAX
+    package's TFLite converter fails on a bf16 graph): always
+    ``saved_model/``, whose ``serving_default`` signature is
+    ``tf_program`` (``images``, ``image_hw``); then by ``flavor``:
+
+    - ``tflite``: ``model.tflite``, the SavedModel converted with
+      ``Optimize.DEFAULT`` (dynamic-range int8 weights), and with
+      ``cfg.quantize`` also ``model_int8.tflite`` (``_export_tflite_int8``);
+    - ``tfjs``: ``tfjs_model/``, the tfjs graph model of the conv stack;
+    - ``serving``: TF-Serving's warm-up records of two
+      ``_representative_dataset`` batches in the SavedModel's
+      ``assets.extra/``.
+
+    The weights (``cfg.model``, else the seeded init of seed 0) are read
+    on the CPU; ValueError for a backbone or RFCR fusion the TF mirror
+    does not cover (``export/tfjs.py::check_mirrored``). Needs
+    TensorFlow."""
+    import tensorflow as tf
+
+    from yoloret_tpu_torch.export.tfjs import export_tfjs_graph_model, load_detector
+
+    model = load_detector(cfg)
+    os.makedirs(out_dir, exist_ok=True)
+    infer = tf_program(cfg, model, batch)
+    module = tf.Module()
+    module.infer = infer
+    saved_dir = os.path.join(out_dir, "saved_model")
+    tf.saved_model.save(module, saved_dir, signatures={"serving_default": infer})
+    if flavor == "tflite":
+        conv = tf.lite.TFLiteConverter.from_saved_model(saved_dir)
+        conv.optimizations = [tf.lite.Optimize.DEFAULT]
+        blob = conv.convert()  # before the open: a failed conversion leaves no file
+        with open(os.path.join(out_dir, "model.tflite"), "wb") as f:
+            f.write(blob)
+        print(f"TFLite flatbuffer (dynamic-range) -> {out_dir}/model.tflite")
+        if cfg.quantize:
+            _export_tflite_int8(cfg, out_dir, batch, model)
+    elif flavor == "tfjs":
+        tfjs_dir = export_tfjs_graph_model(cfg, os.path.join(out_dir, "tfjs_model"), batch,
+                                           model)
+        print(f"TF.js graph model (conv stack, raw heads) -> {tfjs_dir}; full-pipeline "
+              f"SavedModel at {saved_dir}")
+    else:
+        from yoloret_tpu_torch.export.warmup import write_warmup_records
+
+        rep = _representative_dataset(cfg, batch, n_samples=2)
+        write_warmup_records(saved_dir, rep(), model_name=cfg.backbone)
+        print(f"TF-Serving SavedModel -> {saved_dir}")
+    return out_dir
+
+
 def export_model(cfg: RunConfig, flavor: str = "export", device: DeviceLike = "cuda") -> str:
-    """The CLI's EXPORT / TFLITE / SERVING / TFJS: the bundle in
-    ``cfg.export or cfg.output or export_<backbone>``, for batch 1. A
-    TensorFlow flavour where TensorFlow cannot be imported writes the
-    bundle with a message, as the JAX package does; where it can, it
-    raises ``NotImplementedError``: converting to TensorFlow's formats is
-    not ported. ``ValueError`` without ``cfg.classes_path`` and
+    """The CLI's EXPORT / TFLITE / SERVING / TFJS, for batch 1, in
+    ``cfg.export or cfg.output or export_<backbone>``: EXPORT the bundle
+    traced on ``device``; a TensorFlow flavour ``export_tf_flavor``'s
+    artifacts (on the CPU, whatever ``device`` says) where TensorFlow can
+    be imported, else the bundle with a message, as the JAX package writes
+    its StableHLO bundle. ``ValueError`` without ``cfg.classes_path`` and
     ``cfg.anchors_path``."""
     out_dir = cfg.export or cfg.output or f"export_{cfg.backbone}"
+    if flavor not in ("export",) + TF_FLAVORS:
+        raise ValueError(f"unknown export flavour {flavor!r}")
+    if not (cfg.classes_path and cfg.anchors_path):
+        raise ValueError(f"{flavor.upper()} needs --classes_path and --anchors_path")
     if flavor in TF_FLAVORS:
         try:
             import tensorflow  # noqa: F401
@@ -288,13 +464,7 @@ def export_model(cfg: RunConfig, flavor: str = "export", device: DeviceLike = "c
             print(f"{flavor}: TensorFlow runtime not present in this image; writing the "
                   "portable PyTorch export bundle instead.")
         else:
-            raise NotImplementedError(
-                f"{flavor}: converting to TensorFlow's formats is not ported to "
-                "yoloret_tpu_torch yet: it waits for side paths, item 5 (ROADMAP.md, queue 1)")
-    elif flavor != "export":
-        raise ValueError(f"unknown export flavour {flavor!r}")
-    if not (cfg.classes_path and cfg.anchors_path):
-        raise ValueError(f"{flavor.upper()} needs --classes_path and --anchors_path")
+            return export_tf_flavor(cfg, out_dir, flavor)
     return export_bundle(cfg, out_dir, device=device)
 
 

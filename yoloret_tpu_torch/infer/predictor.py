@@ -1,7 +1,9 @@
 """Inference API: the serving path on the card. Port of
 ``yoloret_tpu/infer/predictor.py`` (``Detection``, ``Predictor`` with
-``detect_arrays`` and ``detect_image``, its int8 backbone and zoom-in
-ensemble, ``draw_detections``) without the mesh and video paths.
+``detect_arrays``, ``detect_image`` and ``detect_video``, its int8
+backbone and zoom-in ensemble, ``draw_detections``, ``_make_tracker``)
+without the mesh path. ``frame_schedule`` is ``detect_video``'s
+per-frame schedule (detect or track) without OpenCV.
 
 The host letterboxes each image to uint8 (4x smaller upload than
 float32), the device divides by 255, runs the detector through
@@ -30,7 +32,8 @@ import colorsys
 import dataclasses
 import time
 from collections import deque
-from typing import Any, List, Mapping, Optional, Sequence, Tuple, Union
+from typing import (Any, Callable, Iterable, Iterator, List, Mapping, Optional, Sequence, Tuple,
+                    Union)
 
 import numpy as np
 import torch
@@ -255,6 +258,132 @@ class Predictor:
         if draw:
             image = draw_detections(image, dets, self.class_names)
         return image, dets
+
+    # -- video API (reference detect_video, yolo.py:435-554) ----------------
+
+    def detect_video(self, source, output: Optional[str] = None,
+                     max_frames: Optional[int] = None, track_interval: int = 1,
+                     max_tracks: int = 20) -> int:
+        """OpenCV capture loop with an FPS overlay; returns the number of
+        frames processed. ``source`` is a file, or ``0`` / ``"0"`` for the
+        camera (``IOError`` when it does not open); with ``output`` the
+        frames are written there as mp4v at the source's FPS (25 when it
+        reports none), each with its boxes, labels and FPS drawn.
+
+        ``track_interval=1`` (default) detects every frame.
+        ``track_interval=N>1`` is the reference's interleave (yolo.py:
+        470-520): detect on frames 0, N, 2N, ..., hand each of at most
+        ``max_tracks`` boxes to a tracker (``_make_tracker``: CSRT, else
+        KCF, else MIL), and carry the boxes whose tracker still holds
+        through the frames between (``frame_schedule``). The detector
+        sees each frame in RGB, the trackers in OpenCV's BGR."""
+        import cv2
+
+        cap = cv2.VideoCapture(0 if source in ("0", 0) else source)
+        if not cap.isOpened():
+            raise IOError(f"cannot open video source {source!r}")
+        writer = None
+        if output:
+            fourcc = cv2.VideoWriter_fourcc(*"mp4v")
+            fps = cap.get(cv2.CAP_PROP_FPS) or 25.0
+            w = int(cap.get(cv2.CAP_PROP_FRAME_WIDTH))
+            h = int(cap.get(cv2.CAP_PROP_FRAME_HEIGHT))
+            writer = cv2.VideoWriter(output, fourcc, fps, (w, h))
+
+        def frames():
+            n = 0
+            while True:
+                ok, frame = cap.read()
+                if not ok or (max_frames is not None and n >= max_frames):
+                    return
+                n += 1
+                yield frame
+
+        def detect(frame):
+            return self.detect_arrays([cv2.cvtColor(frame, cv2.COLOR_BGR2RGB)])[0]
+
+        n, t0 = 0, time.perf_counter()
+        try:
+            for frame, dets in frame_schedule(frames(), detect, lambda: _make_tracker(cv2),
+                                              track_interval, max_tracks):
+                for d in dets:
+                    x1, y1, x2, y2 = [int(v) for v in d.box]
+                    cv2.rectangle(frame, (x1, y1), (x2, y2), (0, 255, 0), 2)
+                    cv2.putText(frame, f"{d.class_name} {d.score:.2f}", (x1, max(y1 - 4, 10)),
+                                cv2.FONT_HERSHEY_SIMPLEX, 0.5, (0, 255, 0), 1)
+                fps_now = (n + 1) / (time.perf_counter() - t0)
+                cv2.putText(frame, f"FPS: {fps_now:.1f}", (8, 24), cv2.FONT_HERSHEY_SIMPLEX, 0.8,
+                            (0, 0, 255), 2)
+                if writer is not None:
+                    writer.write(frame)
+                n += 1
+        finally:
+            cap.release()
+            if writer is not None:
+                writer.release()
+        return n
+
+
+def frame_schedule(frames: Iterable[np.ndarray], detect: Callable[[np.ndarray], List[Detection]],
+                   make_tracker: Optional[Callable[[], Any]] = None, track_interval: int = 1,
+                   max_tracks: int = 20) -> Iterator[Tuple[np.ndarray, List[Detection]]]:
+    """The per-frame schedule of ``Predictor.detect_video``, without
+    OpenCV: yields (frame, detections) for each of ``frames`` ([H, W, 3]
+    arrays), one at a time.
+
+    Frame n is detected (``detect(frame)``) when ``track_interval <= 1``
+    or n is a multiple of it. With ``track_interval > 1`` each detection
+    frame drops the trackers and seeds one (``make_tracker()``, then
+    ``init(frame, (x, y, w, h))`` in ints) for each of the first
+    ``max_tracks`` detections, its box clamped into the frame; every
+    other frame calls each tracker's ``update(frame)`` -> (ok, (x, y, w,
+    h)) and carries only the detections whose update succeeded, with the
+    tracker's box and their own score and class."""
+    trackers: List[Tuple[Any, Detection]] = []
+    for n, frame in enumerate(frames):
+        if track_interval <= 1 or n % track_interval == 0:
+            dets = detect(frame)
+            if track_interval > 1:
+                trackers = []
+                h, w = frame.shape[:2]
+                for d in dets[:max_tracks]:
+                    x1, y1, x2, y2 = d.box
+                    x1 = max(0.0, min(x1, w - 2.0))
+                    y1 = max(0.0, min(y1, h - 2.0))
+                    bw = max(1.0, min(x2, w) - x1)
+                    bh = max(1.0, min(y2, h) - y1)
+                    t = make_tracker()
+                    t.init(frame, (int(x1), int(y1), int(bw), int(bh)))
+                    trackers.append((t, d))
+        else:
+            dets, kept = [], []
+            for t, d in trackers:
+                ok, (x, y, bw, bh) = t.update(frame)
+                if not ok:
+                    continue
+                d = Detection((float(x), float(y), float(x + bw), float(y + bh)), d.score,
+                              d.class_id, d.class_name)
+                kept.append((t, d))
+                dets.append(d)
+            trackers = kept
+        yield frame, dets
+
+
+def _make_tracker(cv2):
+    """The best single-object tracker OpenCV has: CSRT (the reference's,
+    yolo.py:474) when it ships contrib, else KCF, else MIL, looked up in
+    ``cv2``, ``cv2.legacy`` and as ``cv2.Tracker<Name>_create``."""
+    for name in ("TrackerCSRT", "TrackerKCF", "TrackerMIL"):
+        cls = getattr(cv2, name, None) or getattr(getattr(cv2, "legacy", None), name, None)
+        if cls is not None:
+            try:
+                return cls.create()
+            except Exception:
+                pass
+        fn = getattr(cv2, f"{name}_create", None)
+        if fn is not None:
+            return fn()
+    raise RuntimeError("no OpenCV tracker implementation available")
 
 
 def draw_detections(image, detections: Sequence[Detection], class_names: Sequence[str]):
