@@ -185,6 +185,19 @@ Phases (any failure exits non-zero and prints no result):
    card vs CPU. OpenCV's capture and trackers and the TensorFlow flavours
    of EXPORT are not driven here (the card's machine has neither package);
    tier-1 holds them on the CPU.
+15. The ablation harness (``tools/ablation.py``): one job through the job
+   runner's own subprocess (``_run_job``): the truncated-transfer ablation's
+   transfer arm at seed 0 (``--job transfer --arm transfer --seed 0
+   --device cuda``; 16 crowded scenes at 160 px, b4, stage 1 frozen 30
+   epochs, stage 2 60), its ``--pretrained`` source the crowded recipe's
+   weights of phase 13. Printed: its ``ABLATION_RESULT`` (the train and
+   held-out mAPs must be finite; a smoke reading, since the source saw the
+   target's images), its seconds and its kernel launches (96
+   ``mbconv_f32`` at [8, 160] and 6 ``nms_shared`` at C=4, M=512, added to
+   phase 13's rows of those shapes). Its grafted init must hold the
+   source's ``body.*`` bit for bit and the trainer's seed-0 init elsewhere.
+   The whole batteries (``--seeds 0 1``, ``--battery r5``) and the int8
+   study (TensorFlow) run outside this script.
 
 The line before the last is the kernel table as JSON; the last line is
 ``{"ok": true, "device": {...}}``. Details go to chiprun_out/chip_smoke.json.
@@ -390,6 +403,10 @@ VIDEO_FRAMES = 240
 VIDEO_BOXES = 6
 VIDEO_WARMUP = 5
 VIDEO_F32_FRAMES = 4
+# Phase 15, the ablation harness: the transfer arm's evaluations, float32
+# at b8 @160, 6 batches (16 training scenes, 32 held out): 16 mbconv_f32
+# launches and 1 nms_shared launch (C=4, M=512) a batch.
+ABLATION_LAUNCHES_WANT = {"mbconv": {"mbconv_f32": 16 * 6}, "nms": {"shared": 6}}
 
 
 def log(*a):
@@ -3324,7 +3341,7 @@ def first_eval_batch(ann, size, max_boxes=20):
         it.close()
 
 
-def learn_phase(report):
+def learn_phase(report, root):
     """Phase 13: proof that the port learns, on the card (training in
     float32 on deterministic kernels, as the tools run it: the same mAP in
     every run). (a) The self-check (``tools/selfcheck.py``) at its
@@ -3337,7 +3354,9 @@ def learn_phase(report):
     mAP above GATE_FLOOR. Each run with the launch counts set to 0 just
     before and read just after. (c) Each kernel those runs launch against
     its plain version on the trained weights, at their shapes, and timed.
-    Returns the kernels line's rows."""
+    Returns the kernels line's rows. The runs' files go to the directory
+    ``root`` (kept; the gate's weight file is
+    ``report["learn"]["gate"]["weights"]``)."""
     import numpy as np
     import torch
 
@@ -3350,137 +3369,137 @@ def learn_phase(report):
     out = report.setdefault("learn", {})
     log(f"== learn: the self-check ({LEARN_EPOCHS} epochs @{LEARN_SIZE}, b{LEARN_BATCH}, "
         f"float32) and the crowded recipe ({GATE_EPOCHS} epochs @{GATE_SIZE}) on the card")
-    with tempfile.TemporaryDirectory(prefix="yoloret_learn_") as root:
-        sc_dir, gate_dir = os.path.join(root, "selfcheck"), os.path.join(root, "gate")
-        for d in (sc_dir, gate_dir):
-            os.makedirs(d)
-        t0 = time.perf_counter()
-        (f32_map, weights), f32_launches = counted(selfcheck.run, LEARN_EPOCHS, LEARN_SIZE,
-                                                   LEARN_BATCH, LEARN_THRESHOLD,
-                                                   workdir=sc_dir, device=DEVICE)
-        sc = out["selfcheck"] = dict(run_seconds=time.perf_counter() - t0,
-                                     **train_record(weights))
-        ann = os.path.join(sc_dir, f"synth_train_{LEARN_IMAGES}.txt")
-        anchors = os.path.join(sc_dir, "anchors.txt")
-        batches = -(-LEARN_IMAGES // LEARN_BATCH)
-        maps = {"float32": dict(map=f32_map, launches=f32_launches)}
-        for name, kw in (("bf16", dict(bf16=True)), ("int8", dict(use_int8=True))):
-            m, launches = counted(selfcheck.evaluate, weights, ann, anchors, LEARN_SIZE,
-                                  LEARN_BATCH, DEVICE, verbose=False, **kw)
-            maps[name] = dict(map=m, launches=launches)
-        sc["maps"] = maps
-        log(f"  self-check: train {sc['seconds']:.1f} s over {sc['epochs']} epochs "
-            f"({sc['img_per_s']:.1f} img/s; the whole run with its evaluation "
-            f"{sc['run_seconds']:.1f} s); loss by epoch {[round(v, 3) for v in sc['losses']]}")
-        for name, r in maps.items():
-            log(f"  self-check mAP {name}: {r['map']:.6f} (launches {r['launches']})")
-        want = {"float32": {"mbconv_f32": 16 * batches, "nms_shared": batches},
-                "bf16": {"mbconv_wgmma": 16 * batches, "nms_shared": batches},
-                "int8": {"nms_shared": batches}}
-        for name, r in maps.items():
-            assert np.isfinite(r["map"]), (name, r["map"])
-            assert r["launches"] == want[name], (name, r["launches"], want[name])
-        if f32_map < LEARN_THRESHOLD:
-            raise AssertionError(f"self-check float32 mAP {f32_map:.4f} is below "
-                                 f"{LEARN_THRESHOLD}: the port did not learn")
+    sc_dir, gate_dir = os.path.join(root, "selfcheck"), os.path.join(root, "gate")
+    for d in (sc_dir, gate_dir):
+        os.makedirs(d)
+    t0 = time.perf_counter()
+    (f32_map, weights), f32_launches = counted(selfcheck.run, LEARN_EPOCHS, LEARN_SIZE,
+                                               LEARN_BATCH, LEARN_THRESHOLD,
+                                               workdir=sc_dir, device=DEVICE)
+    sc = out["selfcheck"] = dict(run_seconds=time.perf_counter() - t0,
+                                 **train_record(weights))
+    ann = os.path.join(sc_dir, f"synth_train_{LEARN_IMAGES}.txt")
+    anchors = os.path.join(sc_dir, "anchors.txt")
+    batches = -(-LEARN_IMAGES // LEARN_BATCH)
+    maps = {"float32": dict(map=f32_map, launches=f32_launches)}
+    for name, kw in (("bf16", dict(bf16=True)), ("int8", dict(use_int8=True))):
+        m, launches = counted(selfcheck.evaluate, weights, ann, anchors, LEARN_SIZE,
+                              LEARN_BATCH, DEVICE, verbose=False, **kw)
+        maps[name] = dict(map=m, launches=launches)
+    sc["maps"] = maps
+    log(f"  self-check: train {sc['seconds']:.1f} s over {sc['epochs']} epochs "
+        f"({sc['img_per_s']:.1f} img/s; the whole run with its evaluation "
+        f"{sc['run_seconds']:.1f} s); loss by epoch {[round(v, 3) for v in sc['losses']]}")
+    for name, r in maps.items():
+        log(f"  self-check mAP {name}: {r['map']:.6f} (launches {r['launches']})")
+    want = {"float32": {"mbconv_f32": 16 * batches, "nms_shared": batches},
+            "bf16": {"mbconv_wgmma": 16 * batches, "nms_shared": batches},
+            "int8": {"nms_shared": batches}}
+    for name, r in maps.items():
+        assert np.isfinite(r["map"]), (name, r["map"])
+        assert r["launches"] == want[name], (name, r["launches"], want[name])
+    if f32_map < LEARN_THRESHOLD:
+        raise AssertionError(f"self-check float32 mAP {f32_map:.4f} is below "
+                             f"{LEARN_THRESHOLD}: the port did not learn")
 
-        t0 = time.perf_counter()
-        (gate, gate_weights), gate_launches = counted(accuracy_gate.run, gate_dir, GATE_EPOCHS,
-                                                      GATE_SIZE, LEARN_BATCH, device=DEVICE)
-        gt = out["gate"] = dict(run_seconds=time.perf_counter() - t0, result=gate,
-                                launches=gate_launches, **train_record(gate_weights))
-        gann = os.path.join(gate_dir, f"crowd_train_{LEARN_IMAGES}.txt")
-        gpred = topk_study.crowded_predictor(gate_weights, os.path.join(gate_dir, "anchors.txt"),
-                                             GATE_SIZE, DEVICE)
-        # the table's launches by row, read around each of its evaluations' calls
-        by_row = {}
-        infer = gpred.infer
+    t0 = time.perf_counter()
+    (gate, gate_weights), gate_launches = counted(accuracy_gate.run, gate_dir, GATE_EPOCHS,
+                                                  GATE_SIZE, LEARN_BATCH, device=DEVICE)
+    gt = out["gate"] = dict(run_seconds=time.perf_counter() - t0, result=gate,
+                            launches=gate_launches, weights=gate_weights,
+                            **train_record(gate_weights))
+    gann = os.path.join(gate_dir, f"crowd_train_{LEARN_IMAGES}.txt")
+    gpred = topk_study.crowded_predictor(gate_weights, os.path.join(gate_dir, "anchors.txt"),
+                                         GATE_SIZE, DEVICE)
+    # the table's launches by row, read around each of its evaluations' calls
+    by_row = {}
+    infer = gpred.infer
 
-        def infer_counted(images, image_hw, **kw):
-            before = suppress.variant_launches.copy()
-            res = infer(images, image_hw, **kw)
-            key = (kw.get("pool"), kw.get("num_candidates"))
-            by_row.setdefault(key, Counter()).update(suppress.variant_launches - before)
-            return res
+    def infer_counted(images, image_hw, **kw):
+        before = suppress.variant_launches.copy()
+        res = infer(images, image_hw, **kw)
+        key = (kw.get("pool"), kw.get("num_candidates"))
+        by_row.setdefault(key, Counter()).update(suppress.variant_launches - before)
+        return res
 
-        gpred.infer = infer_counted
-        rows, table_launches = counted(topk_study.eval_table, gpred, gann, GATE_SIZE,
-                                       LEARN_BATCH)
-        del gpred.infer
-        gt["table"] = [dict(pool=p, topk=k, depth=d, map=m, delta=dl) for p, k, d, m, dl in rows]
-        gt["table_launches"] = table_launches
-        gt["table_launches_by_row"] = {f"{p} {k}": dict(c) for (p, k), c in by_row.items()}
-        lo, hi = JAX_GATE_BAND
-        gap = min(0.0, gate["mAP"] - lo) + max(0.0, gate["mAP"] - hi)
-        gt["gap_to_jax_band"] = gap
-        log(f"  crowded recipe: train {gt['seconds']:.1f} s over {gt['epochs']} epochs "
-            f"({gt['img_per_s']:.1f} img/s); loss by epoch "
-            f"{[round(v, 3) for v in gt['losses']]}; gate mAP {gate['mAP']:.6f} (APs "
-            f"{gate['aps']}), the JAX package's CPU band {lo}-{hi}: gap {gap:+.4f} (for "
-            f"information: the seeded inits differ); launches {gate_launches}; the table's "
-            f"{table_launches}")
-        aps = list(gate["aps"].values()) + [r["map"] for r in gt["table"]]
-        if not all(np.isfinite(aps)):
-            raise AssertionError(f"a non-finite AP in the gate or the table: {aps}")
-        if gate["mAP"] <= GATE_FLOOR:
-            raise AssertionError(f"gate mAP {gate['mAP']:.4f} <= {GATE_FLOOR}: nothing learned")
-        n_pos = topk_study.full_pool(GATE_SIZE)
-        want_rows = {("per_class", n_pos): {"per_class_large": batches}}
-        for k in topk_study.DEPTHS:
-            want_rows[("per_class", k)] = {"per_class": batches}
-            want_rows[("shared", k)] = {"shared": batches}
-        assert {k: dict(c) for k, c in by_row.items()} == want_rows, by_row
+    gpred.infer = infer_counted
+    rows, table_launches = counted(topk_study.eval_table, gpred, gann, GATE_SIZE,
+                                   LEARN_BATCH)
+    del gpred.infer
+    gt["table"] = [dict(pool=p, topk=k, depth=d, map=m, delta=dl) for p, k, d, m, dl in rows]
+    gt["table_launches"] = table_launches
+    gt["table_launches_by_row"] = {f"{p} {k}": dict(c) for (p, k), c in by_row.items()}
+    lo, hi = JAX_GATE_BAND
+    gap = min(0.0, gate["mAP"] - lo) + max(0.0, gate["mAP"] - hi)
+    gt["gap_to_jax_band"] = gap
+    log(f"  crowded recipe: train {gt['seconds']:.1f} s over {gt['epochs']} epochs "
+        f"({gt['img_per_s']:.1f} img/s); loss by epoch "
+        f"{[round(v, 3) for v in gt['losses']]}; gate mAP {gate['mAP']:.6f} (APs "
+        f"{gate['aps']}), the JAX package's CPU band {lo}-{hi}: gap {gap:+.4f} (for "
+        f"information: the seeded inits differ); launches {gate_launches}; the table's "
+        f"{table_launches}")
+    aps = list(gate["aps"].values()) + [r["map"] for r in gt["table"]]
+    if not all(np.isfinite(aps)):
+        raise AssertionError(f"a non-finite AP in the gate or the table: {aps}")
+    if gate["mAP"] <= GATE_FLOOR:
+        raise AssertionError(f"gate mAP {gate['mAP']:.4f} <= {GATE_FLOOR}: nothing learned")
+    n_pos = topk_study.full_pool(GATE_SIZE)
+    want_rows = {("per_class", n_pos): {"per_class_large": batches}}
+    for k in topk_study.DEPTHS:
+        want_rows[("per_class", k)] = {"per_class": batches}
+        want_rows[("shared", k)] = {"shared": batches}
+    assert {k: dict(c) for k, c in by_row.items()} == want_rows, by_row
 
-        # (c) each kernel on the trained weights at the phase's shapes
-        flush = make_flush()
-        kernel_rows = []
-        names = ["red", "green"]
-        preds = {dt: Predictor(weights=weights, class_names=names,
-                               anchors=load_anchors(anchors),
-                               input_hw=(LEARN_SIZE, LEARN_SIZE), score_threshold=0.0,
-                               bf16=dt == "bf16", device=DEVICE) for dt in ("float32", "bf16")}
-        sc_where = f"the self-check's {{}} evaluation ({batches} batches of {LEARN_BATCH})"
-        gate_where = ("the gate's evaluation and the top-k table's "
-                      f"{1 + 2 * len(topk_study.DEPTHS)} ({batches} batches each)")
-        for dt, kernel, pred in (("float32", "mbconv_f32", preds["float32"]),
-                                 ("bf16", "mbconv_wgmma", preds["bf16"])):
-            err = check_mbconv_at(pred, LEARN_SIZE, LEARN_BATCH, out,
-                                  f"mbconv_check_{dt}_{LEARN_SIZE}")
-            kernel_rows.append(mbconv_entry(
-                pred, f"{kernel[len('mbconv'):]}@learn{LEARN_SIZE}_b{LEARN_BATCH}",
-                maps[dt]["launches"][kernel], err,
-                time_mbconv(pred, flush, batch=LEARN_BATCH, size=LEARN_SIZE), LEARN_BATCH,
-                LEARN_SIZE, sc_where.format(dt)))
-        err = check_mbconv_at(gpred, GATE_SIZE, LEARN_BATCH, out, f"mbconv_check_f32_{GATE_SIZE}")
+    # (c) each kernel on the trained weights at the phase's shapes
+    flush = make_flush()
+    kernel_rows = []
+    names = ["red", "green"]
+    preds = {dt: Predictor(weights=weights, class_names=names,
+                           anchors=load_anchors(anchors),
+                           input_hw=(LEARN_SIZE, LEARN_SIZE), score_threshold=0.0,
+                           bf16=dt == "bf16", device=DEVICE) for dt in ("float32", "bf16")}
+    sc_where = f"the self-check's {{}} evaluation ({batches} batches of {LEARN_BATCH})"
+    gate_where = ("the gate's evaluation and the top-k table's "
+                  f"{1 + 2 * len(topk_study.DEPTHS)} ({batches} batches each)")
+    for dt, kernel, pred in (("float32", "mbconv_f32", preds["float32"]),
+                             ("bf16", "mbconv_wgmma", preds["bf16"])):
+        err = check_mbconv_at(pred, LEARN_SIZE, LEARN_BATCH, out,
+                              f"mbconv_check_{dt}_{LEARN_SIZE}")
         kernel_rows.append(mbconv_entry(
-            gpred, f"_f32@learn{GATE_SIZE}_b{LEARN_BATCH}",
-            gate_launches["mbconv_f32"] + table_launches["mbconv_f32"], err,
-            time_mbconv(gpred, flush, batch=LEARN_BATCH, size=GATE_SIZE), LEARN_BATCH,
-            GATE_SIZE, gate_where))
-        batch = first_eval_batch(ann, LEARN_SIZE)
-        boxes, scores = model_candidates(preds["float32"], 512, 0, images=batch["images"],
-                                         image_hw=batch["image_hw"])
+            pred, f"{kernel[len('mbconv'):]}@learn{LEARN_SIZE}_b{LEARN_BATCH}",
+            maps[dt]["launches"][kernel], err,
+            time_mbconv(pred, flush, batch=LEARN_BATCH, size=LEARN_SIZE), LEARN_BATCH,
+            LEARN_SIZE, sc_where.format(dt)))
+    err = check_mbconv_at(gpred, GATE_SIZE, LEARN_BATCH, out, f"mbconv_check_f32_{GATE_SIZE}")
+    kernel_rows.append(mbconv_entry(
+        gpred, f"_f32@learn{GATE_SIZE}_b{LEARN_BATCH}",
+        gate_launches["mbconv_f32"] + table_launches["mbconv_f32"], err,
+        time_mbconv(gpred, flush, batch=LEARN_BATCH, size=GATE_SIZE), LEARN_BATCH,
+        GATE_SIZE, gate_where))
+    batch = first_eval_batch(ann, LEARN_SIZE)
+    boxes, scores = model_candidates(preds["float32"], 512, 0, images=batch["images"],
+                                     image_hw=batch["image_hw"])
+    kernel_rows.append(nms_entry(
+        preds["float32"], f"@learn{LEARN_SIZE}_C2_M512", boxes, scores,
+        sum(r["launches"]["nms_shared"] for r in maps.values()),
+        "the self-check's three evaluations (float32, bf16, int8)", flush, thr=0.0,
+        name="nms_shared"))
+    batch = first_eval_batch(gann, GATE_SIZE, max_boxes=12)
+    for per_class, k in ([(False, k) for k in topk_study.DEPTHS]
+                         + [(True, k) for k in topk_study.DEPTHS] + [(True, n_pos)]):
+        boxes, scores = model_candidates(gpred, k, 0, per_class=per_class,
+                                         images=batch["images"], image_hw=batch["image_hw"])
+        pool = "per_class" if per_class else "shared"
+        variant = "per_class_large" if k > 512 else pool
+        launches = by_row[(pool, k)][variant]
+        where = f"the top-k table's {pool} {k} row"
+        if (pool, k) == ("shared", 512):
+            launches += gate_launches["nms_shared"]
+            where = "the gate's evaluation and " + where
         kernel_rows.append(nms_entry(
-            preds["float32"], f"@learn{LEARN_SIZE}_C2_M512", boxes, scores,
-            sum(r["launches"]["nms_shared"] for r in maps.values()),
-            "the self-check's three evaluations (float32, bf16, int8)", flush, thr=0.0,
-            name="nms_shared"))
-        batch = first_eval_batch(gann, GATE_SIZE, max_boxes=12)
-        for per_class, k in ([(False, k) for k in topk_study.DEPTHS]
-                             + [(True, k) for k in topk_study.DEPTHS] + [(True, n_pos)]):
-            boxes, scores = model_candidates(gpred, k, 0, per_class=per_class,
-                                             images=batch["images"], image_hw=batch["image_hw"])
-            pool = "per_class" if per_class else "shared"
-            variant = "per_class_large" if k > 512 else pool
-            launches = by_row[(pool, k)][variant]
-            where = f"the top-k table's {pool} {k} row"
-            if (pool, k) == ("shared", 512):
-                launches += gate_launches["nms_shared"]
-                where = "the gate's evaluation and " + where
-            kernel_rows.append(nms_entry(
-                gpred, f"@learn{GATE_SIZE}_C4_{'K' if per_class else 'M'}{k}", boxes, scores,
-                launches, where, flush, thr=0.0, name=NMS_KERNELS[variant]))
-        del preds, gpred, boxes, scores, batch
+            gpred, f"@learn{GATE_SIZE}_C4_{'K' if per_class else 'M'}{k}", boxes, scores,
+            launches, where, flush, thr=0.0, name=NMS_KERNELS[variant]))
+    del preds, gpred, boxes, scores, batch
     torch.cuda.empty_cache()
     out["seconds"] = time.perf_counter() - t_phase
     log(f"== learn phase: {out['seconds']:.1f} s")
@@ -3608,6 +3627,88 @@ def video_phase(state, seed, report, kernels):
     log(f"== VIDEO phase: {out['seconds']:.1f} s")
 
 
+def ablation_phase(pretrained, report, kernels):
+    """Phase 15, the ablation harness (``tools/ablation.py``): one job, the
+    transfer arm of the truncated-transfer ablation at seed 0, through the
+    job runner's own subprocess (``_run_job``'s ``_job_output``, ``--device cuda``) with the
+    crowded recipe's weights of the learn phase as its ``--pretrained``
+    source: its ``ABLATION_RESULT``, its seconds (the subprocess's wall
+    time; the trainer's own seconds of both stages) and its kernel launches
+    (``ABLATION_LAUNCHES``: ABLATION_LAUNCHES_WANT, added to the learn
+    phase's rows at the same shapes). Its grafted init must hold the
+    source's ``body.*`` bit for bit and the trainer's seed-0 init elsewhere,
+    and both mAPs must be finite. The mAP is a smoke reading, not an
+    ablation result: the source was trained on the target's own images."""
+    import numpy as np
+    import torch
+
+    from yoloret_tpu_torch.nn.detector import YoloReT
+    from yoloret_tpu_torch.nn.layers import init_weights
+    from yoloret_tpu_torch.tools import ablation
+    from yoloret_tpu_torch.tools.accuracy_gate import epoch_records
+    from yoloret_tpu_torch.tools.topk_study import CLASS_NAMES
+    from yoloret_tpu_torch.utils.checkpoint import load_params
+
+    t_phase = time.perf_counter()
+    out = report.setdefault("ablation", {})
+    job_id = "transfer-transfer-s0"
+    args = ["--job", "transfer", "--arm", "transfer", "--seed", "0", "--pretrained",
+            pretrained, "--device", DEVICE]
+    log(f"== ablation: the job {job_id} through the job runner's subprocess "
+        f"({' '.join(args[:6])} --pretrained <the learn phase's crowded-recipe weights> "
+        f"--device {DEVICE})")
+    with tempfile.TemporaryDirectory(prefix="yoloret_ablation_") as root:
+        t0 = time.perf_counter()
+        stdout = ablation._job_output(root, job_id, args)
+        out["job_seconds"] = time.perf_counter() - t0
+        res, launches = (ablation.tagged(stdout, t)
+                         for t in ("ABLATION_RESULT", "ABLATION_LAUNCHES"))
+        assert res is not None and launches is not None, stdout[-2000:]
+        workdir = os.path.join(root, job_id)
+        out["train_seconds"] = {
+            stage: sum(r["sec"] for r in epoch_records(
+                os.path.join(workdir, "logs", f"mobilenetv2x75_{stage}")))
+            for stage in ("stage1", "stage2")}
+        graft = load_params(os.path.join(workdir, "grafted_init.pt"))
+        src = load_params(pretrained)
+        fresh = YoloReT(ablation.BACKBONE, num_classes=len(CLASS_NAMES))
+        init_weights(fresh, torch.Generator().manual_seed(0))
+        fresh = fresh.state_dict()
+    body = [k for k in graft if k.startswith("body.")]
+    out["graft"] = dict(
+        keys=len(graft), body_keys=len(body), same_keys=sorted(graft) == sorted(fresh),
+        body_equal=sum(torch.equal(graft[k], src[k]) for k in body),
+        rest_equal=sum(torch.equal(graft[k], fresh[k]) for k in graft if k not in body))
+    out.update(result={k: v for k, v in res.items() if k != "weights"}, launches=launches)
+    log(f"  ABLATION_RESULT {json.dumps(res)}")
+    log(f"  the job: {out['job_seconds']:.1f} s in its subprocess (the trainer's own seconds: "
+        f"stage 1 {out['train_seconds']['stage1']:.1f}, stage 2 "
+        f"{out['train_seconds']['stage2']:.1f}); kernel launches {launches}")
+    log(f"  train mAP {res['train_mAP']:.6f}, held-out mAP {res['heldout_mAP']:.6f}: a smoke "
+        "reading, not an ablation result (the source, the crowded recipe's weights, was "
+        "trained on 48 scenes whose first 16 are this target's training set)")
+    g = out["graft"]
+    log(f"  the grafted init: body.* {g['body_equal']} of {g['body_keys']} entries bit for bit "
+        f"the source's, the other {g['rest_equal']} of {g['keys'] - g['body_keys']} bit for "
+        "bit the trainer's seed-0 init")
+    assert g["same_keys"] and g["body_keys"] > 0, g
+    assert g["body_equal"] == g["body_keys"] and g["rest_equal"] == g["keys"] - g["body_keys"], g
+    assert all(np.isfinite(res[k]) for k in ("train_mAP", "heldout_mAP")), res
+    want = ABLATION_LAUNCHES_WANT if DEVICE == "cuda" else {"mbconv": {}, "nms": {}}
+    assert launches == want, (launches, want)
+    for row in kernels:
+        if row["name"] in (f"mbconv_f32@learn{GATE_SIZE}_b{LEARN_BATCH}",
+                           f"nms_shared@learn{GATE_SIZE}_C4_M512"):
+            n = sum((launches["mbconv"] if row["name"].startswith("mbconv")
+                     else launches["nms"]).values())
+            row["ablation_launches"] = n
+            row["launches"] += n
+            row["shapes"] += " and the ablation job's two evaluations (phase 15)"
+    assert sum("ablation_launches" in r for r in kernels) == 2, "the learn rows are missing"
+    out["seconds"] = time.perf_counter() - t_phase
+    log(f"== ablation phase: {out['seconds']:.1f} s")
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -3685,8 +3786,10 @@ def main(argv=None) -> int:
         int8_phase(state, eval_root, args.seed, report)
     kernels += zoom_phase(state, args.seed, report)
     kernels += export_phase(state, args.seed, report, kernels)
-    kernels += learn_phase(report)
-    video_phase(state, args.seed, report, kernels)
+    with tempfile.TemporaryDirectory(prefix="yoloret_learn_") as learn_root:
+        kernels += learn_phase(report, learn_root)
+        video_phase(state, args.seed, report, kernels)
+        ablation_phase(report["learn"]["gate"]["weights"], report, kernels)
 
     report["kernels"] = kernels
     report["seconds"] = time.perf_counter() - t_start
@@ -3752,6 +3855,9 @@ def main(argv=None) -> int:
                     "video": {k: report["video"][k] for k in
                               ("frames_per_s", "frame_ms", "launches", "bitwise_equal_frames",
                                "float32_card_vs_cpu", "seconds")},
+                    "ablation": {k: report["ablation"][k] for k in
+                                 ("result", "job_seconds", "train_seconds", "launches",
+                                  "graft", "seconds")},
                     "seconds": report["seconds"],
                     "card": smi}))
     log(json.dumps({"kernels": kernels}))

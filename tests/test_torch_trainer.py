@@ -179,12 +179,13 @@ NEW_MODULES = ("yoloret_tpu_torch.train", "yoloret_tpu_torch.train.freeze",
                "yoloret_tpu_torch.tools.topk_study", "yoloret_tpu_torch.tools.selfcheck_spread",
                "yoloret_tpu_torch.ops.mbconv", "yoloret_tpu_torch.tools.mbconv_f32_bench",
                "yoloret_tpu_torch.export.tfjs", "yoloret_tpu_torch.export.warmup",
-               "yoloret_tpu_torch.export.tf_postprocess", "yoloret_tpu_torch.export.export")
+               "yoloret_tpu_torch.export.tf_postprocess", "yoloret_tpu_torch.export.export",
+               "yoloret_tpu_torch.tools.ablation", "yoloret_tpu_torch.tools.int8_study")
 
 
 def test_training_modules_import_no_jax():
-    """The training modules, the TensorFlow export's, and chip_smoke.py,
-    import nothing of JAX or of the JAX package: they import with jax,
+    """The training modules, the TensorFlow export's, the studies and
+    chip_smoke.py import nothing of JAX or of the JAX package: they import with jax,
     flax, orbax and yoloret_tpu blocked, and no import line of theirs names
     them; importing them loads neither TensorFlow nor OpenCV (the card's
     machine has neither)."""

@@ -54,21 +54,20 @@ class RunConfig:
     use_adv: bool = False
     use_ema: bool = False
     ema_decay: float = 0.9999  # reference train.py:42-45 hard-codes
-    # 0.9999 (horizon ~10k steps). On short schedules that average never
-    # warms up (round-4 measurement: -0.01 mAP on a 360-step run); match
-    # the decay horizon to the schedule — decay ~ 1 - 10/total_steps —
-    # for the average to help (measured: docs/design.md EMA table).
+    # 0.9999 (horizon ~10k steps). The step's warm-up ramp min(decay,
+    # (1+t)/(10+t)) caps it on short schedules: on the 360-step crowded
+    # recipe every decay >= 0.976 gives the same average. Measured raw
+    # vs EMA mAP: tools/ablation.py (--job ema), PERF.md section 6.
     rfcr: str = "weighted_sum"  # RFCR fusion — the paper's ablation axis
     # (reference code/yolo3/model.py:117-168): 'weighted_sum' (the
     # contribution), 'concat' (the legacy scarf proto-RFCR), 'none'
     # (backbone taps feed the neck directly — the no-RFCR baseline).
-    # Measured deltas: tools/ablation.py; table in docs/design.md.
-    remat: bool = False  # jax.checkpoint the backbone in the train
-    # step: backward recomputes the backbone forward instead of keeping
-    # its activations resident — O(taps) not O(depth) activation memory,
-    # for ~+30% backbone forward FLOPs. Lets the batch grow past the
-    # HBM activation budget (gradients equal the stock path bitwise-
-    # modulo-reassociation, tests/test_remat.py).
+    # Measured deltas: tools/ablation.py; its tables in PERF.md section 6.
+    remat: bool = False  # recompute the backbone's forward in the
+    # backward pass (torch.utils.checkpoint, nn/detector.py) instead of
+    # keeping its activations: activation memory O(taps), not O(depth),
+    # for one more backbone forward, so the batch can grow past the
+    # card's memory (the plain step's numbers: tests/test_torch_train_step.py).
     checkpoint_every: int = 3  # epochs (reference train.py:74-79)
     early_stopping: bool = False  # stop the stage when val_loss has not
     # improved for `early_stopping_patience` epochs (reference
