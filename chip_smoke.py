@@ -198,6 +198,22 @@ Phases (any failure exits non-zero and prints no result):
    source's ``body.*`` bit for bit and the trainer's seed-0 init elsewhere.
    The whole batteries (``--seeds 0 1``, ``--battery r5``) and the int8
    study (TensorFlow) run outside this script.
+16. Data parallelism on the one card (``yoloret_tpu_torch/parallel/``; no
+   number here is a multi-GPU speedup): (a) 3 float32 train steps of
+   x0.75 b8 @320 on deterministic kernels without a process group and in a
+   world-size-1 NCCL group from the same state and batch, the states equal
+   bit for bit; train img/s at 32@320 bf16 alone and in the group, in
+   turns, and a group step's collective bytes; (b) float64 steps @64 in 2
+   spawned ranks on cuda:0 (gloo) of 16 rows against the no-group step on
+   the 32 rows, each step from one state, within DP_TOL; both ranks bit for
+   bit; (c) ``Predictor(mesh=make_mesh(["cuda:0"] * 2))`` at b128 bf16,
+   serving and MAP grade: slates bit for bit equal to one device's, 32
+   MBConv + 2 NMS launches a batch (the launch counters), img/s
+   beside one device's; the MBConv kernel against its plain version at the
+   replicas' [64, 320] and both kernels timed there (the kernels line's b64
+   rows); (d) ``evaluate_map`` with the mesh on phase 5's set, the same APs
+   as one device; (e) the CLI's MAP with ``--mesh_data 2`` stopping with the
+   ``make_mesh`` message; (f) ``tools/scaling.py`` at world sizes 1 and 2.
 
 The line before the last is the kernel table as JSON; the last line is
 ``{"ok": true, "device": {...}}``. Details go to chiprun_out/chip_smoke.json.
@@ -3709,6 +3725,385 @@ def ablation_phase(pretrained, report, kernels):
     log(f"== ablation phase: {out['seconds']:.1f} s")
 
 
+# -- phase 16: data parallelism ------------------------------------------------
+
+DP_TRAIN_BATCH = 8  # (a) float32 x0.75 @320, deterministic kernels
+DP_TRAIN_STEPS = 3
+DP_RATE_BATCH = 32  # (a) the flagship's train config: 32@320 bf16
+DP_RATE_WARMUP = 2
+DP_RATE_TIMED = 6
+DP_RANK_ROWS = 16  # (b) 2 ranks on cuda:0 (gloo), float64
+DP_STEPS = 2
+DP_LR = 1e-3  # (a)'s, and tools.scaling.data_parallel_steps' own
+# (b)'s tolerance, stated before the run, for each step from one state:
+# the loss, every gradient, Adam moment and BatchNorm statistic within
+# DP_TOL * (|want| + the largest of its kind); the parameters and the EMA
+# too, except elements whose gradient is zero within that tolerance
+# (reduction noise, which Adam turns into up to +-lr in either program),
+# held to DP_LR
+DP_TOL = 1e-9
+DP_SERVE_TIMED = 10
+# (b)'s float64 steps and (f)'s accounting at tools/scaling.py's default
+# size (as the CPU tests): the collectives' bytes do not grow with it
+DP_SMALL_SIZE = 64
+
+
+def dp_leaves(run, step):
+    """A ``tools.scaling.data_parallel_steps`` run's state after its
+    ``step``-th step as {kind: {name: tensor}}, that step's gradients
+    under ``grad``."""
+    state = run["states"][step]
+    model = state["model"]
+    return {"param": {n: model[n] for n in state["mu"]},
+            "stat": {n: v for n, v in model.items() if "running_" in n},
+            "mu": state["mu"], "nu": state["nu"], "ema": state["ema"],
+            "grad": run["grads"][step]}
+
+
+def dp_hold(got, want):
+    """Phase 16(b)'s check of one step from one state (DP_TOL's comment):
+    the largest error of each kind over its tolerance (at most 1 passes),
+    and the parameter and EMA elements held to the update bound."""
+    import torch
+
+    scale = {k: max(float(v.abs().max()) for v in d.values()) for k, d in want.items()}
+    worst, noise, total = {}, 0, 0
+    for kind, tensors in want.items():
+        ratio = 0.0
+        for n, w in tensors.items():
+            g, w = got[kind][n].double(), w.double()
+            err = (g - w).abs() / (DP_TOL * (w.abs() + scale[kind]))
+            if kind in ("param", "ema"):
+                quiet = want["grad"][n].abs() <= DP_TOL * scale["grad"]
+                noise, total = noise + int(quiet.sum()), total + w.numel()
+                if not ((g - w).abs()[quiet] <= DP_LR * (1 + DP_TOL)).all():
+                    raise AssertionError(f"dp {kind} {n}: a quiet element moved beyond the bound")
+                err = err[~quiet]
+            if err.numel():
+                ratio = max(ratio, float(err.max()))
+        worst[kind] = ratio
+    return worst, noise, total
+
+
+def _dp_rank(device, weights, batch, start, out, scaling_path):
+    """A rank of phase 16(b) and (f): the float64 DP steps from
+    ``weights``, the second step again from ``start`` (the no-group first
+    state), then the scaling accounting at this world size. Writes the
+    wall-clock times at its start and after each job to ``<out>marks.rank<r>``."""
+    from yoloret_tpu_torch.parallel.mesh import rank
+    from yoloret_tpu_torch.tools import scaling
+
+    marks = [time.time()]
+    scaling.data_parallel_steps(device, weights, batch, DP_STEPS, out + "dp")
+    marks.append(time.time())
+    scaling.data_parallel_steps(device, None, batch, 1, out + "from_one", start=start,
+                                horizon=DP_STEPS)
+    marks.append(time.time())
+    scaling._rank_main(device, scaling_path, DP_SMALL_SIZE)
+    marks.append(time.time())
+    with open(f"{out}marks.rank{rank()}", "w") as f:
+        json.dump(marks, f)
+
+
+def dp_train_a(state, seed, out):
+    """16(a): 3 float32 steps without a group, then 3 in a world-size-1
+    NCCL group from the same state and batch (deterministic kernels):
+    equal bit for bit. Train img/s at 32@320 bf16 alone and in the group,
+    in turns (alone, group, group, alone), and the group step's collective
+    bytes."""
+    import torch
+    import torch.distributed as dist
+
+    from yoloret_tpu_torch.device import reproducible
+    from yoloret_tpu_torch.nn.detector import YoloReT
+    from yoloret_tpu_torch.parallel.mesh import count_collectives, init_distributed
+    from yoloret_tpu_torch.train.step import (StepConfig, TrainState, cosine_lr_schedule,
+                                              train_step)
+
+    cfg = StepConfig(anchors=tuple(map(tuple, ANCHORS)))
+
+    def make(dtype):
+        model = YoloReT("mobilenetv2x75", NUM_CLASSES, dtype=dtype)
+        model.load_state_dict(state)
+        model.to(DEVICE)
+        st = TrainState(model, cosine_lr_schedule(DP_LR, DP_TRAIN_STEPS, 1), use_ema=True)
+        st.broadcast()
+        return st
+
+    def three_steps():
+        st = make(torch.float32)
+        losses = [float(train_step(st, batch, cfg)["loss"]) for _ in range(DP_TRAIN_STEPS)]
+        return st.state_dict(), losses
+
+    def rate(st):
+        for _ in range(DP_RATE_WARMUP):
+            train_step(st, big, cfg)
+        torch.cuda.synchronize()
+        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        a.record()
+        for _ in range(DP_RATE_TIMED):
+            train_step(st, big, cfg)
+        b.record()
+        b.synchronize()
+        return DP_RATE_BATCH * DP_RATE_TIMED * 1e3 / a.elapsed_time(b)
+
+    batch = train_batch(SIZE, DP_TRAIN_BATCH, NUM_CLASSES, ANCHORS, seed, DEVICE)
+    big = train_batch(SIZE, DP_RATE_BATCH, NUM_CLASSES, ANCHORS, seed + 1, DEVICE)
+    rates = {"alone": [], "world1_nccl": []}
+    with reproducible(DEVICE):
+        alone, alone_losses = three_steps()
+    fast = make(torch.bfloat16)
+    rates["alone"].append(rate(fast))
+    with tempfile.TemporaryDirectory(prefix="yoloret_dp_") as tmp:
+        t0 = time.perf_counter()
+        init_distributed(rank=0, world_size=1, device=DEVICE, backend="nccl",
+                         store=dist.FileStore(os.path.join(tmp, "store"), 1))
+        out["nccl_init_s"] = time.perf_counter() - t0
+        try:
+            with reproducible(DEVICE):
+                grouped, group_losses = three_steps()
+            fast = make(torch.bfloat16)
+            rates["world1_nccl"] += [rate(fast), rate(fast)]
+            with count_collectives() as coll:
+                train_step(fast, big, cfg)
+            torch.cuda.synchronize()
+        finally:
+            dist.destroy_process_group()
+    rates["alone"].append(rate(make(torch.bfloat16)))
+    leaves = torch.utils._pytree.tree_leaves
+    pairs = list(zip(leaves(alone), leaves(grouped)))
+    same = all(torch.equal(a, b) if isinstance(a, torch.Tensor) else a == b for a, b in pairs)
+    out["a"] = dict(bitwise_equal=same, leaves=len(pairs), losses=alone_losses,
+                    group_losses=group_losses, img_per_s=rates,
+                    collective_bytes_per_step=dict(coll))
+    log(f"  (a) {DP_TRAIN_STEPS} float32 steps of x0.75 b{DP_TRAIN_BATCH}@{SIZE} (deterministic "
+        f"kernels) without a group and in a world-size-1 NCCL group from the same state: "
+        f"{len(pairs)} state leaves {'bit for bit equal' if same else 'DIFFER'}; losses "
+        f"{alone_losses} / {group_losses}; NCCL group start {out['nccl_init_s']:.2f} s")
+    log(f"  (a) train img/s at {DP_RATE_BATCH}@{SIZE} bf16 (stage 2, {DP_RATE_TIMED} steps "
+        f"between CUDA events, in turns): alone {[round(r, 1) for r in rates['alone']]}, "
+        f"world-size-1 NCCL group {[round(r, 1) for r in rates['world1_nccl']]}; a group step's "
+        f"collectives {dict(coll)} B (the cost of the collectives on one card, not a scaling)")
+    if not same:
+        raise AssertionError("16(a): the world-size-1 NCCL steps differ from the no-group steps")
+
+
+def dp_train_b(state, seed, out):
+    """16(b) and (f): float64 steps @DP_SMALL_SIZE in 2 spawned ranks on
+    cuda:0 (gloo), 16 rows each, against the same steps without a group on the 32 rows,
+    each step from one state (``dp_hold``: the first from the weights, the
+    second from the no-group first state); both ranks bit for bit after
+    two steps; the scaling accounting at world sizes 1 (this process) and
+    2 (the ranks)."""
+    import torch
+
+    from yoloret_tpu_torch.parallel.mesh import make_mesh, spawn
+    from yoloret_tpu_torch.tools import scaling
+
+    batch = train_batch(DP_SMALL_SIZE, 2 * DP_RANK_ROWS, NUM_CLASSES, ANCHORS, seed + 2, "cpu")
+    split = {}
+    with tempfile.TemporaryDirectory(prefix="yoloret_dp_") as tmp:
+        t0 = time.perf_counter()
+        scaling.data_parallel_steps(torch.device(DEVICE), state, batch, DP_STEPS,
+                                    os.path.join(tmp, "one"))
+        one = torch.load(os.path.join(tmp, "one.rank0"), weights_only=True)
+        split["no_group_steps"] = time.perf_counter() - t0
+        t0, wall0 = time.perf_counter(), time.time()
+        spawn(_dp_rank, make_mesh([DEVICE + ":0"] * 2),
+              (state, batch, one["states"][0], os.path.join(tmp, ""),
+               os.path.join(tmp, "scaling.json")), store_path=os.path.join(tmp, "store"))
+        out["ranks_s"] = time.perf_counter() - t0
+        wall1 = time.time()
+        with open(os.path.join(tmp, "marks.rank0")) as f:
+            marks = json.load(f)
+        split["ranks"] = dict(zip(("start", "dp_steps", "from_one", "scaling", "end"),
+                                  (b - a for a, b in zip([wall0] + marks, marks + [wall1]))))
+        runs = {name: torch.load(os.path.join(tmp, name), weights_only=True)
+                for name in ("dp.rank0", "dp.rank1", "from_one.rank0")}
+        with open(os.path.join(tmp, "scaling.json")) as f:
+            two = json.load(f)
+    leaves = torch.utils._pytree.tree_leaves
+    r0, r1 = runs["dp.rank0"]["states"][-1], runs["dp.rank1"]["states"][-1]
+    same = all(torch.equal(a, b) if isinstance(a, torch.Tensor) else a == b
+               for a, b in zip(leaves(r0), leaves(r1)))
+    steps, worst_all = [], 0.0
+    for i, got in enumerate((runs["dp.rank0"], runs["from_one.rank0"])):
+        worst, noise, total = dp_hold(dp_leaves(got, 0), dp_leaves(one, i))
+        loss_err = abs(got["metrics"][0]["loss"] - one["metrics"][i]["loss"]) / abs(
+            one["metrics"][i]["loss"])
+        steps.append(dict(worst_over_tolerance=worst, quiet_elements=noise, elements=total,
+                          loss_rel_err=loss_err))
+        worst_all = max(worst_all, max(worst.values()), loss_err / DP_TOL)
+        log(f"  (b) step {i + 1}, 2 ranks on cuda:0 (gloo) x {DP_RANK_ROWS} rows @{DP_SMALL_SIZE}, "
+            f"float64, "
+            f"against the no-group step on {2 * DP_RANK_ROWS} rows from the same state: worst "
+            f"error / tolerance by kind { {k: float(f'{v:.3g}') for k, v in worst.items()} } "
+            f"(tolerance {DP_TOL} x (|x| + the largest of its kind)); loss rel err "
+            f"{loss_err:.3g}; {noise} of {total} parameter and EMA elements with a zero gradient "
+            f"held to lr")
+        if noise > total // 100:
+            raise AssertionError(f"16(b) step {i + 1}: {noise} of {total} quiet elements")
+    out["b"] = dict(ranks_bitwise_equal=same, steps=steps, tolerance=DP_TOL,
+                    ranks_s=out["ranks_s"], seconds_by_part=split)
+    log(f"  (b) after {DP_STEPS} steps both ranks {'bit for bit equal' if same else 'DIFFER'}; "
+        f"{out['ranks_s']:.1f} s for the ranks")
+    if not same or worst_all > 1.0:
+        raise AssertionError(f"16(b): {steps}, ranks {same}")
+    t0 = time.perf_counter()
+    one = scaling.analyze(1, DEVICE, DP_SMALL_SIZE)
+    split["scaling_world1"] = time.perf_counter() - t0
+    log(f"  (b) seconds by part: { {k: round(v, 1) if isinstance(v, float) else {
+        j: round(w, 1) for j, w in v.items()} for k, v in split.items()} }")
+    out["f"] = {"world1": one, "world2": two}
+    for r in (one, two):
+        coll = sum(r["train_collective_bytes"].values())
+        log(f"  (f) scaling at world size {r['world']} ({DP_SMALL_SIZE}, a row a rank): train "
+            f"FLOPs/rank {r['train_flops_per_rank']:.6e}, collectives {coll} B = "
+            f"{coll / r['param_bytes']:.4f} x the {r['param_bytes']} trainable parameter bytes, "
+            f"serving collectives {sum(r['serve_collective_bytes'].values())} B")
+    log(f"  (f) {scaling.PROJECTION}")
+    if sum(one["train_collective_bytes"].values()) or not (
+            two["param_bytes"] <= sum(two["train_collective_bytes"].values())
+            <= 3 * two["param_bytes"]) or sum(two["serve_collective_bytes"].values()):
+        raise AssertionError(f"16(f): {one}, {two}")
+
+
+def dp_serving_c(state, seed, out, flush):
+    """16(c): ``Predictor(mesh=make_mesh(["cuda:0"] * 2))`` at b128 bf16,
+    serving and MAP grade, against the one-device Predictor: slates bit
+    for bit, 32 MBConv + 2 NMS launches a batch by the launch counters,
+    img/s in turns (one, mesh, mesh, one). Returns the kernels line's b64
+    rows (the shards' shapes)."""
+    import torch
+
+    from yoloret_tpu_torch.parallel.mesh import make_mesh
+
+    mesh = make_mesh([DEVICE + ":0"] * 2)
+    one = make_predictor(seed, weights=state, score_threshold=0.3, num_candidates=64)
+    dp = make_predictor(seed, weights=state, score_threshold=0.3, num_candidates=64, mesh=mesh)
+    g = torch.Generator(device=DEVICE).manual_seed(seed + 16)
+    images = torch.randint(0, 256, (BATCH, SIZE, SIZE, 3), generator=g, device=DEVICE,
+                           dtype=torch.uint8)
+    hw = torch.full((BATCH, 2), float(SIZE), device=DEVICE)
+    res = {}
+    for name, kw in (("serving", {}), ("map_grade", dict(score_threshold=0.0,
+                                                         num_candidates=512))):
+        with torch.inference_mode():
+            want = one.infer(images, hw, **kw)
+            got, launches = counted(dp.infer, images, hw, **kw)
+            same = all(torch.equal(a, b) for a, b in zip(got, want))
+            ms = {"one": [], "mesh": []}
+            for who in ("one", "mesh", "mesh", "one"):
+                p = one if who == "one" else dp
+                ms[who].append(cuda_time_ms(lambda: p.infer(images, hw, **kw), DP_SERVE_TIMED, 3))
+        rate = {k: [BATCH * 1e3 / v for v in vs] for k, vs in ms.items()}
+        res[name] = dict(bitwise_equal=same, launches=launches, img_per_s=rate,
+                         detections=int(want.valid.sum()))
+        log(f"  (c) {name} b{BATCH}@{SIZE} bf16 over 2 replicas on cuda:0: slates "
+            f"{'bit for bit equal to one device' if same else 'DIFFER'} "
+            f"({int(want.valid.sum())} detections); launches {launches}; img/s one device "
+            f"{[round(r, 1) for r in rate['one']]}, mesh {[round(r, 1) for r in rate['mesh']]}")
+        if not same or launches != {"mbconv_wgmma": 32, "nms_shared": 2}:
+            raise AssertionError(f"16(c) {name}: equal {same}, launches {launches}")
+    out["c"] = res
+    drive = {"mbconv": 32 + 32, "nms": 2 + 2}  # the serving and MAP-grade batches above
+    err = check_mbconv_at(dp, SIZE, BATCH // 2, out, "mbconv_check_320_b64")
+    rows = [mbconv_entry(dp, f"@{SIZE}_b{BATCH // 2}", drive["mbconv"], err,
+                         time_mbconv(dp, flush, batch=BATCH // 2), BATCH // 2, SIZE,
+                         "phase 16's DP serving batches (2 replicas of b64 on cuda:0)"),
+            nms_entry(dp, f"@{SIZE}_b{BATCH // 2}",
+                      *model_candidates(dp, 64, 0, batch=BATCH // 2), drive["nms"],
+                      "phase 16's DP serving batches (a replica's shared pool)", flush)]
+    return rows, mesh
+
+
+def dp_eval_d(state, eval_root, mesh, out, rows):
+    """16(d): ``evaluate_map`` with the mesh on phase 5's set (bf16, M=512)
+    against the one-device run: the same APs; launches 32 MBConv + 2 NMS a
+    batch, added to the b64 rows."""
+    from yoloret_tpu_torch.data import Dataset
+    from yoloret_tpu_torch.eval import evaluate_map
+
+    kw = dict(weights=state, score_threshold=0.0, num_candidates=512)
+    one, dp = make_predictor(0, **kw), make_predictor(0, mesh=mesh, **kw)
+    names = one.class_names
+    pattern = os.path.join(eval_root, "eval", "test.*")
+
+    def run(pred):
+        ds = Dataset(pattern, BATCH, input_hw=(SIZE, SIZE), device=DEVICE)
+        (mean_ap, aps), text = run_printing(evaluate_map, pred, ds, names, mesh=pred.mesh)
+        return mean_ap, [aps[c] for c in range(len(names))], eval_rate(text)
+
+    one_map, one_aps, one_rate = run(one)
+    (dp_map, dp_aps, dp_rate), launches = counted(run, dp)
+    batches = -(-dp_rate["images"] // BATCH)
+    same = dp_aps == one_aps and dp_map == one_map
+    out["d"] = dict(map_one=one_map, map_mesh=dp_map, aps_equal=same, launches=launches,
+                    img_per_s={"one": one_rate["img_per_s"], "mesh": dp_rate["img_per_s"]})
+    log(f"  (d) evaluate_map bf16 on phase 5's {dp_rate['images']} images: mAP one device "
+        f"{one_map:.6f}, mesh {dp_map:.6f}, per-class APs {'equal' if same else 'DIFFER'}; mesh "
+        f"launches {launches} for {batches} batches; images/s {one_rate['img_per_s']:.1f} / "
+        f"{dp_rate['img_per_s']:.1f}")
+    if not same or launches != {"mbconv_wgmma": 32 * batches, "nms_shared": 2 * batches}:
+        raise AssertionError(f"16(d): {one_aps} vs {dp_aps}, {launches}")
+    rows[0]["launches"] += launches["mbconv_wgmma"]
+    rows[1]["launches"] += launches["nms_shared"]
+
+
+def dp_refusal_e(eval_root, out):
+    """16(e): the CLI's MAP with ``--mesh_data 2`` on this one-card machine
+    stops with the JAX ``make_mesh`` message (exit 2)."""
+    from yoloret_tpu_torch.cli.main import main as cli_main
+
+    err = io.StringIO()
+    with contextlib.redirect_stderr(err):
+        rc = cli_main(["--mode=MAP", "--mesh_data=2", "--batch_size=128",
+                       f"--test_dataset={os.path.join(eval_root, 'eval', 'test.txt')}",
+                       f"--classes_path={os.path.join(eval_root, 'classes.txt')}",
+                       f"--anchors_path={os.path.join(eval_root, 'anchors.txt')}"])
+    text = err.getvalue().strip()
+    out["e"] = dict(rc=rc, message=text)
+    log(f"  (e) the CLI's --mode=MAP --mesh_data=2 on {torch_device_count()} card: exit {rc}, "
+        f"{text!r}")
+    if rc != 2 or f"mesh 2x1 needs 2 devices, have {torch_device_count()}" not in text:
+        raise AssertionError(f"16(e): {rc} {text!r}")
+
+
+def torch_device_count():
+    import torch
+
+    return torch.cuda.device_count()
+
+
+def dp_phase(state, eval_root, seed, report):
+    """Phase 16, data parallelism on the one card: (a) the DP train step
+    in a world-size-1 NCCL group bit for bit against the one-device step,
+    and its train img/s beside it; (b) 2 ranks on cuda:0 (gloo) against
+    the global-batch step; (c) 2-replica serving; (d) DP evaluation; (e)
+    the CLI's refusal of more devices than there are; (f) the scaling
+    accounting. Nothing here measures a multi-GPU speedup. Returns the
+    kernels line's b64 rows."""
+    t_phase = time.perf_counter()
+    out = report.setdefault("dp", {})
+    log("== data parallelism on one card (no number here is a multi-GPU speedup):")
+    parts = out["part_seconds"] = {}
+    t = time.perf_counter()
+    dp_train_a(state, seed, out)
+    parts["a"], t = time.perf_counter() - t, time.perf_counter()
+    dp_train_b(state, seed, out)
+    parts["b_f"], t = time.perf_counter() - t, time.perf_counter()
+    rows, mesh = dp_serving_c(state, seed, out, make_flush())
+    parts["c"], t = time.perf_counter() - t, time.perf_counter()
+    dp_eval_d(state, eval_root, mesh, out, rows)
+    parts["d"], t = time.perf_counter() - t, time.perf_counter()
+    dp_refusal_e(eval_root, out)
+    parts["e"] = time.perf_counter() - t
+    out["seconds"] = time.perf_counter() - t_phase
+    log(f"data parallelism phase done in {out['seconds']:.1f} s "
+        f"({ {k: round(v, 1) for k, v in parts.items()} } s by part)")
+    return rows
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -3784,6 +4179,7 @@ def main(argv=None) -> int:
         log(f"phases 1-10 done at {time.perf_counter() - t_start:.1f} s")
 
         int8_phase(state, eval_root, args.seed, report)
+        kernels += dp_phase(state, eval_root, args.seed, report)
     kernels += zoom_phase(state, args.seed, report)
     kernels += export_phase(state, args.seed, report, kernels)
     with tempfile.TemporaryDirectory(prefix="yoloret_learn_") as learn_root:
@@ -3858,6 +4254,9 @@ def main(argv=None) -> int:
                     "ablation": {k: report["ablation"][k] for k in
                                  ("result", "job_seconds", "train_seconds", "launches",
                                   "graft", "seconds")},
+                    "data_parallel": {k: report["dp"][k] for k in
+                                      ("a", "b", "c", "d", "e", "f", "seconds",
+                                       "part_seconds")},
                     "seconds": report["seconds"],
                     "card": smi}))
     log(json.dumps({"kernels": kernels}))

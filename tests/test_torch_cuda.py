@@ -661,3 +661,171 @@ def test_selfcheck_smoke_on_the_card(cuda, tmp_path):
     assert len(losses) == 2 and all(np.isfinite(losses))
     assert dict(fused_mbconv.kernel_launches) == {"mbconv_f32": 16 * 6}
     assert dict(suppress.variant_launches) == {"shared": 6}
+
+
+@pytest.mark.cuda
+def test_device_prefetch_side_stream_copy(cuda):
+    """``device_prefetch`` copies host leaves on its side stream from
+    pinned buffers: the batches arrive on the card equal to the host's,
+    the consumer's stream ordered after each copy; host scalars stay on
+    the host and leaves already on the card pass as they are."""
+    from yoloret_tpu_torch.parallel.prefetch import device_prefetch
+
+    rs = np.random.RandomState(0)
+    batches = [{"images": rs.randint(0, 256, (4, 320, 320, 3), np.uint8),
+                "boxes": torch.from_numpy(rs.rand(4, 20, 5).astype(np.float32)),
+                "on_card": torch.full((4,), float(i), device=cuda), "n_valid": 4}
+               for i in range(5)]
+    seen = []
+    for i, got in enumerate(device_prefetch(iter(batches), cuda, size=2)):
+        big = torch.randn(2048, 2048, device=cuda) @ torch.randn(2048, 2048, device=cuda)
+        assert got["images"].device == got["boxes"].device == cuda
+        assert got["n_valid"] == 4 and got["on_card"] is batches[i]["on_card"]
+        seen.append((got["images"].cpu().numpy(), got["boxes"].cpu(), float(big[0, 0])))
+    assert len(seen) == 5
+    for (images, boxes, _), want in zip(seen, batches):
+        np.testing.assert_array_equal(images, want["images"])
+        assert torch.equal(boxes, want["boxes"])
+
+
+def _cards():
+    """The number of CUDA devices, skipping below 2: the data-parallel
+    paths below need a card a replica or a rank."""
+    n = torch.cuda.device_count() if torch.cuda.is_available() else 0
+    if n < 2:
+        pytest.skip(f"needs 2 or more CUDA devices, this machine has {n}")
+    return n
+
+
+VOC_ANCHORS = np.asarray([[10, 13], [16, 30], [33, 23], [30, 61], [62, 45], [59, 119],
+                          [116, 90], [156, 198], [373, 326]], np.float32)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bf16", [True, False])
+def test_mesh_predictor_on_distinct_cards(cuda, bf16):
+    """``Predictor(mesh=)`` over every card, a replica a card, at 8 rows a
+    replica @320: each replica launches its kernels on its own card (16
+    MBConv + 1 NMS a replica), and the slates, gathered on the first card,
+    equal one card's on each shard, bit for bit."""
+    from yoloret_tpu_torch.infer import Predictor
+    from yoloret_tpu_torch.nn.layers import calibrate_bn
+    from yoloret_tpu_torch.parallel import make_mesh
+
+    n = _cards()
+    mesh = make_mesh()
+    assert mesh.data == n and len(set(mesh.devices)) == n
+    kw = dict(class_names=[str(i) for i in range(20)], anchors=VOC_ANCHORS,
+              input_hw=(320, 320), score_threshold=0.0, bf16=bf16)
+    one = Predictor(device="cuda:0", **kw)
+    g = torch.Generator(device="cuda:0").manual_seed(0)
+    calibrate_bn(one.model, torch.rand((8, 320, 320, 3), generator=g, device="cuda:0"))
+    one.refresh()
+    state = {k: v.cpu() for k, v in one.model.state_dict().items()}
+    dp = Predictor(weights=state, mesh=mesh, batch_buckets=(8 * n,), **kw)
+    images = torch.randint(0, 256, (8 * n, 320, 320, 3), generator=g, device="cuda:0",
+                           dtype=torch.uint8)
+    hw = torch.full((8 * n, 2), 320.0, device="cuda:0")
+    fused_mbconv.launches = suppress.launches = 0
+    got = dp.infer(images, hw)
+    for i in range(n):
+        torch.cuda.synchronize(i)
+    assert (fused_mbconv.launches, suppress.launches) == (16 * n, n)
+    assert all(field.device == torch.device("cuda:0") for field in got)
+    assert int(got.valid.sum()) > 0
+    for i in range(n):
+        want = one.infer(images[8 * i:8 * (i + 1)], hw[8 * i:8 * (i + 1)])
+        for a, b in zip(got, want):
+            assert torch.equal(a[8 * i:8 * (i + 1)], b), i
+
+
+def _dp_batch(rows, size, seed):
+    """A seeded float64 training batch on the CPU: uniform images and 5
+    boxes an image, with the data path's targets."""
+    from yoloret_tpu_torch.ops.targets import assign_targets_batch, true_corner_boxes
+
+    rs = np.random.RandomState(seed)
+    boxes = np.zeros((rows, 6, 5), np.float32)
+    xy = rs.uniform(0, size * 0.7, (rows, 5, 2))
+    boxes[:, :5, :2] = xy
+    boxes[:, :5, 2:4] = np.minimum(xy + rs.uniform(size * 0.05, size * 0.4, (rows, 5, 2)),
+                                   size - 1)
+    boxes[:, :5, 4] = rs.randint(0, 20, (rows, 5))
+    b = torch.from_numpy(boxes)
+    ys = assign_targets_batch(b, (size, size), torch.from_numpy(VOC_ANCHORS), 20)
+    gt, gv = true_corner_boxes(b, (size, size))
+    return {"images": torch.from_numpy(rs.rand(rows, size, size, 3)), "gt_boxes": gt,
+            "gt_valid": gv, **{f"y_true_{l}": y for l, y in enumerate(ys)}}
+
+
+@pytest.mark.cuda
+def test_dp_steps_nccl_on_distinct_cards(cuda, tmp_path):
+    """A rank a card in an NCCL group, 2 rows each: the first float64
+    step (x0.75 @64, stage 2, Adam with EMA) against the one-card step
+    on the 2n rows, from the same weights: the loss within 1e-9
+    relative, every gradient and BatchNorm running statistic within 1e-9
+    x (|x| + the largest of its kind); all ranks end two steps bit for
+    bit."""
+    import datetime
+
+    from _torch_dp_jobs import run_jobs
+    from yoloret_tpu_torch.nn.detector import YoloReT
+    from yoloret_tpu_torch.nn.layers import init_weights
+    from yoloret_tpu_torch.parallel.mesh import default_backend, make_mesh, spawn
+    from yoloret_tpu_torch.tools.scaling import data_parallel_steps
+
+    n = _cards()
+    mesh = make_mesh()
+    assert default_backend(mesh.devices) == "nccl"
+    model = YoloReT("mobilenetv2x75", num_classes=20)
+    init_weights(model, torch.Generator().manual_seed(0))
+    weights = {k: v.detach().clone() for k, v in model.state_dict().items()}
+    batch = _dp_batch(2 * n, 64, seed=1)
+    data_parallel_steps(torch.device("cuda:0"), weights, batch, 1, str(tmp_path / "one"))
+    spawn(run_jobs, mesh, ([(data_parallel_steps, dict(weights=weights, batch=batch, steps=2,
+                                                       out_path=str(tmp_path / "dp")))],),
+          store_path=str(tmp_path / "store"), timeout=datetime.timedelta(seconds=300))
+    one = torch.load(tmp_path / "one.rank0", weights_only=True)
+    runs = [torch.load(tmp_path / f"dp.rank{r}", weights_only=True) for r in range(n)]
+    leaves = torch.utils._pytree.tree_leaves
+    last = leaves(runs[0]["states"][-1])
+    for run in runs[1:]:
+        for a, b in zip(last, leaves(run["states"][-1])):
+            assert torch.equal(a, b) if isinstance(a, torch.Tensor) else a == b
+    got, want = runs[0], one
+    loss = want["metrics"][0]["loss"]
+    assert abs(got["metrics"][0]["loss"] - loss) <= 1e-9 * abs(loss)
+    stats = {k: v for k, v in want["states"][0]["model"].items() if "running_" in k}
+    for kind, w, g in (("grad", want["grads"][0], got["grads"][0]),
+                       ("stat", stats, got["states"][0]["model"])):
+        top = max(float(v.abs().max()) for v in w.values())
+        for k, v in w.items():
+            err = (g[k].double() - v.double()).abs()
+            assert bool((err <= 1e-9 * (v.double().abs() + top)).all()), (kind, k)
+
+
+@pytest.mark.cuda
+def test_trainer_data_parallel_on_distinct_cards(cuda, tmp_path):
+    """The trainer with ``mesh_data`` = every card: a rank a card (NCCL),
+    the global batch 2n, 2 epochs of the self-check's recipe at 96 px;
+    rank 0 writes the metrics, with finite losses, the stage-end weight
+    file and the stage-end mAP (its own Predictor: the kernels on card
+    0)."""
+    import json
+    import os
+
+    from yoloret_tpu_torch.tools.selfcheck import build_synthetic, selfcheck_cfg
+    from yoloret_tpu_torch.train.trainer import stage_weights_path, train
+
+    n = _cards()
+    ann, classes, anchors = build_synthetic(str(tmp_path))
+    cfg = selfcheck_cfg(str(tmp_path), ann, classes, anchors, epochs=2, size=96,
+                        batch=2).replace(mesh_data=n, test_dataset=ann)
+    path = train(cfg, device="cuda")
+    assert path == stage_weights_path(cfg) and os.path.exists(path)
+    with open(os.path.join(os.path.dirname(path), "metrics.jsonl")) as f:
+        trace = [json.loads(line) for line in f]
+    losses = [r["loss"] for r in trace if "loss" in r]
+    assert len(losses) == 2 and all(np.isfinite(losses))
+    maps = [r["mAP"] for r in trace if "mAP" in r]
+    assert maps and all(np.isfinite(maps)), trace

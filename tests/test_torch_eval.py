@@ -247,10 +247,15 @@ def test_cli_map_prints_the_same_map(eval_setup, exact, tmp_path, capsys):
 
 
 def test_cli_refuses_what_is_not_ported(capsys, tmp_path):
-    for argv in (["--mode=MAP", "--mesh_data=4"],
-                 ["--mode=TRAIN", "--mesh_data=2"], ["--mode=bogus"]):
+    """``--mesh_data`` above the devices there are stops with the JAX
+    ``make_mesh`` message (no CUDA device here); an unknown mode refuses."""
+    for argv, message in ((["--mode=MAP", "--mesh_data=4"], "mesh 4x1 needs 4 devices, have 0"),
+                          (["--mode=TRAIN", "--mesh_data=2"], "mesh 2x1 needs 2 devices, have 0"),
+                          (["--mode=MAP", "--mesh_data=2", "--device=cpu"],
+                           "mesh 2x1 needs 2 devices, have 1"),
+                          (["--mode=bogus"], "ROADMAP.md")):
         assert cli_main(argv) == 2
-        assert "ROADMAP.md" in capsys.readouterr().err
+        assert message in capsys.readouterr().err
     # VIDEO is ported: without --video it answers as the JAX CLI does
     assert cli_main(["--mode=VIDEO"]) == 2
     assert "--video required" in capsys.readouterr().err

@@ -29,7 +29,6 @@ from yoloret_tpu.tools.kmeans import kmeans_anchors_cli as jax_kmeans_anchors_cl
 from yoloret_tpu_torch.cli.main import args_to_config, build_parser, demo_image
 from yoloret_tpu_torch.cli.main import main as cli_main
 from yoloret_tpu_torch.infer import Predictor
-from yoloret_tpu_torch.train.trainer import unported_options
 
 CLASSES = ["a", "b", "c"]
 ANCHORS_LINE = "10,13, 16,30, 33,23, 30,61, 62,45, 59,119, 116,90, 156,198, 373,326\n"
@@ -126,17 +125,18 @@ def test_prune_answers_as_the_jax_package(capsys):
 def test_training_options_are_taken(flags, field, value):
     cfg = args_to_config(build_parser().parse_args(["--mode=TRAIN"] + flags))
     assert getattr(cfg, field) == value
-    assert unported_options(cfg) is None
 
 
 def test_other_modes_still_refused(capsys):
     """VIDEO and the TensorFlow flavours are ported (tests/test_torch_video.py,
-    tests/test_torch_tf_export.py); ``--mesh_data`` above 1 in any mode
-    still refuses, naming ROADMAP.md's item 6, and VIDEO without
-    ``--video`` answers as the JAX CLI does."""
+    tests/test_torch_tf_export.py); ``--mesh_data`` above the devices there
+    are stops in any mode with the JAX ``make_mesh`` message (no CUDA
+    device here), an unknown mode refuses, and VIDEO without ``--video``
+    answers as the JAX CLI does."""
     for mode in ("IMAGE", "VIDEO", "TFLITE", "SERVING", "TFJS"):
         assert cli_main([f"--mode={mode}", "--mesh_data=2"]) == 2
-        err = capsys.readouterr().err
-        assert "ROADMAP.md" in err and "item 6" in err
+        assert "mesh 2x1 needs 2 devices, have 0" in capsys.readouterr().err
+    assert cli_main(["--mode=bogus"]) == 2
+    assert "unknown mode" in capsys.readouterr().err
     assert cli_main(["--mode=VIDEO"]) == 2
     assert "--video required" in capsys.readouterr().err

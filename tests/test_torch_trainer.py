@@ -4,8 +4,9 @@ stage-end mAP, stage 2 from stage 1's weight file, ``--mode=MAP
 --model=`` on the final file giving the trainer's stage-end mAP; a run
 interrupted after a checkpoint and ``--resume``d ending with the weights
 of the uninterrupted run (the data stream continues at the batch where
-it stopped); and each option that is not ported yet stopping with its
-ROADMAP.md item. The training options of item 4c are held in
+it stopped); and options it cannot take stopping with exit code 2
+(``--mesh_data`` above the devices there are, with the JAX ``make_mesh``
+message). The training options of item 4c are held in
 tests/test_torch_train_options.py."""
 
 import json
@@ -149,7 +150,8 @@ def test_resume_continues_at_the_same_batch(data, tmp_path, monkeypatch):
 
 
 @pytest.mark.parametrize("flags,messages", [
-    (["--mesh_data=2"], ("ROADMAP.md", "item 6")),
+    # one CPU device: two ranks are more than there are
+    (["--mesh_data=2"], ("mesh 2x1 needs 2 devices, have 1",)),
     # a directory is read as a JAX weight directory (tests/test_torch_orbax.py);
     # one without the JAX checkpoint's _METADATA is refused
     (["--model={root}"], ("without _METADATA",)),
@@ -180,7 +182,9 @@ NEW_MODULES = ("yoloret_tpu_torch.train", "yoloret_tpu_torch.train.freeze",
                "yoloret_tpu_torch.ops.mbconv", "yoloret_tpu_torch.tools.mbconv_f32_bench",
                "yoloret_tpu_torch.export.tfjs", "yoloret_tpu_torch.export.warmup",
                "yoloret_tpu_torch.export.tf_postprocess", "yoloret_tpu_torch.export.export",
-               "yoloret_tpu_torch.tools.ablation", "yoloret_tpu_torch.tools.int8_study")
+               "yoloret_tpu_torch.tools.ablation", "yoloret_tpu_torch.tools.int8_study",
+               "yoloret_tpu_torch.parallel.mesh", "yoloret_tpu_torch.parallel.prefetch",
+               "yoloret_tpu_torch.tools.scaling")
 
 
 def test_training_modules_import_no_jax():

@@ -85,8 +85,18 @@ written with boxes and FPS to ``--output`` when given; prints
         --classes_path=voc_classes.txt --anchors_path=yolo_anchors.txt \
         [--track_interval=3] [--output=out.mp4]
 
-``--mesh_data`` above 1 stops with a message that names its place in
-ROADMAP.md. PRUNE answers as the JAX package does (exit code 2).
+``--mesh_data N`` trains and evaluates data-parallel over N devices
+(``parallel/``): TRAIN spawns a rank a device on this host (global batch
+``--batch_size`` x N), MAP splits each batch over N replicas in one
+process (``--batch_size`` a multiple of N); ``multihost: true`` in a
+config joins the group that ``torchrun`` starts, a rank a process:
+
+    torchrun --nproc_per_node=4 -m yoloret_tpu_torch.cli.main --mode=TRAIN \
+        --config=multihost.yaml ...
+
+Asking for more devices than there are stops with exit code 2 and
+``mesh NxM needs K devices, have J``. PRUNE answers as the JAX package
+does (exit code 2).
 
 ``--opt=DEBUG`` (the flag or ``opt: DEBUG`` in a config) sets the seed to
 0, as the JAX package does (the reference's ``main.py:140-144``), and in
@@ -247,9 +257,15 @@ def main(argv=None) -> int:
         return 2
     if mode not in ("IMAGE", "VIDEO", "MAP", "TRAIN", "ANCHORS") + EXPORT_MODES:
         return _refuse(f"unknown mode {args.mode!r}")
-    if cfg.mesh_data and cfg.mesh_data > 1:
-        return _refuse("--mesh_data above 1: data parallelism is not ported yet: it "
-                       "waits for parallelism, item 6")
+    mesh = None
+    if cfg.mesh_data and cfg.mesh_data > 1 and not cfg.multihost:
+        from yoloret_tpu_torch.parallel.mesh import make_mesh
+
+        try:
+            mesh = make_mesh(data=cfg.mesh_data, device=args.device)
+        except ValueError as e:
+            print(e, file=sys.stderr)
+            return 2
 
     if mode == "ANCHORS":
         from yoloret_tpu_torch.tools.kmeans import kmeans_anchors_cli
@@ -303,16 +319,20 @@ def main(argv=None) -> int:
         backbone=cfg.backbone, weights=cfg.model, class_names=class_names, anchors=anchors,
         input_hw=cfg.input_size, bf16=cfg.bf16, rfcr=cfg.rfcr, use_ema=cfg.use_ema,
         score_threshold=0.0,  # the reference sets score=0 for MAP, main.py:172
-        device=args.device, **int8_options(cfg),
+        device=args.device, mesh=mesh, **int8_options(cfg),
     )
     ds = Dataset(cfg.test_dataset, batch_size=max(cfg.batch_size, 1), input_hw=cfg.input_size,
-                 mode=DatasetMode.TEST, device=args.device)
+                 mode=DatasetMode.TEST, device=pred.device)
     kw = {}
     if cfg.exact_nms:
         h, w = cfg.input_size
         kw = dict(pool="per_class",
                   num_candidates=sum((h // s) * (w // s) * 3 for s in (32, 16, 8)))
-    evaluate_map(pred, ds, class_names, nms_iou=cfg.nms_iou, **kw)
+    try:
+        evaluate_map(pred, ds, class_names, nms_iou=cfg.nms_iou, mesh=mesh, **kw)
+    except ValueError as e:  # a batch the mesh does not divide
+        print(e, file=sys.stderr)
+        return 2
     return 0
 
 

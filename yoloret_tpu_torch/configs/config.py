@@ -1,7 +1,7 @@
 """Run configuration: typed dataclass + YAML overlay. A copy of the JAX
 package's ``yoloret_tpu/configs/config.py`` (``RunConfig``,
-``load_config``), host-only. The port's CLI reads the fields of MAP mode;
-the others wait for the modes that read them.
+``load_config``), host-only; ``multihost`` speaks of ``torchrun``, where
+the JAX package's speaks of ``jax.distributed``.
 
 Mirrors the reference's absl-flag surface (reference: code/main.py:20-97)
 and its optional YAML config overlay (code/main.py:111-135), as one
@@ -95,8 +95,8 @@ class RunConfig:
     seed: int = 0
     bf16: bool = True
     mesh_data: Optional[int] = None  # data-parallel size; default all devices
-    multihost: bool = False  # call jax.distributed.initialize() (DCN multi-
-    # host; coordinator from env: JAX_COORDINATOR_ADDRESS etc.)
+    multihost: bool = False  # join torchrun's process group (RANK, WORLD_SIZE,
+    # LOCAL_RANK, MASTER_ADDR/MASTER_PORT from the environment), a rank a process
     quantize: bool = False
     int8: bool = False  # serve IMAGE/VIDEO/MAP through the on-TPU W8A8
     # backbone (nn/int8_infer.py); calibration images come from the

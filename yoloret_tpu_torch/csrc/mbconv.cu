@@ -100,6 +100,20 @@ __device__ __forceinline__ float relu6f(float v) { return fminf(fmaxf(v, 0.f), 6
 __host__ __device__ constexpr size_t align16(size_t v) { return (v + 15) & ~size_t(15); }
 __host__ __device__ constexpr int round_up(int v, int m) { return (v + m - 1) / m * m; }
 constexpr int SMEM_LIMIT = 232448;  // 227 KB a block can use on sm_90
+constexpr int MAX_DEVICES = 64;
+
+// A kernel's dynamic shared-memory limit is set on one device: raise it to
+// SMEM_LIMIT on the current device, once a device (`done` is the kernel's).
+template <typename Kernel>
+cudaError_t allow_smem(Kernel kernel, bool (&done)[MAX_DEVICES]) {
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess || (dev < MAX_DEVICES && done[dev])) return e;
+  e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_LIMIT);
+  if (e == cudaSuccess && dev < MAX_DEVICES) done[dev] = true;
+  return e;
+}
+
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
@@ -518,13 +532,9 @@ __global__ void __launch_bounds__(F_NT, 2) mbconv_f32(const FParams p) {
 
 template <int S>
 cudaError_t launch_f32(const FParams& p, int B, int tiles, size_t smem, cudaStream_t stream) {
-  static bool opted_in = false;  // the shared-memory limit is set once per kernel
-  if (!opted_in) {
-    cudaError_t e = cudaFuncSetAttribute(mbconv_f32<S>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_LIMIT);
-    if (e != cudaSuccess) return e;
-    opted_in = true;
-  }
+  static bool opted_in[MAX_DEVICES] = {};
+  const cudaError_t smem_e = allow_smem(mbconv_f32<S>, opted_in);
+  if (smem_e != cudaSuccess) return smem_e;
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3(tiles * p.cluster, B);
   cfg.blockDim = dim3(F_NT);
@@ -1048,13 +1058,9 @@ EncodeTiledFn encode_tiled() {
 template <int S, int NB>
 cudaError_t launch_wgmma(const CUtensorMap& map, const HParams& p, int grid,
                          cudaStream_t stream) {
-  static bool opted_in = false;  // the shared-memory limit is set once per kernel
-  if (!opted_in) {
-    cudaError_t e = cudaFuncSetAttribute(mbconv_wgmma<S, NB>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_LIMIT);
-    if (e != cudaSuccess) return e;
-    opted_in = true;
-  }
+  static bool opted_in[MAX_DEVICES] = {};
+  const cudaError_t smem_e = allow_smem(mbconv_wgmma<S, NB>, opted_in);
+  if (smem_e != cudaSuccess) return smem_e;
   if (p.nc > max_nc(NB)) return cudaErrorInvalidValue;
   mbconv_wgmma<S, NB><<<grid, 128 * (p.nc + 1), p.smem, stream>>>(map, p);
   return cudaGetLastError();

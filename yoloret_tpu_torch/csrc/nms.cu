@@ -118,6 +118,20 @@ constexpr int MAX_SHARED_WARPS = 32;
 // The variants, in the numbering of ops/nms_kernel.py::VARIANTS.
 constexpr int VARIANT_PER_CLASS = 0, VARIANT_SHARED = 1, VARIANT_LARGE = 2;
 constexpr int SMEM_LIMIT = 232448;  // bytes of shared memory one block may use (sm_90)
+constexpr int MAX_DEVICES = 64;
+
+// A kernel's dynamic shared-memory limit is set on one device: raise it to
+// SMEM_LIMIT on the current device, once a device (`done` is the kernel's).
+template <typename Kernel>
+cudaError_t allow_smem(Kernel kernel, bool (&done)[MAX_DEVICES]) {
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess || (dev < MAX_DEVICES && done[dev])) return e;
+  e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_LIMIT);
+  if (e == cudaSuccess && dev < MAX_DEVICES) done[dev] = true;
+  return e;
+}
+
 constexpr unsigned FULL = 0xffffffffu;
 // An image with an area in (0, MIN_AREA) has its every pair divided: with
 // areas of 0 or at least MIN_AREA, a union is 0 or above MIN_AREA / 2, and
@@ -692,12 +706,10 @@ cudaError_t launch(const void* scores, const void* boxes, void* out_boxes, void*
         cstride, iou_thr, score_thr, empty_score);
     return cudaGetLastError();
   }
-  static int smem_allowed = 48 * 1024;
-  if (smem > smem_allowed) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        nms_shared<NPL>, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_LIMIT);
+  static bool opted_in[MAX_DEVICES] = {};
+  if (smem > 48 * 1024) {
+    const cudaError_t e = allow_smem(nms_shared<NPL>, opted_in);
     if (e != cudaSuccess) return e;
-    smem_allowed = SMEM_LIMIT;
   }
   float lo, hi;
   margin_bounds(iou_thr, lo, hi);
@@ -714,14 +726,10 @@ cudaError_t launch_rounds(const void* scores, const void* boxes, void* out_boxes
                           long long bstride, long long cstride, float iou_thr, float lo, float hi,
                           float score_thr, float empty_score, int smem, cudaStream_t stream) {
   constexpr int threads = (STAGED ? ROUNDS_WARPS : ROUNDS_WARPS_GLOBAL) * 32;
-  static int smem_allowed = 48 * 1024;
+  static bool opted_in[MAX_DEVICES] = {};
   cudaError_t e;
-  if (smem > smem_allowed) {
-    e = cudaFuncSetAttribute(nms_large_rounds<STAGED>,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_LIMIT);
-    if (e != cudaSuccess) return e;
-    smem_allowed = SMEM_LIMIT;
-  }
+  if (smem > 48 * 1024 && (e = allow_smem(nms_large_rounds<STAGED>, opted_in)) != cudaSuccess)
+    return e;
   int dev = 0, sms = 0, per_sm = 0;
   if ((e = cudaGetDevice(&dev)) != cudaSuccess ||
       (e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) != cudaSuccess ||
@@ -744,12 +752,10 @@ cudaError_t launch_large(const void* scores, const void* boxes, void* out_boxes,
   float lo, hi;
   margin_bounds(iou_thr, lo, hi);
   const int walk_smem = int(walk_smem_bytes(D));
-  static int walk_allowed = 48 * 1024;
-  if (walk_smem > walk_allowed) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        nms_large_walk, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_LIMIT);
+  static bool opted_in[MAX_DEVICES] = {};
+  if (walk_smem > 48 * 1024) {
+    const cudaError_t e = allow_smem(nms_large_walk, opted_in);
     if (e != cudaSuccess) return e;
-    walk_allowed = SMEM_LIMIT;
   }
   nms_large_walk<<<B * C, WALK_WARPS * 32, walk_smem, stream>>>(
       static_cast<const float*>(scores), static_cast<const float*>(boxes),

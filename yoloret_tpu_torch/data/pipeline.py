@@ -38,7 +38,13 @@ carry the dense targets ``y_true_{l}`` and the ground truth of the
 loss's ignore mask, ``gt_boxes`` / ``gt_valid``; with mixing on, their
 box axis is the mixed batch's (4T with mosaic, 2T with mixup alone).
 
-Not ported (ROADMAP.md, queue 1): per-host input sharding (item 6).
+Per-rank input sharding (TRAIN only, as in the JAX package): with
+``process_count`` n, every rank replays the whole global stream's host
+draws and decodes only its ``batch_size / n`` rows, rank
+``process_index`` taking the ``process_index``-th slice; its device
+draws are its slice of the global batch's. With mixing off the ranks'
+batches concatenate to the one-process batch bit for bit; mosaic and
+mixup take their partners from the rank's own rows, as in JAX.
 """
 
 from __future__ import annotations
@@ -154,6 +160,8 @@ class Dataset:
     seed: int = 0
     augment_config: Optional[AugmentConfig] = None  # TRAIN augmentation override
     aa_policy: Optional[str] = None  # online AutoAugment policy ("v0".."v3"), TRAIN only
+    process_index: int = 0  # this rank's slice of each global TRAIN batch
+    process_count: int = 1  # ranks sharing the stream (batch_size is the global batch)
     augment: AugmentConfig = field(init=False)
     decodes: Counter = field(init=False)  # decodes by decoder ("native", "pil")
 
@@ -163,18 +171,29 @@ class Dataset:
         if self.mode != DatasetMode.TEST and (self.anchors is None or not self.num_classes):
             raise ValueError(f"Dataset(mode={self.mode.name}) needs anchors and num_classes "
                              "for its targets")
+        if self.process_count > 1:
+            if self.mode != DatasetMode.TRAIN:
+                raise ValueError("per-rank input sharding is TRAIN only (eval batches carry "
+                                 "the global n_valid; every rank loads eval data in full)")
+            if self.batch_size % self.process_count:
+                raise ValueError(f"global batch {self.batch_size} must divide over "
+                                 f"{self.process_count} processes")
+        if not 0 <= self.process_index < self.process_count:
+            raise ValueError(f"process_index {self.process_index} is not in "
+                             f"[0, {self.process_count})")
         self.device = resolve_device(self.device)
         self.staging = self.staging or max(self.input_hw)
         base = self.augment_config or AugmentConfig()
         self.augment = dataclasses.replace(base, input_hw=tuple(self.input_hw),
                                            max_boxes=self.max_boxes)
-        # mixing draws its partners from the batch: below 4 rows mosaic
-        # repeats tiles, below 2 mixup blends a sample with itself
-        if self.augment.mosaic_prob > 0 and self.batch_size < 4:
-            warnings.warn(f"mosaic_prob > 0 with a batch of {self.batch_size} (< 4): mosaic "
+        # mixing draws its partners from the rank's rows: below 4 rows
+        # mosaic repeats tiles, below 2 mixup blends a sample with itself
+        local = self.batch_size // self.process_count
+        if self.augment.mosaic_prob > 0 and local < 4:
+            warnings.warn(f"mosaic_prob > 0 with a batch of {local} (< 4): mosaic "
                           "tiles will repeat images", stacklevel=2)
-        if self.augment.mixup_prob > 0 and self.batch_size < 2:
-            warnings.warn(f"mixup_prob > 0 with a batch of {self.batch_size} (< 2): mixup "
+        if self.augment.mixup_prob > 0 and local < 2:
+            warnings.warn(f"mixup_prob > 0 with a batch of {local} (< 2): mixup "
                           "would blend a sample with itself", stacklevel=2)
         if self.anchors is not None:
             self._anchors = torch.as_tensor(np.asarray(self.anchors, np.float32),
@@ -287,6 +306,9 @@ class Dataset:
                 if skip > 0:
                     skip -= 1
                     continue
+                if self.process_count > 1:  # after every global draw
+                    rows = self._rows()
+                    idxs, qs, aas = idxs[rows], qs[rows], aas[rows]
                 yield idxs, n_valid, qs, aas
             epoch += 1
 
@@ -316,6 +338,18 @@ class Dataset:
             out[f"y_true_{l}"] = ys[l]
         return out
 
+    def _rows(self) -> slice:
+        """This rank's rows of a global batch."""
+        local = self.batch_size // self.process_count
+        return slice(self.process_index * local, (self.process_index + 1) * local)
+
+    def _local(self, draws: dict) -> dict:
+        """This rank's rows of a global batch's draws."""
+        if self.process_count == 1:
+            return draws
+        rows = self._rows()
+        return {k: v[rows] for k, v in draws.items()}
+
     def _augment_generator(self, position: int, stream: int = 0) -> torch.Generator:
         """The generator of the augmentation draws (``stream`` 0) or of the
         mixing draws (``MIX_STREAM``) of the batch at ``position`` in the
@@ -325,15 +359,17 @@ class Dataset:
 
     def _finalize_train(self, host: dict, position: int) -> dict:
         """The augmented (and mixed) device batch with its targets."""
-        batch = host["images"].shape[0]
-        draws = draw_augment(batch, self.augment, self._augment_generator(position),
-                             self.device)
+        # the global batch's draws; a rank takes its rows' (a few scalars a row)
+        batch = self.batch_size
+        draws = self._local(draw_augment(batch, self.augment, self._augment_generator(position),
+                                         self.device))
         images, boxes_px, keep = augment_batch(
             upload(host["images"], self.device), upload(host["boxes"], self.device),
             upload(host["valid"], self.device), self.augment, draws)
         if self.augment.mosaic_prob > 0 or self.augment.mixup_prob > 0:
-            mix = draw_mix(batch, self.augment,
-                           self._augment_generator(position, MIX_STREAM), self.device)
+            mix = self._local(draw_mix(batch, self.augment,
+                                       self._augment_generator(position, MIX_STREAM),
+                                       self.device))
             images, boxes_px, keep = mix_batch(images, boxes_px, keep, self.augment, mix)
         return {"images": images, **self._targets(boxes_px, keep)}
 

@@ -67,3 +67,10 @@ def reproducible(device: DeviceLike = "cuda") -> Iterator[None]:
         torch.use_deterministic_algorithms(before[0], warn_only=before[1])
         cudnn.deterministic, cudnn.benchmark, cudnn.allow_tf32 = before[2:5]
         matmul.allow_tf32 = before[5]
+
+
+def on_device(device: torch.device):
+    """A context in which ``device`` is the current CUDA device, as a
+    launch through the kernels' C interface needs (its stream belongs to
+    that device); nothing on the CPU."""
+    return torch.cuda.device(device) if device.type == "cuda" else contextlib.nullcontext()

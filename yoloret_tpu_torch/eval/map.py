@@ -10,11 +10,12 @@ monotone precision-envelope integration -- the VOC2010 "correct AP"
 
 ``evaluate_map`` runs ``Predictor.infer`` on each device batch of an
 eval ``Dataset`` (``data/pipeline.py``): the fused detector and the
-postprocess on the card, one suppression kernel launch per batch. The
-JAX package's two-program split (``_infer_detect``) works around an
-XLA-TPU compile cliff and has no counterpart here; its mesh sharding and
-approximate top-k are not ported (top-k is exact, as on the JAX
-package's CPU runs).
+postprocess on the card, one suppression kernel launch per batch; with
+``mesh`` each batch is split over the mesh's replicas
+(``Predictor(mesh=)``: one suppression launch a replica). The JAX
+package's two-program split (``_infer_detect``) works around an XLA-TPU
+compile cliff and has no counterpart here; its approximate top-k is not
+ported (top-k is exact, as on the JAX package's CPU runs).
 """
 
 from __future__ import annotations
@@ -147,6 +148,7 @@ def evaluate_map(
     verbose: bool = True,
     num_candidates: int = 512,
     pool: Optional[str] = None,
+    mesh=None,
 ) -> Tuple[float, Dict[int, float]]:
     """Run ``predictor`` (an ``infer.Predictor``) over an eval ``dataset``
     (``data.Dataset``, TEST mode, on the predictor's device) and return
@@ -157,7 +159,19 @@ def evaluate_map(
     reference's exact per-class NMS. Batch i + 1 is dispatched before
     batch i's detections are read back, so the device works while the
     host files them. Prints the loop's images/s and the dataset's decodes
-    by decoder (native libjpeg or PIL) when ``verbose``."""
+    by decoder (native libjpeg or PIL) when ``verbose``. A predictor
+    built with a ``mesh`` (``Predictor(mesh=)``) evaluates data-parallel
+    over its data axis, which must divide the dataset's batch size;
+    ``mesh``, where given, must be the predictor's."""
+    if mesh is not None and mesh != predictor.mesh:
+        raise ValueError("evaluate_map's mesh must be the predictor's: build the Predictor "
+                         "with mesh=")
+    mesh = predictor.mesh
+    if mesh is not None and dataset.batch_size % mesh.data:
+        raise ValueError(
+            f"batch_size ({dataset.batch_size}) must be a multiple of "
+            f"the mesh data axis ({mesh.data}) for sharded evaluation; "
+            f"pass --batch_size k*{mesh.data} or reduce --mesh_data")
     ev = MAPEvaluator(len(class_names), iou_threshold)
     n_images = 0
     kw = dict(score_threshold=score_threshold, iou_threshold=nms_iou,

@@ -1,9 +1,9 @@
 """Inference API: the serving path on the card. Port of
 ``yoloret_tpu/infer/predictor.py`` (``Detection``, ``Predictor`` with
 ``detect_arrays``, ``detect_image`` and ``detect_video``, its int8
-backbone and zoom-in ensemble, ``draw_detections``, ``_make_tracker``)
-without the mesh path. ``frame_schedule`` is ``detect_video``'s
-per-frame schedule (detect or track) without OpenCV.
+backbone, zoom-in ensemble and data-parallel mesh, ``draw_detections``,
+``_make_tracker``). ``frame_schedule`` is ``detect_video``'s per-frame
+schedule (detect or track) without OpenCV.
 
 The host letterboxes each image to uint8 (4x smaller upload than
 float32), the device divides by 255, runs the detector through
@@ -24,6 +24,16 @@ tensors between backbone convs, no MBConv launch), calibrated on
 the network a second time on the centre ``zoom_hw`` crop of the
 normalised batch (the fused path: 16 more MBConv launches; or the int8
 path) and hands both passes' heads to the per-class postprocess.
+
+``mesh`` (``parallel.mesh.make_mesh``) serves data-parallel from one
+process: each entry of the mesh's data axis holds a replica of the
+weights on its device (its own folded and packed MBConv weights, its
+own int8 parameters), the buckets round up to multiples of the data
+axis, and ``infer`` splits each padded batch into equal shards in
+order, enqueues each shard's forward and postprocess on its device's
+stream, with that device current, and gathers the slates in order on
+the first device. The replicas share nothing, so the slates are one
+device's.
 """
 
 from __future__ import annotations
@@ -40,7 +50,7 @@ import torch
 
 from yoloret_tpu_torch.data.annotations import load_anchors, load_classes
 from yoloret_tpu_torch.data.augment import to_unit_float
-from yoloret_tpu_torch.device import DeviceLike, resolve_device, upload
+from yoloret_tpu_torch.device import DeviceLike, on_device, resolve_device, upload
 from yoloret_tpu_torch.nn.detector import YoloReT
 from yoloret_tpu_torch.nn.fused_infer import fused_detector_apply, fused_params
 from yoloret_tpu_torch.nn.int8_infer import int8_detector_apply, quantize_from_data, supports_int8
@@ -48,6 +58,7 @@ from yoloret_tpu_torch.nn.layers import init_weights
 from yoloret_tpu_torch.ops.letterbox import letterbox_numpy_u8
 from yoloret_tpu_torch.ops.nms import NMSResult
 from yoloret_tpu_torch.ops.postprocess import detect_batch
+from yoloret_tpu_torch.parallel.mesh import Mesh, replicate, shard_batch
 from yoloret_tpu_torch.utils.checkpoint import load_params
 from yoloret_tpu_torch.weights import from_flax
 
@@ -99,8 +110,11 @@ class Predictor:
         zoom_hw: Tuple[int, int] = (224, 224),
         use_int8: bool = False,
         calibration_images: Optional[np.ndarray] = None,
+        mesh: Optional[Mesh] = None,
     ):
-        self.device = resolve_device(device)
+        self.mesh = mesh
+        self._n_data = 1 if mesh is None else mesh.data
+        self.device = resolve_device(device if mesh is None else mesh.devices[0])
         if class_names is None:
             if not classes_path:
                 raise ValueError("need class_names or classes_path")
@@ -117,7 +131,7 @@ class Predictor:
         self.score_threshold = score_threshold
         self.iou_threshold = iou_threshold
         self.num_candidates = num_candidates
-        self.batch_buckets = tuple(sorted({int(b) for b in batch_buckets}))
+        self.batch_buckets = _round_buckets(batch_buckets, self._n_data)
         self.inflight_chunks = max(1, int(inflight_chunks))
         self.dispatched_batch_sizes: set = set()
         self.forwards = 0  # device forwards dispatched (one per chunk)
@@ -150,15 +164,25 @@ class Predictor:
     def refresh(self) -> None:
         """Re-fold the backbone weights after the model's parameters
         changed (the fused path reads a folded copy), and with
-        ``use_int8`` re-calibrate and re-quantize them."""
+        ``use_int8`` re-calibrate and re-quantize them; on a mesh, copy
+        them to every replica and fold and pack each there."""
         self._anchors_t = torch.as_tensor(self.anchors, device=self.device)
         self._qp = None if self._calib is None else quantize_from_data(self.model, self._calib)
-        self._fused = fused_params(self.model) if self._qp is None else None
+        with on_device(self.device):
+            self._fused = fused_params(self.model) if self._qp is None else None
+        self._replicas = [(self.model, self._qp, self._fused, self._anchors_t)]
+        if self.mesh is not None:
+            copies = replicate(self.mesh, [self.model, self._qp, self._anchors_t])
+            for dev, (model, qp, anchors) in list(zip(self.mesh.devices, copies))[1:]:
+                with on_device(dev):
+                    fused = fused_params(model) if qp is None else None
+                self._replicas.append((model, qp, fused, anchors))
 
-    def _forward(self, images: torch.Tensor):
-        if self._qp is not None:
-            return int8_detector_apply(self.model, self._qp, images)
-        return fused_detector_apply(self.model, images, self._fused)
+    def _forward(self, images: torch.Tensor, replica: int = 0):
+        model, qp, fused, _ = self._replicas[replica]
+        if qp is not None:
+            return int8_detector_apply(model, qp, images)
+        return fused_detector_apply(model, images, fused)
 
     # -- device path --------------------------------------------------------
 
@@ -171,16 +195,33 @@ class Predictor:
         thresholds and ``num_candidates`` override the predictor's own
         settings for this call; ``pool`` is the postprocess's candidate
         pool, ``"shared"`` or ``"per_class"`` (None: shared, per-class with
-        the zoom ensemble). Asynchronous on CUDA."""
+        the zoom ensemble). Asynchronous on CUDA. On a mesh the batch must
+        split evenly over the data axis; the slates come back on the first
+        device, in order."""
+        kw = dict(score_threshold=score_threshold, iou_threshold=iou_threshold,
+                  num_candidates=num_candidates, pool=pool)
+        if self.mesh is None:
+            return self._infer_replica(0, images, image_hw, **kw)
+        shards = shard_batch(self.mesh, (images, image_hw))
+        slates = []
+        for i, (dev, (x, hw)) in enumerate(zip(self.mesh.devices, shards)):
+            with on_device(dev):
+                slates.append(self._infer_replica(i, x, hw, **kw))
+        return NMSResult(*(torch.cat([field.to(self.device) for field in fields])
+                           for fields in zip(*slates)))
+
+    def _infer_replica(self, replica: int, images: torch.Tensor, image_hw: torch.Tensor, *,
+                       score_threshold: Optional[float], iou_threshold: Optional[float],
+                       num_candidates: Optional[int], pool: Optional[str]) -> NMSResult:
         images = to_unit_float(images)
-        outs = self._forward(images)
+        outs = self._forward(images, replica)
         zoom_outs = None
         if self.zoom_ensemble:
             (h, w), (zh, zw) = images.shape[1:3], self.zoom_hw
             y0, x0 = (h - zh) // 2, (w - zw) // 2
-            zoom_outs = self._forward(images[:, y0:y0 + zh, x0:x0 + zw, :])
+            zoom_outs = self._forward(images[:, y0:y0 + zh, x0:x0 + zw, :], replica)
         return detect_batch(
-            outs, self._anchors_t, len(self.class_names), image_hw,
+            outs, self._replicas[replica][3], len(self.class_names), image_hw,
             score_threshold=self.score_threshold if score_threshold is None else score_threshold,
             iou_threshold=self.iou_threshold if iou_threshold is None else iou_threshold,
             num_candidates=self.num_candidates if num_candidates is None else num_candidates,
@@ -322,6 +363,13 @@ class Predictor:
             if writer is not None:
                 writer.release()
         return n
+
+
+def _round_buckets(buckets: Sequence[int], n: int) -> Tuple[int, ...]:
+    """The batch buckets, each rounded up to a multiple of the mesh's data
+    axis ``n`` so that every shard has one shape, sorted, without
+    repeats."""
+    return tuple(sorted({-(-int(b) // n) * n for b in buckets}))
 
 
 def frame_schedule(frames: Iterable[np.ndarray], detect: Callable[[np.ndarray], List[Detection]],

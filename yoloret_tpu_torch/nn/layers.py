@@ -27,6 +27,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from yoloret_tpu_torch.parallel.mesh import in_group, mean_over_ranks, rank, world
+
 Act = Optional[Callable[[torch.Tensor], torch.Tensor]]
 
 
@@ -132,7 +134,12 @@ class BatchNorm(nn.Module):
     training mode, ``use_running_average=False``: the statistics of the
     batch are computed in float32 at least (float64 stays float64), the
     variance as E[x^2] - E[x]^2 clipped at 0 (biased, as Flax computes
-    it, not the unbiased one ``F.batch_norm`` keeps), the input is
+    it, not the unbiased one ``F.batch_norm`` and ``nn.SyncBatchNorm``
+    keep), E[x] and E[x^2] over the global batch in a process group (the
+    mean of the ranks' own, all-reduced differentiably by
+    ``parallel.mesh.mean_over_ranks``; every rank holds as many rows, and
+    without a group the same formula runs without the collective), the
+    input is
     normalised with them in that dtype and cast back to its own, and the
     running statistics move to ``momentum * old + (1 - momentum) *
     batch`` (Flax's momentum m, PyTorch's 1 - m) unless
@@ -151,8 +158,10 @@ class BatchNorm(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         xf = x.to(torch.promote_types(x.dtype, torch.float32))
         axes = tuple(range(x.dim() - 1))
-        mean = xf.mean(axes)
-        var = torch.clamp((xf * xf).mean(axes) - mean * mean, min=0.0)
+        mean, mean_sq = xf.mean(axes), (xf * xf).mean(axes)
+        if in_group():  # one all-reduce of both; the same bits at world size 1
+            mean, mean_sq = mean_over_ranks(torch.stack([mean, mean_sq]))
+        var = torch.clamp(mean_sq - mean * mean, min=0.0)
         if self.update_stats:
             with torch.no_grad():
                 m = self.momentum
@@ -281,10 +290,13 @@ class SqueezeExcite(nn.Module):
 def drop_connect(x: torch.Tensor, rate: float, generator: torch.Generator) -> torch.Tensor:
     """Per-sample stochastic depth (the JAX package's ``DropConnect`` in
     training): keep each sample with probability 1 - rate, scaled by
-    1 / (1 - rate); the uniform draw comes from ``generator``."""
+    1 / (1 - rate); the uniform draw comes from ``generator``, drawn for
+    the global batch in a process group and sliced to this rank's rows,
+    so a row's draw does not depend on the world size."""
     keep = 1.0 - rate
-    u = torch.rand((x.shape[0],) + (1,) * (x.dim() - 1), generator=generator,
-                   device=x.device, dtype=x.dtype)
+    b, n, r = x.shape[0], world(), rank()
+    u = torch.rand((b * n,) + (1,) * (x.dim() - 1), generator=generator,
+                   device=x.device, dtype=x.dtype)[r * b:(r + 1) * b]
     return (x / keep) * torch.floor(keep + u)
 
 

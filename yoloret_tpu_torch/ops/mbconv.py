@@ -64,6 +64,7 @@ from typing import NamedTuple, Optional
 import torch
 import torch.nn.functional as F
 
+from yoloret_tpu_torch.device import on_device
 from yoloret_tpu_torch.nn.layers import relu6, same_padding
 from yoloret_tpu_torch.ops import _build
 
@@ -703,17 +704,19 @@ def fused_mbconv(
                        else torch.cuda.current_device())
     if x.dtype == torch.bfloat16:
         plan = plan_tile(h // stride, w // stride, stride, cin, ce, cout, expand, b, num_sms)
-        rc = lib.yrt_mbconv_bf16(
-            x.data_ptr(), packed.w.data_ptr(), bp.data_ptr(), out.data_ptr(), b, h, w, cin, ce,
-            cout, packed.nchunks, stride, int(expand), int(residual), plan.th, plan.tw,
-            plan.nc, plan.xst, plan.wst, plan.grid, plan.smem, stream)
+        with on_device(x.device):
+            rc = lib.yrt_mbconv_bf16(
+                x.data_ptr(), packed.w.data_ptr(), bp.data_ptr(), out.data_ptr(), b, h, w, cin,
+                ce, cout, packed.nchunks, stride, int(expand), int(residual), plan.th, plan.tw,
+                plan.nc, plan.xst, plan.wst, plan.grid, plan.smem, stream)
     else:
         plan = plan_tile_f32(h // stride, w // stride, stride, cin, ce, cout, expand, b,
                              num_sms)
-        rc = lib.yrt_mbconv_f32(
-            x.data_ptr(), packed.w.data_ptr(), bp.data_ptr(), out.data_ptr(), b, h, w, cin, ce,
-            cout, packed.nchunks, stride, int(expand), int(residual), plan.th, plan.tw, plan.rq,
-            plan.px, plan.cluster, plan.smem, stream)
+        with on_device(x.device):
+            rc = lib.yrt_mbconv_f32(
+                x.data_ptr(), packed.w.data_ptr(), bp.data_ptr(), out.data_ptr(), b, h, w, cin,
+                ce, cout, packed.nchunks, stride, int(expand), int(residual), plan.th, plan.tw,
+                plan.rq, plan.px, plan.cluster, plan.smem, stream)
     if rc != 0:
         raise RuntimeError(f"mbconv kernel launch failed: {lib.yrt_error_string(rc).decode()}")
     fused_mbconv.launches += 1

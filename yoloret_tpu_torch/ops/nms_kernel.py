@@ -40,6 +40,7 @@ from typing import NamedTuple, Tuple
 
 import torch
 
+from yoloret_tpu_torch.device import on_device
 from yoloret_tpu_torch.ops import _build
 from yoloret_tpu_torch.ops.boxes import iou as box_iou
 
@@ -203,11 +204,12 @@ def suppress(boxes: torch.Tensor, scores: torch.Tensor, *, max_det: int = 20,
     flags = (torch.empty(b * c, dtype=torch.int32, device=scores.device)
              if plan.variant == "per_class_large" else None)
     stream = torch.cuda.current_stream(scores.device).cuda_stream
-    rc = lib.yrt_nms(scores.data_ptr(), boxes.data_ptr(), out_b.data_ptr(), out_s.data_ptr(),
-                     b, c, k, max_det, k * 4 if shared else c * k * 4, 0 if shared else k * 4,
-                     iou_threshold, score_threshold, empty_score, VARIANTS.index(plan.variant),
-                     plan.warps, plan.classes_per_pass, plan.smem,
-                     None if flags is None else flags.data_ptr(), stream)
+    with on_device(scores.device):
+        rc = lib.yrt_nms(scores.data_ptr(), boxes.data_ptr(), out_b.data_ptr(), out_s.data_ptr(),
+                         b, c, k, max_det, k * 4 if shared else c * k * 4,
+                         0 if shared else k * 4, iou_threshold, score_threshold, empty_score,
+                         VARIANTS.index(plan.variant), plan.warps, plan.classes_per_pass,
+                         plan.smem, None if flags is None else flags.data_ptr(), stream)
     if rc != 0:
         raise RuntimeError(f"nms kernel launch failed: {lib.yrt_error_string(rc).decode()}")
     suppress.launches += 1

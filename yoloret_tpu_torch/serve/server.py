@@ -198,13 +198,21 @@ def main(argv=None):
     p.add_argument("--int8", action="store_true",
                    help="serve through the W8A8 backbone (nn/int8_infer.py), calibrated on "
                         "noise; build the Predictor in-process to calibrate on real images")
+    p.add_argument("--mesh_data", type=int, default=1,
+                   help="data-parallel serving degree: each batch splits over N replicas "
+                        "(batch buckets round up to multiples of N)")
     p.add_argument("--device", default="cuda")
     a = p.parse_args(argv)
+    mesh = None
+    if a.mesh_data > 1:
+        from yoloret_tpu_torch.parallel.mesh import make_mesh
+
+        mesh = make_mesh(data=a.mesh_data, device=a.device)
     pred = Predictor(
         backbone=a.backbone, weights=a.weights,
         classes_path=a.classes_path, anchors_path=a.anchors_path,
         input_hw=(a.input_size, a.input_size), score_threshold=a.score,
-        rfcr=a.rfcr, device=a.device, use_int8=a.int8,
+        rfcr=a.rfcr, device=a.device, use_int8=a.int8, mesh=mesh,
     )
     DetectionServer(pred, a.host, a.port, max_batch=a.max_batch).start()
 

@@ -17,6 +17,18 @@ correction uses the count after it, ``eps`` is added outside the square
 root, and the EMA ramp reads the step before the increment and averages
 the new parameters. A step reads nothing back from the device: its
 metrics stay device tensors.
+
+In a process group (``parallel.mesh``) each rank runs the step on its
+rows of the global batch: the train-mode BatchNorms take the global
+batch's statistics (``nn/layers.py``), each rank's loss is its local sum
+over its local batch size, and ``train_step`` replaces the gradients by
+their mean over the ranks (one flat all-reduce a dtype), which is the
+gradient of the JAX step's loss over the global batch because every
+rank holds as many rows. The update then runs the same on every rank,
+from the same state (``TrainState.broadcast``), so every rank ends the
+step with the same bits. The reported losses are global means. The FGSM
+image gradient needs no collective of its own: its sign does not depend
+on the loss's scale.
 """
 
 from __future__ import annotations
@@ -30,6 +42,7 @@ import numpy as np
 import torch
 
 from yoloret_tpu_torch.nn.layers import keep_stats
+from yoloret_tpu_torch.parallel.mesh import all_reduce_mean_, broadcast_, in_group
 from yoloret_tpu_torch.train.freeze import TRAINABLE
 from yoloret_tpu_torch.train.losses import yolo_loss
 
@@ -103,8 +116,11 @@ class TrainState:
         f32 = np.float32
         count = self.step + 1
         lr = self.schedule(self.step)
-        bc1 = float(f32(1.0) - f32(self.b1) ** f32(count))
-        bc2 = float(f32(1.0) - f32(self.b2) ** f32(count))
+        # optax computes the bias corrections in float32, in float64 with
+        # JAX's x64: the float64 reference's float64 parameters take that
+        ft = np.float64 if self.params and self.params[0].dtype == torch.float64 else f32
+        bc1 = float(ft(1.0) - ft(self.b1) ** ft(count))
+        bc2 = float(ft(1.0) - ft(self.b2) ** ft(count))
         grads = list(grads)
         torch._foreach_mul_(self.mu, self.b1)
         torch._foreach_add_(self.mu, grads, alpha=1.0 - self.b1)
@@ -127,6 +143,14 @@ class TrainState:
             torch._foreach_add_(ema, [params[n].detach() for n in self.ema],
                                 alpha=float(f32(1.0) - d))
         self.step = count
+
+    def broadcast(self, src: int = 0) -> None:
+        """Every parameter, BatchNorm statistic, Adam moment and EMA
+        parameter set to rank ``src``'s (a no-op without a process
+        group): the start of a data-parallel run."""
+        with torch.no_grad():
+            broadcast_([*self.model.parameters(), *self.model.buffers(), *self.mu, *self.nu,
+                        *(self.ema or {}).values()], src)
 
     # -- weights ---------------------------------------------------------------
 
@@ -223,11 +247,24 @@ def step_gradients(state: TrainState, batch: Mapping[str, torch.Tensor], cfg: St
 
 def train_step(state: TrainState, batch: Mapping[str, torch.Tensor], cfg: StepConfig,
                seed: int = 0) -> Dict[str, torch.Tensor]:
-    """One optimizer step (``step_gradients``, then the update); returns
-    the step's losses as device scalars."""
+    """One optimizer step (``step_gradients``, in a process group the
+    gradients' and the losses' mean over the ranks, then the update);
+    returns the step's losses as device scalars."""
     grads, metrics = step_gradients(state, batch, cfg, seed)
+    if in_group():
+        all_reduce_mean_(grads)
+        metrics = mean_over_ranks_dict(metrics)
     state.apply_gradients(grads, cfg.ema_decay)
     return metrics
+
+
+def mean_over_ranks_dict(metrics: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+    """Scalar device tensors replaced by their means over the ranks, in
+    one all-reduce."""
+    keys = list(metrics)
+    flat = torch.stack([metrics[k].detach() for k in keys])
+    all_reduce_mean_([flat])
+    return dict(zip(keys, flat.unbind()))
 
 
 @torch.no_grad()

@@ -1,6 +1,5 @@
 """Training orchestration: ``train()``. Port of
-``yoloret_tpu/train/trainer.py`` (reference: code/train.py:20-218) on
-one device.
+``yoloret_tpu/train/trainer.py`` (reference: code/train.py:20-218).
 
 Two stages, as the reference runs them:
   * stage 1 (``freeze=True``): the backbone frozen (no optimizer state,
@@ -32,9 +31,23 @@ at the next epoch, with each size's data stream at the batch where it
 stopped.
 
 ``--model`` and ``--train_unfreeze`` take a port weight file or a JAX
-weight directory (``utils.checkpoint.load_params``). Not ported (it
-stops with a message naming its ROADMAP.md item): data parallelism and
-multihost.
+weight directory (``utils.checkpoint.load_params``).
+
+Data parallelism (the reference's ``tf.distribute`` strategies,
+code/train.py:48-56): ``mesh_data`` ranks (None: every visible device),
+the global batch ``batch_size x ranks`` (the reference's
+``train.py:56``), each rank decoding its rows of every global batch
+(``Dataset(process_index, process_count)``) and running the step on
+them (``train/step.py``: global-batch BatchNorm statistics, the
+gradients' mean over the ranks, every rank ending the step with the same
+state). Above one rank on one host, ``train`` spawns a worker a device
+(``parallel.mesh.spawn``); ``multihost`` joins ``torchrun``'s group;
+called inside a process group it trains as a rank of it. Rank 0 alone
+writes ``metrics.jsonl``, TensorBoard, checkpoints and the weight files
+and runs the mAP pass and the TensorBoard images, the other ranks
+waiting at a barrier. A checkpoint holds nothing of the world size, so
+a run stopped at one world size resumes at another, at the next epoch,
+each stream at its batch.
 """
 
 from __future__ import annotations
@@ -42,7 +55,6 @@ from __future__ import annotations
 import json
 import os
 import time
-from typing import Optional
 
 import numpy as np
 import torch
@@ -53,6 +65,17 @@ from yoloret_tpu_torch.data.augment import AugmentConfig
 from yoloret_tpu_torch.device import DeviceLike, resolve_device
 from yoloret_tpu_torch.nn.detector import YoloReT
 from yoloret_tpu_torch.nn.layers import init_weights
+from yoloret_tpu_torch.parallel.mesh import (
+    all_reduce_mean_,
+    barrier,
+    in_group,
+    init_distributed,
+    make_mesh,
+    rank,
+    spawn,
+    world,
+)
+from yoloret_tpu_torch.parallel.prefetch import device_prefetch
 from yoloret_tpu_torch.train.freeze import backbone_freeze_mask
 from yoloret_tpu_torch.train.step import (
     StepConfig,
@@ -63,16 +86,6 @@ from yoloret_tpu_torch.train.step import (
 )
 from yoloret_tpu_torch.utils.checkpoint import CheckpointManager, load_params, save_params
 from yoloret_tpu_torch.utils.tensorboard import SummaryWriter
-
-
-def unported_options(cfg: RunConfig) -> Optional[str]:
-    """What of ``cfg`` the port cannot train yet, with its item in
-    ROADMAP.md's queue 1, or None."""
-    if (cfg.mesh_data or 1) > 1 or cfg.multihost:
-        return ("--mesh_data above 1 and multihost: data-parallel training waits for "
-                "parallelism, item 6 (ROADMAP.md, queue 1); it is not ported to "
-                "yoloret_tpu_torch yet")
-    return None
 
 
 class EarlyStopper:
@@ -96,15 +109,37 @@ class EarlyStopper:
         return self.stale >= self.patience
 
 
+def stage_weights_path(cfg: RunConfig) -> str:
+    """The stage-end weight file that ``train(cfg)`` writes."""
+    stage = 1 if cfg.freeze else 2
+    suffix = "stage_1" if cfg.freeze else "final"
+    return os.path.join(cfg.log_dir, f"{cfg.backbone}_stage{stage}",
+                        f"{cfg.backbone}_trained_weights_{suffix}.pt")
+
+
+def _rank_main(device: torch.device, cfg: RunConfig) -> None:
+    """A spawned rank of ``train``."""
+    train(cfg, device)
+
+
 def train(cfg: RunConfig, device: DeviceLike = "cuda") -> str:
-    """Run one training stage on ``device``; returns the path of the
-    stage-end weight file."""
-    refused = unported_options(cfg)
-    if refused:
-        raise NotImplementedError(refused)
+    """Run one training stage on ``device`` (in a process group: this
+    rank's device), or on ``mesh_data`` devices of its type; returns the
+    path of the stage-end weight file."""
     if not (cfg.train_dataset and cfg.classes_path and cfg.anchors_path):
         raise ValueError("train_dataset, classes_path and anchors_path are required")
+    if cfg.multihost and not in_group():
+        device = init_distributed(multihost=True)
     dev = resolve_device(device)
+    if not in_group():
+        mesh = make_mesh(data=cfg.mesh_data, device=dev)
+        if mesh.data > 1:
+            spawn(_rank_main, mesh, (cfg,))
+            return stage_weights_path(cfg)
+    elif cfg.mesh_data not in (None, world()):
+        raise ValueError(f"mesh_data {cfg.mesh_data} in a process group of {world()} ranks")
+    n_ranks, me, lead = world(), rank(), rank() == 0
+    global_batch = cfg.batch_size * n_ranks
     class_names = load_classes(cfg.classes_path)
     num_classes = len(class_names)
     anchors = load_anchors(cfg.anchors_path)
@@ -119,18 +154,19 @@ def train(cfg: RunConfig, device: DeviceLike = "cuda") -> str:
         if not all(h % 32 == 0 for h, _ in train_sizes):
             raise ValueError(f"--multi_scale sizes must be multiples of 32: {cfg.multi_scale}")
 
-    log_dir = os.path.join(cfg.log_dir, f"{cfg.backbone}_stage{stage}")
+    log_dir = os.path.dirname(stage_weights_path(cfg))
 
     common = dict(anchors=anchors, num_classes=num_classes, num_scales=cfg.num_scales,
                   max_boxes=cfg.max_boxes, seed=cfg.seed, device=dev)
-    train_dss = [Dataset(cfg.train_dataset, cfg.batch_size, input_hw=size, mode=DatasetMode.TRAIN,
+    train_dss = [Dataset(cfg.train_dataset, global_batch, input_hw=size, mode=DatasetMode.TRAIN,
                          augment_config=AugmentConfig(**cfg.augment) if cfg.augment else None,
-                         aa_policy=cfg.autoaugment_policy, **common)
+                         aa_policy=cfg.autoaugment_policy, process_index=me,
+                         process_count=n_ranks, **common)
                  for size in train_sizes]
-    val_ds = (Dataset(cfg.val_dataset, cfg.batch_size, input_hw=hw, mode=DatasetMode.VALIDATE,
+    val_ds = (Dataset(cfg.val_dataset, global_batch, input_hw=hw, mode=DatasetMode.VALIDATE,
                       **common) if cfg.val_dataset else None)
-    map_ds = (Dataset(cfg.test_dataset, cfg.batch_size, input_hw=hw, mode=DatasetMode.TEST,
-                      device=dev) if cfg.test_dataset else None)
+    map_ds = (Dataset(cfg.test_dataset, global_batch, input_hw=hw, mode=DatasetMode.TEST,
+                      device=dev) if cfg.test_dataset and lead else None)
     steps_per_epoch = train_dss[0].steps_per_epoch()
 
     model = YoloReT(cfg.backbone, num_classes=num_classes,
@@ -155,7 +191,9 @@ def train(cfg: RunConfig, device: DeviceLike = "cuda") -> str:
         class_loss_kind=cfg.class_loss, backbone_train=not cfg.freeze, use_adv=cfg.use_adv,
         ema_decay=cfg.ema_decay)
 
-    os.makedirs(log_dir, exist_ok=True)  # once the weights have loaded
+    if lead:
+        os.makedirs(log_dir, exist_ok=True)  # once the weights have loaded
+    barrier()
     ckpt = CheckpointManager(os.path.join(log_dir, "ckpt"), every=cfg.checkpoint_every)
     stopper = (EarlyStopper(cfg.early_stopping_patience or epochs // 2)
                if cfg.early_stopping else None)
@@ -176,10 +214,12 @@ def train(cfg: RunConfig, device: DeviceLike = "cuda") -> str:
                 stopper.best = float(tree["stopper"]["best"])
                 stopper.stale = int(tree["stopper"]["stale"])
             start_epoch = latest + 1
-            print(f"resumed from epoch {latest} checkpoint")
+            if lead:
+                print(f"resumed from epoch {latest} checkpoint")
+    state.broadcast()  # every rank starts from rank 0's state
 
-    mfile = open(os.path.join(log_dir, "metrics.jsonl"), "a")
-    tb = SummaryWriter(os.path.join(log_dir, "tb"))
+    mfile = open(os.path.join(log_dir, "metrics.jsonl"), "a") if lead else None
+    tb = SummaryWriter(os.path.join(log_dir, "tb")) if lead else None
     predictor = None
 
     def log(rec: dict) -> None:
@@ -242,12 +282,14 @@ def train(cfg: RunConfig, device: DeviceLike = "cuda") -> str:
             tb.add_image(f"train_input/{i}", np.asarray(pil), epoch)
         tb.flush()
 
-    print(f"stage {stage}: {cfg.backbone} @{list(hw)}, batch {cfg.batch_size}, "
-          f"{steps_per_epoch} steps/epoch x {epochs} epochs on {dev}")
+    if lead:
+        print(f"stage {stage}: {cfg.backbone} @{list(hw)}, {n_ranks}-way DP, global batch "
+              f"{global_batch}, {steps_per_epoch} steps/epoch x {epochs} epochs on {dev}")
     # each size's stream skips the batches that its completed epochs drew
-    streams = [ds.build(epochs=None, skip_batches=steps_per_epoch * sum(
+    builds = [ds.build(epochs=None, skip_batches=steps_per_epoch * sum(
         1 for e in range(start_epoch) if e % len(train_dss) == i))
         for i, ds in enumerate(train_dss)]
+    streams = [device_prefetch(b, dev, local_data=True) for b in builds]
     loss_keys = ("images", "gt_boxes", "gt_valid") + tuple(
         f"y_true_{l}" for l in range(cfg.num_scales))
     epoch = max(start_epoch, epochs) - 1  # the stage-end epoch if the loop does not run
@@ -262,54 +304,61 @@ def train(cfg: RunConfig, device: DeviceLike = "cuda") -> str:
                 batch = next(batches)
                 m = train_step(state, batch, step_cfg, seed=cfg.seed + 1)
                 losses.append(m["loss"])
-                if (bstep + 1) % 50 == 0:
+                if lead and (bstep + 1) % 50 == 0:
                     print(f"epoch {epoch} step {bstep + 1}/{steps_per_epoch} "
                           f"loss {float(losses[-1]):.4f}")
             train_loss = float(torch.stack(losses).mean())
 
             val_loss = float("nan")
             if val_ds is not None:
-                vtotal, vn = 0.0, 0
-                for vbatch in val_ds.build(epochs=1):
-                    vtotal += float(eval_step(state, {k: vbatch[k] for k in loss_keys},
-                                              step_cfg)["val_loss"])
-                    vn += 1
-                val_loss = vtotal / max(vn, 1)
+                # each rank's rows of every global batch; the mean over ranks
+                vlosses = [eval_step(state, {k: vbatch[k] for k in loss_keys},
+                                     step_cfg)["val_loss"]
+                           for vbatch in device_prefetch(val_ds.build(epochs=1), dev)]
+                if vlosses:
+                    vlosses = torch.stack(vlosses)
+                    all_reduce_mean_([vlosses])
+                val_loss = sum(float(v) for v in vlosses) / max(len(vlosses), 1)
 
             dt = time.perf_counter() - t0
             lr_now = schedule(epoch * steps_per_epoch)
-            log({"epoch": epoch, "loss": train_loss, "val_loss": val_loss, "lr": lr_now,
-                 "sec": round(dt, 2),
-                 "images_per_sec": round(cfg.batch_size * steps_per_epoch / dt, 1)})
-            tb.add_scalar("loss", train_loss, epoch)
-            if np.isfinite(val_loss):
-                tb.add_scalar("val_loss", val_loss, epoch)
-            tb.add_scalar("lr", lr_now, epoch)
-            tb.flush()
-            ckpt.maybe_save(epoch, ckpt_tree(),
-                            val_loss if np.isfinite(val_loss) else train_loss)
-            if cfg.tb_images > 0:
-                tb_images(epoch, batch["images"])
-            if map_ds is not None and cfg.map_every > 0 and (epoch + 1) % cfg.map_every == 0:
-                eval_map(epoch)
+            if lead:
+                log({"epoch": epoch, "loss": train_loss, "val_loss": val_loss, "lr": lr_now,
+                     "sec": round(dt, 2),
+                     "images_per_sec": round(global_batch * steps_per_epoch / dt, 1)})
+                tb.add_scalar("loss", train_loss, epoch)
+                if np.isfinite(val_loss):
+                    tb.add_scalar("val_loss", val_loss, epoch)
+                tb.add_scalar("lr", lr_now, epoch)
+                tb.flush()
+                ckpt.maybe_save(epoch, ckpt_tree(),
+                                val_loss if np.isfinite(val_loss) else train_loss)
+                if cfg.tb_images > 0:
+                    tb_images(epoch, batch["images"])
+                if (map_ds is not None and cfg.map_every > 0
+                        and (epoch + 1) % cfg.map_every == 0):
+                    eval_map(epoch)
+            barrier()
             if stopper is not None:
                 # with no val split only the divergence guard applies
                 stop = (stopper.update(val_loss) if val_ds is not None
                         else not np.isfinite(train_loss))
                 if stop:
-                    print(f"early stopping at epoch {epoch}: val_loss has not improved for "
-                          f"{stopper.patience} epochs (best {stopper.best:.4f})")
+                    if lead:
+                        print(f"early stopping at epoch {epoch}: val_loss has not improved "
+                              f"for {stopper.patience} epochs (best {stopper.best:.4f})")
                     break
     finally:
-        for stream in streams:
+        for stream in builds:
             stream.close()
 
-    if map_ds is not None:
-        print(f"stage-end mAP: {eval_map(epoch):.6f}")
-    suffix = "stage_1" if cfg.freeze else "final"
-    out = os.path.join(log_dir, f"{cfg.backbone}_trained_weights_{suffix}.pt")
-    save_params(out, model.state_dict(), state.ema)
-    mfile.close()
-    tb.close()
-    print(f"saved {out}")
+    out = stage_weights_path(cfg)
+    if lead:
+        if map_ds is not None:
+            print(f"stage-end mAP: {eval_map(epoch):.6f}")
+        save_params(out, model.state_dict(), state.ema)
+        mfile.close()
+        tb.close()
+        print(f"saved {out}")
+    barrier()
     return out
