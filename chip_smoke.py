@@ -215,6 +215,24 @@ Phases (any failure exits non-zero and prints no result):
    as one device; (e) the CLI's MAP with ``--mesh_data 2`` stopping with the
    ``make_mesh`` message; (f) ``tools/scaling.py`` at world sizes 1 and 2.
 
+17. Spatial sharding on the one card (``yoloret_tpu_torch/parallel/spatial.py``;
+   no number here is a multi-GPU speedup): ``make_mesh(["cuda:0"] * 4,
+   data=2, model=2)``, the flagship @320 b128, each image's rows split
+   160/160. (a) ``spatial_apply`` in float32 (TF32 off) and bf16 against
+   the one-device ``fused_detector_apply`` on the same weights and images,
+   within MBCONV_TOL; bf16 (and its (c)) with each BatchNorm's variance set
+   to its layer's largest (``calm_state``: calibrated channel by channel,
+   the seeded network magnifies bf16 rounding so far that one device's own
+   bf16 heads sit ~7 from float32); (b) its launch counters, 64 MBConv a forward (16 a
+   row shard); (c) the MBConv kernel on each of the 32 halo'd slabs of a
+   data shard's forward (b64) against its plain version and its kept rows
+   against the whole-map kernel's, timed beside the plain version, cuDNN,
+   its bound and the whole-map kernel at b64 (the kernels line's slab
+   rows); (d) ``Predictor(mesh=)`` serving and MAP grade on 128 seeded
+   images through ``detect_arrays``: the float32 slates matched to one
+   device's in full, the bf16 matched count printed, and img/s at b128
+   beside one device's, in turns.
+
 The line before the last is the kernel table as JSON; the last line is
 ``{"ok": true, "device": {...}}``. Details go to chiprun_out/chip_smoke.json.
 """
@@ -4104,6 +4122,225 @@ def dp_phase(state, eval_root, seed, report):
     return rows
 
 
+SPATIAL_IMAGES = 128  # (d) detect_arrays images, matched against one device
+SPATIAL_TIMED = 6
+
+
+def calm_state(state):
+    """``state`` with each BatchNorm's running variance set to its layer's
+    largest channel's: phase 17's bf16 weights. Calibrated channel by channel
+    (``make_predictor``), the seeded flagship divides near-constant
+    channels by their small spread, which magnifies their rounding some
+    20% a block: one device's own bf16 heads then sit up to ~7 from its
+    float32 heads, and a bf16 comparison cannot see a sharding fault. With
+    one scale a layer no channel is magnified over the others."""
+    return {k: v.new_full(v.shape, v.max().item()) if k.endswith("running_var") else v
+            for k, v in state.items()}
+
+
+def slab_inputs(pred, mesh, batch, size):
+    """Each MBConv block's input at ``batch`` seeded images of ``size``
+    (``block_inputs``: the whole map) and, for each row shard of
+    ``mesh``'s model axis, the slab the row-sharded forward hands the
+    kernel (``nn/fused_infer.slab_window``): [(meta, whole input, [(shard,
+    slab, skip, first output row, output rows)])]."""
+    from yoloret_tpu_torch.nn.fused_infer import slab_window
+    from yoloret_tpu_torch.parallel import partition_rows
+
+    bounds = partition_rows(size, mesh.model)
+    out = []
+    for meta, x in zip(pred._fused.blocks, block_inputs(pred, batch, seed=17, size=size)):
+        s, h, shards = size // x.shape[1], x.shape[1], []
+        for k, (r0, r1) in enumerate(bounds):
+            first, n = r0 // s // meta.stride, (r1 - r0) // s // meta.stride
+            a, b, skip = slab_window(first, n, h, meta.stride)
+            shards.append((k, x[:, a:b].contiguous(), skip, first, n))
+        out.append((meta, x, shards))
+    return out
+
+
+def spatial_slab_row(pred, mesh, flush, launches, out):
+    """17(c): the MBConv kernel of ``pred``'s dtype on every slab of one
+    data shard's row-sharded forward (b64 @320, 2 row shards x 16
+    blocks): against its plain version, its kept rows against the
+    whole-map kernel's, and timed beside the plain version, cuDNN and its
+    bound, and beside the whole-map kernel at b64; returns the kernels
+    line's row."""
+    import torch
+
+    from yoloret_tpu_torch.ops.mbconv import fused_mbconv, reference_mbconv
+
+    dtype = str(pred.model.dtype).split(".")[-1]
+    tol, batch = MBCONV_TOL[dtype], BATCH // mesh.data
+    detail, tot = [], dict(ms=0.0, plain_ms=0.0, library_ms=0.0, bound_ms=0.0, whole_ms=0.0)
+    by_kind = Counter()
+    worst = worst_whole = 0.0
+    owned = computed = 0
+    with torch.inference_mode():
+        for meta, x, shards in slab_inputs(pred, mesh, batch, SIZE):
+            kw = dict(stride=meta.stride, residual=meta.residual)
+            whole = fused_mbconv(x, *meta.args, packed=meta.packed, **kw)
+            whole_ms = cuda_time_ms(lambda: fused_mbconv(x, *meta.args, packed=meta.packed, **kw),
+                                    5, 1, flush)
+            tot["whole_ms"] += whole_ms
+            for k, slab, skip, first, n in shards:
+                got = fused_mbconv(slab, *meta.args, packed=meta.packed, **kw)
+                want = reference_mbconv(slab, *meta.args, **kw)
+                err = max_err(got, want)
+                kept = got[:, skip:skip + n]
+                err_whole = max_err(kept, whole[:, first:first + n])
+                if not torch.allclose(got.float(), want.float(), atol=tol, rtol=tol):
+                    raise AssertionError(f"17(c) block {meta.block_id} shard {k} slab "
+                                         f"{tuple(slab.shape)} {dtype}: max err {err}")
+                if not torch.allclose(kept.float(), whole[:, first:first + n].float(), atol=tol,
+                                      rtol=tol):
+                    raise AssertionError(f"17(c) block {meta.block_id} shard {k}: kept rows "
+                                         f"differ from the whole map's by {err_whole}")
+                ms = cuda_time_ms(lambda: fused_mbconv(slab, *meta.args, packed=meta.packed,
+                                                       **kw), 5, 1, flush)
+                plain = cuda_time_ms(lambda: reference_mbconv(slab, *meta.args, **kw), 3, 1, flush)
+                lib = cuda_time_ms(lambda: library_mbconv(slab, *meta.args, **kw), 5, 1, flush)
+                bound, by, nbytes, flops = mbconv_bound(slab, meta, slab.element_size())
+                worst, worst_whole = max(worst, err), max(worst_whole, err_whole)
+                owned += n
+                computed += got.shape[1]
+                by_kind[by] += bound
+                for key, v in (("ms", ms), ("plain_ms", plain), ("library_ms", lib),
+                               ("bound_ms", bound)):
+                    tot[key] += v
+                detail.append(dict(block=meta.block_id, shard=k, slab=list(slab.shape),
+                                   stride=meta.stride, kept=[skip, skip + n], ms=ms,
+                                   plain_ms=plain, library_ms=lib, bound_ms=bound, bound_by=by,
+                                   max_abs_err=err, max_abs_err_vs_whole=err_whole))
+    out.setdefault("slabs", {})[dtype] = dict(blocks=detail, owned_rows=owned,
+                                              computed_rows=computed, **tot)
+    log(f"  (c) mbconv {dtype} on the {len(detail)} slabs of a data shard's forward (b{batch}"
+        f"@{SIZE}, 2 row shards x 16 blocks): max abs err {worst:.3g} vs plain, {worst_whole:.3g} "
+        f"vs the whole map's kernel (tolerance {tol}); summed kernel {tot['ms']:.4f} ms, plain "
+        f"{tot['plain_ms']:.4f}, cuDNN {tot['library_ms']:.4f}, bound {tot['bound_ms']:.4f}; "
+        f"the whole map's kernel {tot['whole_ms']:.4f} ms; output rows computed / owned "
+        f"{computed}/{owned} = {computed / owned:.4f}")
+    return dict(
+        name=f"mbconv_slab_{'bf16' if dtype == 'bfloat16' else 'f32'}@{SIZE}_b{batch}x2",
+        route="cuda", source="yoloret_tpu_torch/csrc/mbconv.cu",
+        replaces="yoloret_tpu/ops/mbconv_pallas.py:76",
+        also_replaces=["yoloret_tpu/ops/mbconv_pallas.py:109",
+                       "yoloret_tpu/ops/mbconv_pallas2.py:86"],
+        shapes=f"the {len(detail)} halo'd row slabs of one data shard's forward "
+               f"({pred.model.backbone} b{batch}@{SIZE} {dtype} over 2 row shards, 16 blocks "
+               "each; times summed); "
+               "launches: phase 17's row-sharded forwards",
+        launches=launches, max_abs_err=worst, ms=tot["ms"], plain_ms=tot["plain_ms"],
+        bound_ms=tot["bound_ms"], bound_by=max(by_kind, key=by_kind.get),
+        library_ms=tot["library_ms"], whole_map_ms=tot["whole_ms"],
+        rows_computed_over_owned=computed / owned)
+
+
+def spatial_phase(state, seed, report):
+    """Phase 17, spatial sharding on the one card: ``make_mesh(["cuda:0"]
+    * 4, data=2, model=2)``, the flagship @320 b128. (a) ``spatial_apply``
+    in float32 and bf16 (on ``calm_state``'s weights) against the
+    one-device ``fused_detector_apply`` on the same weights and images,
+    within ``MBCONV_TOL``; (b) its launch counts, 16 MBConv a row
+    shard; (c) the MBConv kernel on each slab shape (``spatial_slab_row``);
+    (d) ``Predictor(mesh=)``: float32 slates matched against one device's
+    on ``detect_arrays`` (serving and MAP grade), bf16 matched share, and
+    serving and MAP-grade img/s beside one device's, in turns. Returns the
+    kernels line's slab rows."""
+    import numpy as np
+    import torch
+
+    from yoloret_tpu_torch.nn.fused_infer import fused_detector_apply
+    from yoloret_tpu_torch.parallel import make_mesh, spatial_apply, spatial_params
+
+    t_phase = time.perf_counter()
+    out = report.setdefault("spatial", {})
+    mesh = make_mesh([DEVICE + ":0"] * 4, data=2, model=2)
+    log(f"== spatial sharding on one card, make_mesh(['{DEVICE}:0'] * 4, data=2, model=2): a "
+        f"b{BATCH} batch over 2 data shards, each image's {SIZE} rows over 2 row shards; no "
+        "number here is a multi-GPU speedup:")
+    flush = make_flush()
+    g = torch.Generator(device=DEVICE).manual_seed(seed + 17)
+    images = torch.rand((BATCH, SIZE, SIZE, 3), generator=g, device=DEVICE)
+    rs = np.random.RandomState(seed + 17)
+    arrays = [rs.randint(0, 256, (SIZE, SIZE, 3), dtype=np.uint8) for _ in range(SPATIAL_IMAGES)]
+    u8 = torch.from_numpy(np.stack(arrays)).to(DEVICE)
+    hw = torch.full((BATCH, 2), float(SIZE), device=DEVICE)
+    rows, parts = [], {}
+    out["part_seconds"] = parts
+    pools = (("serving", dict(score_threshold=0.3, num_candidates=64)),
+             ("map_grade", dict(score_threshold=0.0, num_candidates=512)))
+    for dtype in ("float32", "bfloat16"):
+        t = time.perf_counter()
+        bf16 = dtype == "bfloat16"
+        kernel = "mbconv_wgmma" if bf16 else "mbconv_f32"
+        # on the seeded weights bf16 itself moves the heads ~7: bf16's (a)
+        # and (c) run on calm_state's
+        one = make_predictor(seed, weights=calm_state(state) if bf16 else state, bf16=bf16)
+        params = spatial_params(one.model, mesh)
+        with torch.inference_mode():
+            want = fused_detector_apply(one.model, images, one._fused)
+            got, launches = counted(spatial_apply, one.model, mesh, images, params)
+        tol = MBCONV_TOL[dtype]
+        errs = [max_err(a, b) for a, b in zip(got, want)]
+        close = all(a.shape == b.shape and a.device == b.device
+                    and torch.allclose(a.float(), b.float(), atol=tol, rtol=tol)
+                    for a, b in zip(got, want))
+        share = max(((a.float() - b.float()).abs() / (tol + tol * b.float().abs())).max().item()
+                    for a, b in zip(got, want))
+        res = out[dtype] = dict(heads_max_abs_err=errs, launches=launches, heads_close=close,
+                                worst_share_of_tolerance=share)
+        how = f"tolerance atol=rtol {tol}, the worst element at {share:.3f} of it"
+        if bf16:  # how far bf16 itself moves the heads on these weights
+            f32 = make_predictor(seed, weights=calm_state(state), bf16=False)
+            with torch.inference_mode():
+                ref = fused_detector_apply(f32.model, images, f32._fused)
+            res["heads_vs_float32"] = {who: [max_err(h, r) for h, r in zip(heads, ref)]
+                                       for who, heads in (("one", want), ("mesh", got))}
+            how += (f"; from the float32 heads (max abs) one device "
+                    f"{[f'{e:.3g}' for e in res['heads_vs_float32']['one']]}, row-sharded "
+                    f"{[f'{e:.3g}' for e in res['heads_vs_float32']['mesh']]}")
+            del f32, ref
+        log(f"  (a, b) spatial_apply {dtype} b{BATCH}@{SIZE} vs one device: heads max abs err "
+            f"{[f'{e:.3g}' for e in errs]}; {how}; launches {launches} (16 a row shard x 4)")
+        if not close or launches != {kernel: 64}:
+            raise AssertionError(f"17(a, b) {dtype}: close {close}, launches {launches}")
+        drive = 64
+        parts[f"a_{dtype}"], t = time.perf_counter() - t, time.perf_counter()
+        for name, kw in pools:
+            a = make_predictor(seed, weights=state, bf16=bf16, **kw)
+            b = make_predictor(seed, weights=state, bf16=bf16, mesh=mesh, **kw)
+            dets_one = a.detect_arrays(arrays)
+            dets_mesh, n_launch = counted(b.detect_arrays, arrays)
+            drive += n_launch[kernel]
+            n = matched_detections(dets_mesh, dets_one)
+            counts = (sum(map(len, dets_mesh)), sum(map(len, dets_one)))
+            ms = {"one": [], "mesh": []}
+            with torch.inference_mode():
+                for who in ("one", "mesh", "mesh", "one"):
+                    p = a if who == "one" else b
+                    ms[who].append(cuda_time_ms(lambda: p.infer(u8, hw), SPATIAL_TIMED, 3))
+            rate = {k: [BATCH * 1e3 / v for v in vs] for k, vs in ms.items()}
+            res[name] = dict(matched=n, detections=counts, launches=n_launch, img_per_s=rate)
+            log(f"  (d) Predictor(mesh=) {dtype} {name} (t={kw['score_threshold']}, "
+                f"M={kw['num_candidates']}) on {len(arrays)} images: {n} of {counts[0]} "
+                f"detections matched to one device's {counts[1]} (class, score rtol 1e-4, box "
+                f"0.05 px); launches {n_launch}; img/s on one card b{BATCH}: one device "
+                f"{[round(r, 1) for r in rate['one']]}, 2x2 mesh "
+                f"{[round(r, 1) for r in rate['mesh']]}")
+            if n_launch[kernel] != 64 * -(-len(arrays) // BATCH) or counts[1] == 0:
+                raise AssertionError(f"17(d) {dtype} {name}: launches {n_launch}, {counts}")
+            if not bf16 and not (n == counts[0] == counts[1]):  # bf16: a logit's last bit
+                raise AssertionError(f"17(d) float32 {name}: {n} matched of {counts}")
+        parts[f"d_{dtype}"], t = time.perf_counter() - t, time.perf_counter()
+        rows.append(spatial_slab_row(one, mesh, flush, drive, out))
+        parts[f"c_{dtype}"] = time.perf_counter() - t
+    out["seconds"] = time.perf_counter() - t_phase
+    log(f"spatial sharding phase done in {out['seconds']:.1f} s "
+        f"({ {k: round(v, 1) for k, v in parts.items()} } s by part)")
+    return rows
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -4180,6 +4417,7 @@ def main(argv=None) -> int:
 
         int8_phase(state, eval_root, args.seed, report)
         kernels += dp_phase(state, eval_root, args.seed, report)
+    kernels += spatial_phase(state, args.seed, report)
     kernels += zoom_phase(state, args.seed, report)
     kernels += export_phase(state, args.seed, report, kernels)
     with tempfile.TemporaryDirectory(prefix="yoloret_learn_") as learn_root:
@@ -4257,6 +4495,8 @@ def main(argv=None) -> int:
                     "data_parallel": {k: report["dp"][k] for k in
                                       ("a", "b", "c", "d", "e", "f", "seconds",
                                        "part_seconds")},
+                    "spatial": {k: report["spatial"][k] for k in
+                                ("bfloat16", "float32", "seconds", "part_seconds")},
                     "seconds": report["seconds"],
                     "card": smi}))
     log(json.dumps({"kernels": kernels}))

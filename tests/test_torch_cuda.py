@@ -688,12 +688,12 @@ def test_device_prefetch_side_stream_copy(cuda):
         assert torch.equal(boxes, want["boxes"])
 
 
-def _cards():
-    """The number of CUDA devices, skipping below 2: the data-parallel
-    paths below need a card a replica or a rank."""
+def _cards(need=2):
+    """The number of CUDA devices, skipping below ``need``: the parallel
+    paths below need a card a replica, a rank or a row shard."""
     n = torch.cuda.device_count() if torch.cuda.is_available() else 0
-    if n < 2:
-        pytest.skip(f"needs 2 or more CUDA devices, this machine has {n}")
+    if n < need:
+        pytest.skip(f"needs {need} or more CUDA devices, this machine has {n}")
     return n
 
 
@@ -737,6 +737,47 @@ def test_mesh_predictor_on_distinct_cards(cuda, bf16):
         want = one.infer(images[8 * i:8 * (i + 1)], hw[8 * i:8 * (i + 1)])
         for a, b in zip(got, want):
             assert torch.equal(a[8 * i:8 * (i + 1)], b), i
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bf16", [True, False])
+def test_spatial_forward_on_distinct_cards(cuda, bf16):
+    """``spatial_apply`` on a ``data=2, model=2`` mesh over cuda:0..3 (each
+    image's rows split over two cards, halo rows copied between them) at
+    8 images @320: 16 MBConv launches a row shard (64), the heads whole on
+    cuda:0 and close to one card's forward on the same weights: float32
+    within 1e-4; bf16 within 5e-2, as bf16 rounding alone moves these
+    heads ~3e-2 (one card's bf16 heads from its float32 heads), while a
+    zero halo moves them 0.3-1.7. In bf16 each BatchNorm's variance is its
+    layer's largest channel's (chip_smoke.py's ``calm_state``): calibrated
+    channel by channel, the seeded network magnifies bf16 rounding until
+    one card's own bf16 heads sit ~7 from float32."""
+    from yoloret_tpu_torch.nn.detector import build_detector
+    from yoloret_tpu_torch.nn.fused_infer import fused_detector_apply
+    from yoloret_tpu_torch.nn.layers import calibrate_bn
+    from yoloret_tpu_torch.parallel import make_mesh, spatial_apply, spatial_params
+
+    _cards(4)
+    mesh = make_mesh([f"cuda:{i}" for i in range(4)], data=2, model=2)
+    model = build_detector(num_classes=20, dtype=torch.bfloat16 if bf16 else torch.float32,
+                           device="cuda:0")
+    g = torch.Generator(device="cuda:0").manual_seed(0)
+    calibrate_bn(model, torch.rand((8, 320, 320, 3), generator=g, device="cuda:0"))
+    for name, v in model.state_dict().items():
+        if bf16 and name.endswith("running_var"):
+            v.fill_(v.max().item())
+    images = torch.rand((8, 320, 320, 3), generator=g, device="cuda:0")
+    params = spatial_params(model, mesh)
+    fused_mbconv.launches = 0
+    got = spatial_apply(model, mesh, images, params)
+    for i in range(4):
+        torch.cuda.synchronize(i)
+    assert fused_mbconv.launches == 64
+    want = fused_detector_apply(model, images)
+    tol = 5e-2 if bf16 else 1e-4
+    for a, b in zip(got, want):
+        assert a.device == torch.device("cuda:0") and a.shape == b.shape
+        torch.testing.assert_close(a, b, atol=tol, rtol=tol)
 
 
 def _dp_batch(rows, size, seed):

@@ -162,3 +162,38 @@ def test_entry_points_raise_without_cuda(monkeypatch):
     with pytest.raises(RuntimeError):
         build_detector(num_classes=2)
     assert build_detector(num_classes=2, device="cpu").body.stem.conv.weight.device.type == "cpu"
+
+
+@pytest.mark.parametrize("hw", [40, 12])
+def test_spatial_attention_mbconv_matches_jax(hw):
+    """``MBConv(spatial_attention=True)`` against the JAX block with the
+    weights carried by ``from_flax`` (the ``spatial`` subtree: the
+    ``squeeze`` conv, the ``reduce``/``expand`` dense layers), float32:
+    at 40x40 the gate resizes to 20x20 and back (JAX's resize antialiases
+    the downsample), at 12x12 it does not resize. The gate alone too."""
+    from yoloret_tpu.nn.layers import MBConv as JaxMBConv
+    from yoloret_tpu_torch.nn.layers import MBConv
+
+    x = np.random.RandomState(3).rand(2, hw, hw, 8).astype(np.float32)
+    jax_block = JaxMBConv(8, 8, expand_ratio=2, spatial_attention=True)
+    variables = _perturbed(jax.device_get(jax_block.init(jax.random.PRNGKey(1),
+                                                         jnp.asarray(x), False)))
+    sp = variables["params"]["spatial"]
+    assert set(sp) == {"squeeze", "reduce", "expand"}
+    block = MBConv(8, 8, expand_ratio=2, spatial_attention=True, spatial_hw=(hw, hw))
+    block.load_state_dict(from_flax(variables, block), strict=True)
+    block.eval()
+    want = np.asarray(jax_block.apply(variables, jnp.asarray(x), False))
+    with torch.no_grad():
+        got = block(torch.from_numpy(x)).numpy()
+    assert np.abs(want).max() > 0.1
+    np.testing.assert_allclose(got, want, atol=1e-5, rtol=1e-5)
+
+    from yoloret_tpu.nn.layers import SpatialAttention as JaxSpatialAttention
+
+    gate_vars = {"params": sp}
+    y = np.random.RandomState(4).randn(2, hw, hw, 16).astype(np.float32)
+    want = np.asarray(JaxSpatialAttention().apply(gate_vars, jnp.asarray(y)))
+    with torch.no_grad():
+        got = block.spatial(torch.from_numpy(y)).numpy()
+    np.testing.assert_allclose(got, want, atol=1e-5, rtol=1e-5)

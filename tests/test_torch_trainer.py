@@ -184,7 +184,7 @@ NEW_MODULES = ("yoloret_tpu_torch.train", "yoloret_tpu_torch.train.freeze",
                "yoloret_tpu_torch.export.tf_postprocess", "yoloret_tpu_torch.export.export",
                "yoloret_tpu_torch.tools.ablation", "yoloret_tpu_torch.tools.int8_study",
                "yoloret_tpu_torch.parallel.mesh", "yoloret_tpu_torch.parallel.prefetch",
-               "yoloret_tpu_torch.tools.scaling")
+               "yoloret_tpu_torch.parallel.spatial", "yoloret_tpu_torch.tools.scaling")
 
 
 def test_training_modules_import_no_jax():

@@ -11,8 +11,9 @@ monotone precision-envelope integration -- the VOC2010 "correct AP"
 ``evaluate_map`` runs ``Predictor.infer`` on each device batch of an
 eval ``Dataset`` (``data/pipeline.py``): the fused detector and the
 postprocess on the card, one suppression kernel launch per batch; with
-``mesh`` each batch is split over the mesh's replicas
-(``Predictor(mesh=)``: one suppression launch a replica). The JAX
+``mesh`` each batch is split over the mesh's data axis
+(``Predictor(mesh=)``: one suppression launch a data shard; with a
+``model`` axis above 1 each shard's rows split over its model group). The JAX
 package's two-program split (``_infer_detect``) works around an XLA-TPU
 compile cliff and has no counterpart here; its approximate top-k is not
 ported (top-k is exact, as on the JAX package's CPU runs).
@@ -161,7 +162,8 @@ def evaluate_map(
     host files them. Prints the loop's images/s and the dataset's decodes
     by decoder (native libjpeg or PIL) when ``verbose``. A predictor
     built with a ``mesh`` (``Predictor(mesh=)``) evaluates data-parallel
-    over its data axis, which must divide the dataset's batch size;
+    over its data axis, which must divide the dataset's batch size (and
+    with a model axis above 1, each image's rows over the model group);
     ``mesh``, where given, must be the predictor's."""
     if mesh is not None and mesh != predictor.mesh:
         raise ValueError("evaluate_map's mesh must be the predictor's: build the Predictor "

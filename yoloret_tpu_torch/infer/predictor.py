@@ -33,7 +33,12 @@ axis, and ``infer`` splits each padded batch into equal shards in
 order, enqueues each shard's forward and postprocess on its device's
 stream, with that device current, and gathers the slates in order on
 the first device. The replicas share nothing, so the slates are one
-device's.
+device's. A mesh whose ``model`` axis is above 1 splits each shard's
+images by rows over its model group (``parallel/spatial.py``: the
+weights once a device, the fused kernel on each row shard's slabs), and
+runs the shard's postprocess on the group's first device on the
+gathered heads; its int8 backbone and zoom ensemble are not ported
+(``SPATIAL_INT8_ZOOM``).
 """
 
 from __future__ import annotations
@@ -59,6 +64,7 @@ from yoloret_tpu_torch.ops.letterbox import letterbox_numpy_u8
 from yoloret_tpu_torch.ops.nms import NMSResult
 from yoloret_tpu_torch.ops.postprocess import detect_batch
 from yoloret_tpu_torch.parallel.mesh import Mesh, replicate, shard_batch
+from yoloret_tpu_torch.parallel.spatial import spatial_forward, spatial_params
 from yoloret_tpu_torch.utils.checkpoint import load_params
 from yoloret_tpu_torch.weights import from_flax
 
@@ -72,6 +78,9 @@ class Detection:
 
 
 Weights = Union[str, Mapping[str, Any], None]
+
+SPATIAL_INT8_ZOOM = ("{} on a mesh whose model axis is above 1 (spatial sharding) is not "
+                     "ported: it waits for ROADMAP.md queue 1 item 2b")
 
 
 class Predictor:
@@ -114,6 +123,10 @@ class Predictor:
     ):
         self.mesh = mesh
         self._n_data = 1 if mesh is None else mesh.data
+        if mesh is not None and mesh.model > 1:
+            for flag, name in ((use_int8, "use_int8"), (zoom_ensemble, "zoom_ensemble")):
+                if flag:
+                    raise ValueError(SPATIAL_INT8_ZOOM.format(name))
         self.device = resolve_device(device if mesh is None else mesh.devices[0])
         if class_names is None:
             if not classes_path:
@@ -165,21 +178,32 @@ class Predictor:
         """Re-fold the backbone weights after the model's parameters
         changed (the fused path reads a folded copy), and with
         ``use_int8`` re-calibrate and re-quantize them; on a mesh, copy
-        them to every replica and fold and pack each there."""
+        them to every data shard's first device (with a model axis above
+        1, to every device of the mesh once) and fold and pack each
+        there."""
         self._anchors_t = torch.as_tensor(self.anchors, device=self.device)
         self._qp = None if self._calib is None else quantize_from_data(self.model, self._calib)
+        self._spatial = None
+        if self.mesh is not None and self.mesh.model > 1:
+            self._spatial = spatial_params(self.model, self.mesh)
+            self._fused = self._spatial[self.device][1]
+            self._replicas = []  # each data shard's forward runs over its model group
+            self._anchors = [self._anchors_t.to(dev) for dev in self.mesh.data_devices]
+            return
         with on_device(self.device):
             self._fused = fused_params(self.model) if self._qp is None else None
-        self._replicas = [(self.model, self._qp, self._fused, self._anchors_t)]
+        self._replicas = [(self.model, self._qp, self._fused)]
+        self._anchors = [self._anchors_t]
         if self.mesh is not None:
             copies = replicate(self.mesh, [self.model, self._qp, self._anchors_t])
-            for dev, (model, qp, anchors) in list(zip(self.mesh.devices, copies))[1:]:
+            for dev, (model, qp, anchors) in list(zip(self.mesh.data_devices, copies))[1:]:
                 with on_device(dev):
                     fused = fused_params(model) if qp is None else None
-                self._replicas.append((model, qp, fused, anchors))
+                self._replicas.append((model, qp, fused))
+                self._anchors.append(anchors)
 
     def _forward(self, images: torch.Tensor, replica: int = 0):
-        model, qp, fused, _ = self._replicas[replica]
+        model, qp, fused = self._replicas[replica]
         if qp is not None:
             return int8_detector_apply(model, qp, images)
         return fused_detector_apply(model, images, fused)
@@ -203,16 +227,19 @@ class Predictor:
         if self.mesh is None:
             return self._infer_replica(0, images, image_hw, **kw)
         shards = shard_batch(self.mesh, (images, image_hw))
+        if self._spatial is not None:
+            heads = spatial_forward(self.model, self.mesh, [to_unit_float(x) for x, _ in shards],
+                                    self._spatial)
         slates = []
-        for i, (dev, (x, hw)) in enumerate(zip(self.mesh.devices, shards)):
+        for i, (dev, (x, hw)) in enumerate(zip(self.mesh.data_devices, shards)):
             with on_device(dev):
-                slates.append(self._infer_replica(i, x, hw, **kw))
+                slates.append(self._infer_replica(i, x, hw, **kw) if self._spatial is None
+                              else self._postprocess(i, heads[i], hw, None, **kw))
         return NMSResult(*(torch.cat([field.to(self.device) for field in fields])
                            for fields in zip(*slates)))
 
-    def _infer_replica(self, replica: int, images: torch.Tensor, image_hw: torch.Tensor, *,
-                       score_threshold: Optional[float], iou_threshold: Optional[float],
-                       num_candidates: Optional[int], pool: Optional[str]) -> NMSResult:
+    def _infer_replica(self, replica: int, images: torch.Tensor, image_hw: torch.Tensor,
+                       **kw) -> NMSResult:
         images = to_unit_float(images)
         outs = self._forward(images, replica)
         zoom_outs = None
@@ -220,8 +247,15 @@ class Predictor:
             (h, w), (zh, zw) = images.shape[1:3], self.zoom_hw
             y0, x0 = (h - zh) // 2, (w - zw) // 2
             zoom_outs = self._forward(images[:, y0:y0 + zh, x0:x0 + zw, :], replica)
+        return self._postprocess(replica, outs, image_hw, zoom_outs, **kw)
+
+    def _postprocess(self, replica: int, outs, image_hw: torch.Tensor, zoom_outs, *,
+                     score_threshold: Optional[float], iou_threshold: Optional[float],
+                     num_candidates: Optional[int], pool: Optional[str]) -> NMSResult:
+        """Data shard ``replica``'s slates from its heads ``outs`` (and the
+        zoom ensemble's ``zoom_outs``), on its device."""
         return detect_batch(
-            outs, self._replicas[replica][3], len(self.class_names), image_hw,
+            outs, self._anchors[replica], len(self.class_names), image_hw,
             score_threshold=self.score_threshold if score_threshold is None else score_threshold,
             iou_threshold=self.iou_threshold if iou_threshold is None else iou_threshold,
             num_candidates=self.num_candidates if num_candidates is None else num_candidates,

@@ -133,6 +133,13 @@ class YoloReT(nn.Module):
         RFCR and neck BatchNorms train. ``drop_seed`` seeds EfficientNet's
         drop-connect in training."""
         self.check_input(images)
+        return self.forward_unchecked(images, train, backbone_train, drop_seed)
+
+    def forward_unchecked(self, images: torch.Tensor, train: bool = False,
+                          backbone_train: Optional[bool] = None,
+                          drop_seed: Optional[int] = None):
+        """``forward`` without ``check_input``: a row shard of an image
+        (``parallel/spatial.py``), whose whole image was checked."""
         if backbone_train is None:
             backbone_train = train
         x = images.to(self.dtype)

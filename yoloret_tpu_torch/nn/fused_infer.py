@@ -19,7 +19,16 @@ module weights:
   * RFCR, neck and the head split stay the stock modules.
 
 A kernel or its planner that refuses a block's shape raises; a
-MobileNetV2 model never falls back to the stock forward. Every other
+MobileNetV2 model never falls back to the stock forward.
+
+On a row shard (``parallel/spatial.py``) the stem convolves its rows
+with their halo (``conv2d_same``), and each block runs the kernel on a
+slab of real rows of the whole map (``slab_window``), then keeps the
+shard's own output rows. The kernel pads the depthwise with zeros in
+the expanded space, after the expand's ReLU6, so a zero row given as a
+halo would come out of the expand as ReLU6(bias), not zero: the slab
+holds only rows of the map, and it is cut so that the kernel's own
+``"SAME"`` padding falls where the whole map's does. Every other
 backbone (EfficientNet, DarkNet-53, the legacy bodies) has no fused
 kernel and takes the stock forward, as the JAX package's
 ``fused_detector_apply`` does. This is the forward the Predictor runs.
@@ -27,6 +36,7 @@ kernel and takes the stock forward, as the JAX package's
 
 from __future__ import annotations
 
+import functools
 from typing import Dict, List, NamedTuple, Optional, Tuple
 
 import torch
@@ -36,6 +46,7 @@ from yoloret_tpu_torch.nn.layers import conv2d_same, fold_bn, relu6
 from yoloret_tpu_torch.nn.mobilenetv2 import _TAP_BLOCKS, InvertedResidual, MobileNetV2
 from yoloret_tpu_torch.ops.mbconv import (PackedMBConv, fused_mbconv, pack_mbconv,
                                           pack_mbconv_f32)
+from yoloret_tpu_torch.parallel.spatial import current as spatial_shard
 
 
 class BlockMeta(NamedTuple):
@@ -96,6 +107,38 @@ def fused_params(model: YoloReT) -> Optional[FusedParams]:
     return FusedParams((ks.to(model.dtype), bs.float()), _block_meta(body, model.dtype))
 
 
+def slab_window(first: int, rows: int, height: int, stride: int) -> Tuple[int, int, int]:
+    """(a, b, skip): the block's input rows [a, b) of a ``height``-row map
+    for its output rows [first, first + rows) (of the output map), such
+    that the kernel's ``"SAME"`` padding of the slab falls where the
+    whole map's does; the wanted rows start at output row ``skip`` of the
+    slab's output.
+
+    Stride 1: [first - 1, first + rows + 1) clipped to the map, skipping
+    the halo's output row above. Stride 2 (even maps, padded (0, 1)):
+    [2 first, 2 (first + rows) + 2), or to the map's end at the bottom,
+    an even length, so the slab too is padded (0, 1); its last output row
+    is dropped where it is not the map's."""
+    if stride == 1:
+        a = max(first - 1, 0)
+        return a, min(first + rows + 1, height), first - a
+    if height % 2:
+        raise ValueError(f"the stride-2 block needs an even map, got {height} rows")
+    a = 2 * first
+    return a, min(2 * (first + rows) + 2, height), 0
+
+
+def block_on_slab(block, x: torch.Tensor, *args, stride: int, **kw) -> torch.Tensor:
+    """``block`` (``fused_mbconv``'s signature) for this row shard's
+    output rows: the kernel on the slab of ``slab_window``, gathered from
+    the shards that own its rows, then the shard's rows of its output."""
+    shard = spatial_shard()
+    first, n, h = shard.level(x.shape[1], stride)
+    a, b, skip = slab_window(first // stride, n // stride, h, stride)
+    y = block(shard.rows(x, a, b), *args, stride=stride, **kw)
+    return y[:, skip:skip + n // stride]
+
+
 def mobilenetv2_fused_features(x: torch.Tensor, params: FusedParams, block=fused_mbconv
                                ) -> Dict[str, torch.Tensor]:
     """Pyramid features {c2, c3, c4, c5}: stem conv, then every block
@@ -105,8 +148,9 @@ def mobilenetv2_fused_features(x: torch.Tensor, params: FusedParams, block=fused
     ks, bs = params.stem
     x = relu6(conv2d_same(x, ks, bs, stride=2)).contiguous()
     feats: Dict[str, torch.Tensor] = {}
+    run = block if spatial_shard() is None else functools.partial(block_on_slab, block)
     for block_id, stride, residual, args, packed in params.blocks:
-        x = block(x, *args, stride=stride, residual=residual, packed=packed)
+        x = run(x, *args, stride=stride, residual=residual, packed=packed)
         if block_id in _TAP_BLOCKS:
             feats[_TAP_BLOCKS[block_id]] = x
     return feats

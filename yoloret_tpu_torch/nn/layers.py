@@ -28,6 +28,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from yoloret_tpu_torch.parallel.mesh import in_group, mean_over_ranks, rank, world
+from yoloret_tpu_torch.parallel.spatial import current as spatial_shard
 
 Act = Optional[Callable[[torch.Tensor], torch.Tensor]]
 
@@ -83,14 +84,27 @@ def conv2d_same(
     stride: int = 1,
     groups: int = 1,
 ) -> torch.Tensor:
-    """NHWC convolution with ``"SAME"`` padding; returns NHWC."""
+    """NHWC convolution with ``"SAME"`` padding; returns NHWC.
+
+    On a row shard (``parallel/spatial.py``) it convolves the shard's
+    output rows of the whole map: the rows they read (a halo from the
+    neighbours, zeros outside the image, where the whole map's padding
+    puts them) gathered into one slab, VALID in height, ``"SAME"`` in
+    width."""
     weight = weight.to(x.dtype)
     bias = None if bias is None else bias.to(x.dtype)
     cout, _, kh, kw = weight.shape
     if kh == kw == 1 and stride == 1 and groups == 1:
         return F.linear(x, weight.reshape(cout, -1), bias)
-    ph = same_padding(x.shape[1], kh, stride)
     pw = same_padding(x.shape[2], kw, stride)
+    shard = spatial_shard()
+    if shard is not None:
+        o, n, h = shard.level(x.shape[1], stride)
+        a = o - same_padding(h, kh, stride)[0]
+        slab = shard.rows(x, a, a + n - stride + kh)
+        xc = F.pad(slab.permute(0, 3, 1, 2), (pw[0], pw[1], 0, 0))
+        return F.conv2d(xc, weight, bias, stride, 0, 1, groups).permute(0, 2, 3, 1)
+    ph = same_padding(x.shape[1], kh, stride)
     xc = x.permute(0, 3, 1, 2)
     if ph[0] == ph[1] and pw[0] == pw[1]:
         y = F.conv2d(xc, weight, bias, stride, (ph[0], pw[0]), 1, groups)
@@ -272,6 +286,19 @@ class WeightedSum(nn.Module):
         return out
 
 
+def mean_hw(x: torch.Tensor, keepdim: bool = False) -> torch.Tensor:
+    """[B, H, W, C] -> the mean over H and W, [B, C] ([B, 1, 1, C] with
+    ``keepdim``); on a row shard the mean over the whole map (the group's
+    sum, float32 at least, over the global pixel count), in x's dtype."""
+    shard = spatial_shard()
+    if shard is None:
+        return x.mean(dim=(-3, -2), keepdim=keepdim)
+    _, _, h = shard.level(x.shape[1])
+    total = shard.sum(x.to(torch.promote_types(x.dtype, torch.float32))
+                      .sum(dim=(-3, -2), keepdim=keepdim))
+    return (total / (h * x.shape[2])).to(x.dtype)
+
+
 class SqueezeExcite(nn.Module):
     """Global mean -> reduce 1x1 (swish) -> excite 1x1 (sigmoid) ->
     scale. ``reduced`` comes from the block-args input filters."""
@@ -282,9 +309,57 @@ class SqueezeExcite(nn.Module):
         self.excite = Conv2dSame(reduced, features, bias=True)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        s = x.mean(dim=(-3, -2), keepdim=True)
+        s = mean_hw(x, keepdim=True)
         s = torch.sigmoid(self.excite(swish(self.reduce(s))))
         return x * s
+
+
+def resize_bilinear(x: torch.Tensor, out_hw: Tuple[int, int]) -> torch.Tensor:
+    """``jax.image.resize(x, (B, *out_hw, C), "bilinear")`` of NHWC ``x``:
+    half-pixel centres, antialiased when it downsamples (the triangle
+    widened by in/out, as JAX's scale-and-translate; ``F.interpolate``
+    does not widen it), computed in x's dtype."""
+    from yoloret_tpu_torch.data.augment import weight_matrix
+
+    b, h, w, c = x.shape
+    one = torch.ones(1, dtype=torch.float32, device=x.device)
+    zero = torch.zeros(1, dtype=torch.float32, device=x.device)
+    wy = weight_matrix(h, out_hw[0], one * (out_hw[0] / h), zero)[0].to(x.dtype)  # [H, out]
+    wx = weight_matrix(w, out_hw[1], one * (out_hw[1] / w), zero)[0].to(x.dtype)
+    return torch.einsum("bhwc,ho,wp->bopc", x, wy, wx)
+
+
+class SpatialAttention(nn.Module):
+    """Spatial-attention gate, the JAX package's ``SpatialAttention``
+    (the reference's experimental ``SpatialBlock``): a 1x1 conv to one
+    map (``squeeze``), a bilinear resize to at most ``pool_hw`` x
+    ``pool_hw``, a dense layer to (nh * nh) // 4 (swish, ``reduce``) and
+    back to nh * nw (sigmoid, ``expand``), a resize back, then a
+    multiply. Its dense sizes follow the pooled map, so it is built for a
+    map of ``map_hw`` (H, W) and takes any map that pools to the same
+    size. Not sharded over rows: no registry backbone uses it."""
+
+    def __init__(self, features: int, map_hw: Tuple[int, int], pool_hw: int = 20):
+        super().__init__()
+        self.pool_hw = pool_hw
+        self.pool = (min(pool_hw, map_hw[0]), min(pool_hw, map_hw[1]))
+        nh, nw = self.pool
+        self.squeeze = Conv2dSame(features, 1, bias=True)
+        self.reduce = nn.Linear(nh * nw, (nh * nh) // 4)
+        self.expand = nn.Linear((nh * nh) // 4, nh * nw)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if spatial_shard() is not None:
+            raise ValueError("SpatialAttention does not run on a row shard")
+        b, h, w, _ = x.shape
+        if (min(self.pool_hw, h), min(self.pool_hw, w)) != self.pool:
+            raise ValueError(f"SpatialAttention built for maps pooled to {self.pool}, got "
+                             f"{(h, w)}")
+        s = resize_bilinear(self.squeeze(x), self.pool).reshape(b, -1)
+        s = swish(F.linear(s, self.reduce.weight.to(x.dtype), self.reduce.bias.to(x.dtype)))
+        s = torch.sigmoid(F.linear(s, self.expand.weight.to(x.dtype),
+                                   self.expand.bias.to(x.dtype)))
+        return x * resize_bilinear(s.reshape(b, *self.pool, 1), (h, w))
 
 
 def drop_connect(x: torch.Tensor, rate: float, generator: torch.Generator) -> torch.Tensor:
@@ -305,11 +380,15 @@ class MBConv(nn.Module):
     (skipped at expand_ratio 1) -> depthwise kxk (swish) -> SE -> project
     1x1; residual when stride 1 and in == out filters, in training behind
     drop-connect at ``drop_connect_rate``, drawn from the ``generator``
-    passed to ``forward``."""
+    passed to ``forward``. ``spatial_attention`` puts ``SpatialAttention``
+    in the SE's place (the JAX ``MBConvBlockSpatial`` variant); it needs
+    ``spatial_hw``, the (H, W) of the depthwise's output."""
 
     def __init__(self, input_filters: int, output_filters: int, kernel_size: int = 3,
                  stride: int = 1, expand_ratio: int = 6, se_ratio: Optional[float] = 0.25,
-                 id_skip: bool = True, momentum: float = 0.99, drop_connect_rate: float = 0.0):
+                 id_skip: bool = True, momentum: float = 0.99, drop_connect_rate: float = 0.0,
+                 spatial_attention: bool = False,
+                 spatial_hw: Optional[Tuple[int, int]] = None):
         super().__init__()
         filters = input_filters * expand_ratio
         self.residual = id_skip and stride == 1 and input_filters == output_filters
@@ -318,15 +397,21 @@ class MBConv(nn.Module):
                        if expand_ratio != 1 else None)
         self.depthwise = DepthwiseConvBN(filters, kernel_size, stride, act=swish,
                                          momentum=momentum)
+        if spatial_attention and spatial_hw is None:
+            raise ValueError("spatial_attention needs spatial_hw")
+        self.spatial = SpatialAttention(filters, spatial_hw) if spatial_attention else None
         self.se = (SqueezeExcite(max(1, int(input_filters * se_ratio)), filters)
-                   if se_ratio is not None and 0.0 < se_ratio <= 1.0 else None)
+                   if se_ratio is not None and 0.0 < se_ratio <= 1.0 and not spatial_attention
+                   else None)
         self.project = ConvBN(filters, output_filters, 1, act=None, momentum=momentum)
 
     def forward(self, x: torch.Tensor, train: bool = False,
                 generator: Optional[torch.Generator] = None) -> torch.Tensor:
         y = x if self.expand is None else self.expand(x, train)
         y = self.depthwise(y, train)
-        if self.se is not None:
+        if self.spatial is not None:
+            y = self.spatial(y)
+        elif self.se is not None:
             y = self.se(y)
         y = self.project(y, train)
         if not self.residual:
@@ -338,14 +423,26 @@ class MBConv(nn.Module):
         return y + x
 
 
+def check_rows_aligned(x: torch.Tensor, stride: int) -> None:
+    """On a row shard: its rows of ``x``'s map start and end at multiples
+    of ``stride`` (the partition cuts at the deepest level), so an op
+    that reads whole ``stride``-row groups is local."""
+    shard = spatial_shard()
+    if shard is not None:
+        shard.level(x.shape[1], stride)
+
+
 def maxpool_downsample(x: torch.Tensor, stride: int = 2) -> torch.Tensor:
-    """Max pool with window = stride, VALID padding, NHWC."""
+    """Max pool with window = stride, VALID padding, NHWC; local to a row
+    shard."""
+    check_rows_aligned(x, stride)
     y = F.max_pool2d(x.permute(0, 3, 1, 2), stride, stride)
     return y.permute(0, 2, 3, 1)
 
 
 def upsample2x(x: torch.Tensor) -> torch.Tensor:
-    """Nearest-neighbour 2x upsample, NHWC."""
+    """Nearest-neighbour 2x upsample, NHWC; local to a row shard."""
+    check_rows_aligned(x, 1)
     b, h, w, c = x.shape
     return x[:, :, None, :, None, :].expand(b, h, 2, w, 2, c).reshape(b, 2 * h, 2 * w, c)
 

@@ -26,8 +26,10 @@ from yoloret_tpu_torch.nn.layers import (
     ConvBN,
     DepthwiseConvBN,
     SeparableConvBN,
+    check_rows_aligned,
     leaky,
     maxpool_downsample,
+    mean_hw,
     relu6,
     upsample2x,
 )
@@ -87,7 +89,7 @@ class FCA(nn.Module):
         self.expand = nn.Linear(ch // reduction, ch, bias=False)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        s = x.mean(dim=(-3, -2))
+        s = mean_hw(x)
         s = relu6(nn.functional.linear(s, self.reduce.weight.to(x.dtype)))
         s = torch.sigmoid(nn.functional.linear(s, self.expand.weight.to(x.dtype)))
         return x * s[:, None, None, :]
@@ -275,7 +277,9 @@ class YoloFastest(nn.Module):
 
 
 def space_to_depth(x: torch.Tensor, stride: int = 2) -> torch.Tensor:
-    """SkyNet's reorg layer, NHWC: [B, H, W, C] -> [B, H/s, W/s, s*s*C]."""
+    """SkyNet's reorg layer, NHWC: [B, H, W, C] -> [B, H/s, W/s, s*s*C];
+    local to a row shard."""
+    check_rows_aligned(x, stride)
     b, h, w, c = x.shape
     x = x.reshape(b, h // stride, stride, w // stride, stride, c)
     return x.permute(0, 1, 3, 2, 4, 5).reshape(b, h // stride, w // stride, stride * stride * c)

@@ -58,6 +58,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+import threading
 from collections import Counter
 from typing import NamedTuple, Optional
 
@@ -719,11 +720,13 @@ def fused_mbconv(
                 plan.rq, plan.px, plan.cluster, plan.smem, stream)
     if rc != 0:
         raise RuntimeError(f"mbconv kernel launch failed: {lib.yrt_error_string(rc).decode()}")
-    fused_mbconv.launches += 1
-    fused_mbconv.kernel_launches["mbconv_wgmma" if x.dtype == torch.bfloat16
-                                 else "mbconv_f32"] += 1
+    with _count_lock:  # row shards launch from threads of their own
+        fused_mbconv.launches += 1
+        fused_mbconv.kernel_launches["mbconv_wgmma" if x.dtype == torch.bfloat16
+                                     else "mbconv_f32"] += 1
     return out
 
 
+_count_lock = threading.Lock()
 fused_mbconv.launches = 0
 fused_mbconv.kernel_launches = Counter()

@@ -20,8 +20,11 @@ lets XLA insert the collectives. The port follows PyTorch's idiom:
 A ``Mesh`` may name one device several times (``make_mesh(["cpu"] *
 8)``, ``make_mesh(["cuda:0", "cuda:0"])``), the counterpart of the JAX
 tests' virtual CPU devices: each entry is a replica or a rank of its
-own. Only the ``data`` axis is ported: ``model`` above 1 (spatial
-sharding) raises ``NotImplementedError``.
+own. The ``model`` axis splits each image's height (spatial sharding,
+``parallel/spatial.py``): data shard i runs on its model group,
+``devices[i * model:(i + 1) * model]``, row-major as the JAX mesh; the
+group's first device (``data_devices``) takes the shard's input and its
+outputs.
 
 With no process group there is no collective: that is the one-device
 program. A group of any size, 1 included, runs every collective. Each
@@ -47,9 +50,6 @@ DATA_AXIS = "data"
 MODEL_AXIS = "model"
 TIMEOUT = datetime.timedelta(minutes=30)
 
-SPATIAL_SHARDING = ("the model axis above 1 (spatial sharding) is not ported: it waits for "
-                    "spatial sharding, ROADMAP.md queue 1")
-
 
 @dataclasses.dataclass(frozen=True)
 class Mesh:
@@ -63,6 +63,15 @@ class Mesh:
     def shape(self) -> Dict[str, int]:
         return {DATA_AXIS: self.data, MODEL_AXIS: self.model}
 
+    def group(self, i: int) -> tuple:
+        """The devices of data shard ``i``, its model shards in order."""
+        return self.devices[i * self.model:(i + 1) * self.model]
+
+    @property
+    def data_devices(self) -> tuple:
+        """The first device of each data shard's group."""
+        return self.devices[::self.model]
+
 
 def make_mesh(devices: Optional[Sequence[Any]] = None, data: Optional[int] = None,
               model: int = 1, device: Any = "cuda") -> Mesh:
@@ -74,11 +83,9 @@ def make_mesh(devices: Optional[Sequence[Any]] = None, data: Optional[int] = Non
                    if torch.device(device).type == "cuda" else [device])
     devs = [torch.device(d) for d in devices]
     n = len(devs)
-    if model != 1:
-        raise NotImplementedError(SPATIAL_SHARDING)
     if data is None:
         data = max(1, n // model)
-    if data * model > n or data < 1:
+    if data * model > n or data < 1 or model < 1:
         raise ValueError(f"mesh {data}x{model} needs {data * model} devices, have {n}")
     return Mesh(tuple(devs[:data * model]), data, model)
 
@@ -106,8 +113,8 @@ def replicate(mesh: Mesh, tree: Any) -> List[Any]:
 
 def shard_batch(mesh: Mesh, batch: Any) -> List[Any]:
     """``batch`` (a tensor, or a tuple of them with a common leading axis)
-    split in order into ``mesh.data`` equal shards, shard i on the mesh's
-    device i."""
+    split in order into ``mesh.data`` equal shards, shard i on the first
+    device of its model group (``mesh.data_devices[i]``)."""
     n = mesh.data
 
     def split(x, i):
@@ -117,7 +124,7 @@ def shard_batch(mesh: Mesh, batch: Any) -> List[Any]:
             raise ValueError(f"batch of {x.shape[0]} rows does not split over the mesh data "
                              f"axis ({n})")
         k = x.shape[0] // n
-        return x[i * k:(i + 1) * k].to(mesh.devices[i])
+        return x[i * k:(i + 1) * k].to(mesh.data_devices[i])
 
     return [split(batch, i) for i in range(n)]
 
