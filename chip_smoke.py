@@ -75,7 +75,8 @@ Phases (any failure exits non-zero and prints no result):
    b8 @320, 20 classes) on the card and on the CPU from the same weights
    and batch, stage 2 and stage 1 (the loss, the parameters and the
    running statistics held; in stage 1 the frozen parameters and the
-   backbone's statistics bitwise unchanged on the card); the CLI's
+   backbone's statistics bitwise unchanged on the card; run in phase 13,
+   beside its trainings, as it times nothing); the CLI's
    ``--mode=TRAIN`` with ``configs/voc_mobilenetv2x75_320.yaml`` (bf16,
    b32) on 96 seeded JPEGs whose boxes are the CPU's float32
    detections: stage 1 with a validation loss and the stage-end mAP
@@ -120,7 +121,8 @@ Phases (any failure exits non-zero and prints no result):
    EfficientNet-B0, DarkNet-53, x0.75 with RFCR ``concat`` and ``none``,
    YOLO-Nano, Yolo-Fastest and -XL): one ``detect_arrays`` call each with
    its launch counts, and float32 card vs CPU on 2 images (the raw heads;
-   for a MobileNetV2 also the detections).
+   for a MobileNetV2 also the detections); run in phase 13, beside its
+   trainings, as it times nothing.
 11. The serving side paths. The W8A8 int8 backbone
    (``Predictor(use_int8=True)``, x0.75 @320 at full width, calibrated on
    16 seeded wave images): ``detect_arrays`` on 1, 8 and 130 images and the
@@ -172,7 +174,13 @@ Phases (any failure exits non-zero and prints no result):
    run with its launch counts; then ``mbconv_f32`` at [8, 96] and [8, 160]
    (block by block, with each block's plan and its repeat bitwise equal),
    ``mbconv_wgmma`` at [8, 96] and each NMS kernel at the phase's pools
-   against its plain version on the trained weights, and timed.
+   against its plain version on the trained weights, and timed. The
+   self-check trains in a process of its own (``selfcheck_job``) while
+   this one trains the crowded recipe, then runs phase 15's job and the
+   checks that time nothing (16(b), (f), phase 8's train step and phase
+   10): the
+   card is shared only by runs that time nothing, and the kernels are
+   timed once it is this process's alone.
 14. VIDEO: the frame loop of ``Predictor.detect_video``
    (``infer.predictor.frame_schedule``, its per-frame schedule without
    OpenCV) over a seeded 640x480 "webcam" of 240 frames with moving boxes,
@@ -190,7 +198,7 @@ Phases (any failure exits non-zero and prints no result):
    transfer arm at seed 0 (``--job transfer --arm transfer --seed 0
    --device cuda``; 16 crowded scenes at 160 px, b4, stage 1 frozen 30
    epochs, stage 2 60), its ``--pretrained`` source the crowded recipe's
-   weights of phase 13. Printed: its ``ABLATION_RESULT`` (the train and
+   weights of phase 13, run beside phase 13's self-check. Printed: its ``ABLATION_RESULT`` (the train and
    held-out mAPs must be finite; a smoke reading, since the source saw the
    target's images), its seconds and its kernel launches (96
    ``mbconv_f32`` at [8, 160] and 6 ``nms_shared`` at C=4, M=512, added to
@@ -206,7 +214,7 @@ Phases (any failure exits non-zero and prints no result):
    turns, and a group step's collective bytes; (b) float64 steps @64 in 2
    spawned ranks on cuda:0 (gloo) of 16 rows against the no-group step on
    the 32 rows, each step from one state, within DP_TOL; both ranks bit for
-   bit; (c) ``Predictor(mesh=make_mesh(["cuda:0"] * 2))`` at b128 bf16,
+   bit (with (f), run in phase 13, beside its trainings); (c) ``Predictor(mesh=make_mesh(["cuda:0"] * 2))`` at b128 bf16,
    serving and MAP grade: slates bit for bit equal to one device's, 32
    MBConv + 2 NMS launches a batch (the launch counters), img/s
    beside one device's; the MBConv kernel against its plain version at the
@@ -231,7 +239,27 @@ Phases (any failure exits non-zero and prints no result):
    rows); (d) ``Predictor(mesh=)`` serving and MAP grade on 128 seeded
    images through ``detect_arrays``: the float32 slates matched to one
    device's in full, the bf16 matched count printed, and img/s at b128
-   beside one device's, in turns.
+   beside one device's, in turns. (e) The int8 backbone and the zoom
+   ensemble on the same mesh (``spatial_int8_zoom``): ``Predictor(mesh=,
+   use_int8=True)`` (calibrated on 16 seeded wave images) and
+   ``Predictor(mesh=, zoom_ensemble=True)`` (the centre 224 crop split
+   128/96 over the row shards, per-class pools of 256 at t=0.3) against
+   one device's on the 128 images: float32 int8 codes of every tap bit for
+   bit (``run_groups`` over the backbone) and slates matched in full (the
+   heads of the row-sharded neck and of the neck on the gathered taps
+   printed beside one device's), float32 zoom heads within MBCONV_TOL and
+   slates matched in full; bf16 zoom crop heads on ``calm_state``'s
+   weights within MBCONV_TOL of one device's, or no farther from the
+   float32 crop heads than SPATIAL_BF16_RATIO times one device's own (the
+   first printed, the second the gate), and two faults planted in the
+   halo exchange (``planted_halo``: a zero halo, the halo one row off)
+   shown to fail that gate; bf16 matched counts printed; the launch
+   counters (zoom: 64 MBConv for the forward and 64 for the crop a b128
+   batch, the crop's counted on its forwards alone; int8: none; one NMS
+   a data shard);
+   img/s beside one device, in turns; the MBConv kernel on each slab of
+   the crop's row-sharded forward (b64, [64, 128 / 96 rows of 224]) as in
+   (c) (the kernels line's crop-slab rows).
 
 The line before the last is the kernel table as JSON; the last line is
 ``{"ok": true, "device": {...}}``. Details go to chiprun_out/chip_smoke.json.
@@ -364,7 +392,8 @@ TRAIN_EPOCHS = (3, 1)
 TRAIN_CONFIGS = ("configs/voc_mobilenetv2x75_320.yaml", "configs/coco_mobilenetv2x14_224.yaml",
                  "configs/coco_efficientnetb3_416.yaml")
 TRAIN_WARMUP = 3
-TRAIN_TIMED = 20
+TRAIN_TIMED = 10
+TRAIN_PROFILED = 1  # steps under the profiler (each enqueues the same kernels)
 # The CLI's TRAIN with the training options on (ROADMAP item 4c): one
 # stage-1 epoch at each multi-scale size, TB_IMAGES detection rows an
 # epoch; the MBConv kernel held at those shapes on the trained weights,
@@ -2401,7 +2430,7 @@ def train_throughput(report):
     """Train-step img/s of each shipped config at its own width, input and
     batch, bf16, stage 1 and stage 2: TRAIN_WARMUP steps, then
     TRAIN_TIMED steps each between two CUDA events (no readback in the
-    loop). Then 3 steps under the profiler: their device time (every
+    loop). Then TRAIN_PROFILED steps under the profiler: their device time (every
     kernel's), over the timed steps' mean time the device busy share (the
     profiler's own host work slows the profiled steps, so their span
     would understate it), and the device ms and top kernels of the
@@ -2457,20 +2486,20 @@ def train_throughput(report):
             t_prof = time.perf_counter()
             with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
                 t0 = time.perf_counter()
-                for _ in range(3):
+                for _ in range(TRAIN_PROFILED):
                     train_step(state, data, scfg)
                 torch.cuda.synchronize()
                 span = (time.perf_counter() - t0) * 1e3
             busy_total, groups, n_kernels = step_kernel_ms(prof)
             t_prof = time.perf_counter() - t_prof
-            busy = busy_total / 3
-            per = {g: {k: v / 3 for k, v in d.items()} for g, d in groups.items()}
+            busy = busy_total / TRAIN_PROFILED
+            per = {g: {k: v / TRAIN_PROFILED for k, v in d.items()} for g, d in groups.items()}
             fwd, bwd, opt = per["forward"], per["backward"], per["optimizer"]
             key = f"{os.path.basename(cfg_path)[:-5]} stage{stage}"
             out[key] = dict(
                 backbone=c["backbone"], size=size, batch=batch, classes=len(names),
                 step_ms=ms, img_per_s=img_s, wall_s=wall, profile_s=t_prof,
-                busy_ms_per_step=busy, kernels_per_step=n_kernels / 3,
+                busy_ms_per_step=busy, kernels_per_step=n_kernels / TRAIN_PROFILED,
                 # the steps' device time over their time by CUDA events, unprofiled
                 busy_share=busy / (sum(ms) / len(ms)) if busy else None,
                 busy_share_profiled=busy_total / span if busy else None,
@@ -2482,7 +2511,8 @@ def train_throughput(report):
             log(f"  train {key} (profiled in {t_prof:.1f} s): {c['backbone']} "
                 f"b{batch}@{size} bf16: {img_s:.1f} img/s "
                 f"(median step {sorted(ms)[len(ms) // 2]:.3f} ms), device busy "
-                + (f"{r['busy_share']:.1%} ({busy:.3f} ms, {n_kernels / 3:.0f} kernels a step)"
+                + (f"{r['busy_share']:.1%} ({busy:.3f} ms, {n_kernels / TRAIN_PROFILED:.0f} "
+                   "kernels a step)"
                    if busy else "not measured")
                 + f"; device ms fwd {r['forward_ms']:.3f}, bwd "
                 f"{r['backward_ms']:.3f}, optimizer {r['optimizer_ms']:.3f}, not linked to an op "
@@ -2496,10 +2526,10 @@ def train_throughput(report):
 
 
 def train_phase(weights, seed, report):
-    """Phase 7: the float32 step card vs CPU, the CLI's TRAIN end to end,
-    the train-step throughput of each shipped config."""
+    """Phase 8: the CLI's TRAIN end to end, the train-step throughput of
+    each shipped config. (Its float32 step card vs CPU, ``check_train_step``,
+    times nothing and runs in the learn phase, beside its trainings.)"""
     t0 = time.perf_counter()
-    check_train_step(weights, seed, report)
     train_cli_phase(weights, seed, report)
     rates = train_throughput(report)
     report["train_phase_seconds"] = time.perf_counter() - t0
@@ -3375,22 +3405,67 @@ def first_eval_batch(ann, size, max_boxes=20):
         it.close()
 
 
-def learn_phase(report, root):
+SELFCHECK_JOB = "import sys, chip_smoke; sys.exit(chip_smoke.selfcheck_job(sys.argv[1]))"
+
+
+def selfcheck_job(workdir):
+    """The learn phase's (a) in a process of its own (``python -c
+    SELFCHECK_JOB DIR`` from this directory), so that it trains beside (b):
+    ``selfcheck.run`` at LEARN_* in ``DIR`` with the launch counts set to 0
+    just before and read just after; writes its mAP, weight file, launches
+    and seconds to ``DIR/job.json``."""
+    from yoloret_tpu_torch.tools import selfcheck
+
+    t0 = time.perf_counter()
+    (f32_map, weights), launches = counted(selfcheck.run, LEARN_EPOCHS, LEARN_SIZE,
+                                           LEARN_BATCH, LEARN_THRESHOLD, workdir=workdir,
+                                           device=DEVICE)
+    with open(os.path.join(workdir, "job.json"), "w") as f:
+        json.dump(dict(map=f32_map, weights=weights, launches=launches,
+                       run_seconds=time.perf_counter() - t0), f)
+    return 0
+
+
+def ablation_job(root, pretrained):
+    """Phase 15's job (``ablation_phase``) through the job runner's own
+    subprocess (``_job_output``) in ``root``: (its id, its standard output,
+    its wall seconds)."""
+    from yoloret_tpu_torch.tools import ablation
+
+    job_id = "transfer-transfer-s0"
+    args = ["--job", "transfer", "--arm", "transfer", "--seed", "0", "--pretrained",
+            pretrained, "--device", DEVICE]
+    log(f"== ablation: the job {job_id} through the job runner's subprocess "
+        f"({' '.join(args[:6])} --pretrained <the learn phase's crowded-recipe weights> "
+        f"--device {DEVICE}), beside the self-check's process")
+    t0 = time.perf_counter()
+    stdout = ablation._job_output(root, job_id, args)
+    return job_id, stdout, time.perf_counter() - t0
+
+
+def learn_phase(report, root, beside):
     """Phase 13: proof that the port learns, on the card (training in
     float32 on deterministic kernels, as the tools run it: the same mAP in
     every run). (a) The self-check (``tools/selfcheck.py``) at its
-    defaults through ``selfcheck.run``: its
+    defaults through ``selfcheck.run``, in a process of its own
+    (``selfcheck_job``): its
     float32 mAP must reach LEARN_THRESHOLD; the same weights' mAP through
     ``Predictor(bf16=True)`` and ``use_int8=True``; the per-epoch loss, the
     train seconds and img/s. (b) The crowded recipe trained once through
     ``accuracy_gate.run`` (its ``GATE_RESULT``), then the top-k study's table
     (``topk_study.eval_table``) on those weights: every AP finite, the gate
     mAP above GATE_FLOOR. Each run with the launch counts set to 0 just
-    before and read just after. (c) Each kernel those runs launch against
-    its plain version on the trained weights, at their shapes, and timed.
-    Returns the kernels line's rows. The runs' files go to the directory
-    ``root`` (kept; the gate's weight file is
-    ``report["learn"]["gate"]["weights"]``)."""
+    before and read just after. While (a) trains, this process runs (b),
+    then phase 15's job (``ablation_job``, in its own subprocess) and
+    ``beside()`` together: runs that time nothing, sharing the card; the
+    trainers' seconds are the shared card's. (c) Each kernel those runs
+    launch against its plain version on the trained weights, at their
+    shapes, and timed, once the card is the process's alone.
+    Returns (the kernels line's rows, phase 15's ``ablation_job`` result).
+    The runs' files go to the directory ``root`` (kept; the gate's weight
+    file is ``report["learn"]["gate"]["weights"]``)."""
+    from concurrent.futures import ThreadPoolExecutor
+
     import numpy as np
     import torch
 
@@ -3402,28 +3477,84 @@ def learn_phase(report, root):
     t_phase = time.perf_counter()
     out = report.setdefault("learn", {})
     log(f"== learn: the self-check ({LEARN_EPOCHS} epochs @{LEARN_SIZE}, b{LEARN_BATCH}, "
-        f"float32) and the crowded recipe ({GATE_EPOCHS} epochs @{GATE_SIZE}) on the card")
-    sc_dir, gate_dir = os.path.join(root, "selfcheck"), os.path.join(root, "gate")
-    for d in (sc_dir, gate_dir):
+        f"float32, in a process of its own) and the crowded recipe ({GATE_EPOCHS} epochs "
+        f"@{GATE_SIZE}) on the card, together")
+    sc_dir, gate_dir, abl_root = (os.path.join(root, d) for d in
+                                  ("selfcheck", "gate", "ablation"))
+    for d in (sc_dir, gate_dir, abl_root):
         os.makedirs(d)
+    job_log = os.path.join(root, "selfcheck_job.log")
+    with open(job_log, "w") as f:
+        job = subprocess.Popen([sys.executable, "-c", SELFCHECK_JOB, sc_dir], stdout=f,
+                               stderr=subprocess.STDOUT, cwd=HERE)
     t0 = time.perf_counter()
-    (f32_map, weights), f32_launches = counted(selfcheck.run, LEARN_EPOCHS, LEARN_SIZE,
-                                               LEARN_BATCH, LEARN_THRESHOLD,
-                                               workdir=sc_dir, device=DEVICE)
-    sc = out["selfcheck"] = dict(run_seconds=time.perf_counter() - t0,
-                                 **train_record(weights))
+    window = out["window_seconds"] = {}
+    try:
+        (gate, gate_weights), gate_launches = counted(accuracy_gate.run, gate_dir,
+                                                      GATE_EPOCHS, GATE_SIZE, LEARN_BATCH,
+                                                      device=DEVICE)
+        gt = out["gate"] = dict(run_seconds=time.perf_counter() - t0, result=gate,
+                                launches=gate_launches, weights=gate_weights,
+                                **train_record(gate_weights))
+        gann = os.path.join(gate_dir, f"crowd_train_{LEARN_IMAGES}.txt")
+        gpred = topk_study.crowded_predictor(gate_weights,
+                                             os.path.join(gate_dir, "anchors.txt"),
+                                             GATE_SIZE, DEVICE)
+        # the table's launches by row, read around each of its evaluations' calls
+        by_row = {}
+        infer = gpred.infer
+
+        def infer_counted(images, image_hw, **kw):
+            before = suppress.variant_launches.copy()
+            res = infer(images, image_hw, **kw)
+            key = (kw.get("pool"), kw.get("num_candidates"))
+            by_row.setdefault(key, Counter()).update(suppress.variant_launches - before)
+            return res
+
+        gpred.infer = infer_counted
+        rows, table_launches = counted(topk_study.eval_table, gpred, gann, GATE_SIZE,
+                                       LEARN_BATCH)
+        del gpred.infer
+        window["gate_and_table"] = time.perf_counter() - t0
+        with ThreadPoolExecutor(1) as pool:
+            t1 = time.perf_counter()
+            abl = pool.submit(ablation_job, abl_root, gate_weights)
+            beside()
+            window["beside"] = time.perf_counter() - t1
+            abl = abl.result()
+        window["ablation_job"] = abl[2]
+        rc = job.wait()
+        window["selfcheck_process"] = time.perf_counter() - t0
+    finally:
+        if job.poll() is None:
+            job.kill()
+            job.wait()
+    window["all"] = time.perf_counter() - t0
+    if rc != 0:
+        with open(job_log) as f:
+            raise AssertionError(f"the self-check's process exited {rc}:\n{f.read()[-3000:]}")
+    with open(os.path.join(sc_dir, "job.json")) as f:
+        sc_job = json.load(f)
+    f32_map, weights = sc_job["map"], sc_job["weights"]
+    sc = out["selfcheck"] = dict(run_seconds=sc_job["run_seconds"], **train_record(weights))
     ann = os.path.join(sc_dir, f"synth_train_{LEARN_IMAGES}.txt")
     anchors = os.path.join(sc_dir, "anchors.txt")
     batches = -(-LEARN_IMAGES // LEARN_BATCH)
-    maps = {"float32": dict(map=f32_map, launches=f32_launches)}
+    maps = {"float32": dict(map=f32_map, launches=sc_job["launches"])}
     for name, kw in (("bf16", dict(bf16=True)), ("int8", dict(use_int8=True))):
         m, launches = counted(selfcheck.evaluate, weights, ann, anchors, LEARN_SIZE,
                               LEARN_BATCH, DEVICE, verbose=False, **kw)
         maps[name] = dict(map=m, launches=launches)
     sc["maps"] = maps
+    log(f"  the shared card: {window['all']:.1f} s for the self-check's process "
+        f"({window['selfcheck_process']:.1f} s) beside the crowded recipe and its table "
+        f"({window['gate_and_table']:.1f} s), then phase 15's job "
+        f"({window['ablation_job']:.1f} s) beside 16(b), (f), phase 8's train-step check and "
+        f"phase 10 ({window['beside']:.1f} s)")
     log(f"  self-check: train {sc['seconds']:.1f} s over {sc['epochs']} epochs "
         f"({sc['img_per_s']:.1f} img/s; the whole run with its evaluation "
-        f"{sc['run_seconds']:.1f} s); loss by epoch {[round(v, 3) for v in sc['losses']]}")
+        f"{sc['run_seconds']:.1f} s; the card shared); loss by epoch "
+        f"{[round(v, 3) for v in sc['losses']]}")
     for name, r in maps.items():
         log(f"  self-check mAP {name}: {r['map']:.6f} (launches {r['launches']})")
     want = {"float32": {"mbconv_f32": 16 * batches, "nms_shared": batches},
@@ -3436,30 +3567,6 @@ def learn_phase(report, root):
         raise AssertionError(f"self-check float32 mAP {f32_map:.4f} is below "
                              f"{LEARN_THRESHOLD}: the port did not learn")
 
-    t0 = time.perf_counter()
-    (gate, gate_weights), gate_launches = counted(accuracy_gate.run, gate_dir, GATE_EPOCHS,
-                                                  GATE_SIZE, LEARN_BATCH, device=DEVICE)
-    gt = out["gate"] = dict(run_seconds=time.perf_counter() - t0, result=gate,
-                            launches=gate_launches, weights=gate_weights,
-                            **train_record(gate_weights))
-    gann = os.path.join(gate_dir, f"crowd_train_{LEARN_IMAGES}.txt")
-    gpred = topk_study.crowded_predictor(gate_weights, os.path.join(gate_dir, "anchors.txt"),
-                                         GATE_SIZE, DEVICE)
-    # the table's launches by row, read around each of its evaluations' calls
-    by_row = {}
-    infer = gpred.infer
-
-    def infer_counted(images, image_hw, **kw):
-        before = suppress.variant_launches.copy()
-        res = infer(images, image_hw, **kw)
-        key = (kw.get("pool"), kw.get("num_candidates"))
-        by_row.setdefault(key, Counter()).update(suppress.variant_launches - before)
-        return res
-
-    gpred.infer = infer_counted
-    rows, table_launches = counted(topk_study.eval_table, gpred, gann, GATE_SIZE,
-                                   LEARN_BATCH)
-    del gpred.infer
     gt["table"] = [dict(pool=p, topk=k, depth=d, map=m, delta=dl) for p, k, d, m, dl in rows]
     gt["table_launches"] = table_launches
     gt["table_launches_by_row"] = {f"{p} {k}": dict(c) for (p, k), c in by_row.items()}
@@ -3467,7 +3574,7 @@ def learn_phase(report, root):
     gap = min(0.0, gate["mAP"] - lo) + max(0.0, gate["mAP"] - hi)
     gt["gap_to_jax_band"] = gap
     log(f"  crowded recipe: train {gt['seconds']:.1f} s over {gt['epochs']} epochs "
-        f"({gt['img_per_s']:.1f} img/s); loss by epoch "
+        f"({gt['img_per_s']:.1f} img/s; the card shared); loss by epoch "
         f"{[round(v, 3) for v in gt['losses']]}; gate mAP {gate['mAP']:.6f} (APs "
         f"{gate['aps']}), the JAX package's CPU band {lo}-{hi}: gap {gap:+.4f} (for "
         f"information: the seeded inits differ); launches {gate_launches}; the table's "
@@ -3536,8 +3643,8 @@ def learn_phase(report, root):
     del preds, gpred, boxes, scores, batch
     torch.cuda.empty_cache()
     out["seconds"] = time.perf_counter() - t_phase
-    log(f"== learn phase: {out['seconds']:.1f} s")
-    return kernel_rows
+    log(f"== learn phase: {out['seconds']:.1f} s (phase 15's job and 16(b) included)")
+    return kernel_rows, abl
 
 
 def webcam_frames(seed, n, hw=VIDEO_HW):
@@ -3661,13 +3768,15 @@ def video_phase(state, seed, report, kernels):
     log(f"== VIDEO phase: {out['seconds']:.1f} s")
 
 
-def ablation_phase(pretrained, report, kernels):
+def ablation_phase(pretrained, report, kernels, root, run):
     """Phase 15, the ablation harness (``tools/ablation.py``): one job, the
     transfer arm of the truncated-transfer ablation at seed 0, through the
     job runner's own subprocess (``_run_job``'s ``_job_output``, ``--device cuda``) with the
     crowded recipe's weights of the learn phase as its ``--pretrained``
-    source: its ``ABLATION_RESULT``, its seconds (the subprocess's wall
-    time; the trainer's own seconds of both stages) and its kernel launches
+    source, run by ``learn_phase`` beside the self-check (``ablation_job``:
+    ``run`` is its result, its files under ``root``): its ``ABLATION_RESULT``,
+    its seconds (the subprocess's wall
+    time; the trainer's own seconds of both stages; the card shared) and its kernel launches
     (``ABLATION_LAUNCHES``: ABLATION_LAUNCHES_WANT, added to the learn
     phase's rows at the same shapes). Its grafted init must hold the
     source's ``body.*`` bit for bit and the trainer's seed-0 init elsewhere,
@@ -3685,29 +3794,19 @@ def ablation_phase(pretrained, report, kernels):
 
     t_phase = time.perf_counter()
     out = report.setdefault("ablation", {})
-    job_id = "transfer-transfer-s0"
-    args = ["--job", "transfer", "--arm", "transfer", "--seed", "0", "--pretrained",
-            pretrained, "--device", DEVICE]
-    log(f"== ablation: the job {job_id} through the job runner's subprocess "
-        f"({' '.join(args[:6])} --pretrained <the learn phase's crowded-recipe weights> "
-        f"--device {DEVICE})")
-    with tempfile.TemporaryDirectory(prefix="yoloret_ablation_") as root:
-        t0 = time.perf_counter()
-        stdout = ablation._job_output(root, job_id, args)
-        out["job_seconds"] = time.perf_counter() - t0
-        res, launches = (ablation.tagged(stdout, t)
-                         for t in ("ABLATION_RESULT", "ABLATION_LAUNCHES"))
-        assert res is not None and launches is not None, stdout[-2000:]
-        workdir = os.path.join(root, job_id)
-        out["train_seconds"] = {
-            stage: sum(r["sec"] for r in epoch_records(
-                os.path.join(workdir, "logs", f"mobilenetv2x75_{stage}")))
-            for stage in ("stage1", "stage2")}
-        graft = load_params(os.path.join(workdir, "grafted_init.pt"))
-        src = load_params(pretrained)
-        fresh = YoloReT(ablation.BACKBONE, num_classes=len(CLASS_NAMES))
-        init_weights(fresh, torch.Generator().manual_seed(0))
-        fresh = fresh.state_dict()
+    job_id, stdout, out["job_seconds"] = run
+    res, launches = (ablation.tagged(stdout, t) for t in ("ABLATION_RESULT", "ABLATION_LAUNCHES"))
+    assert res is not None and launches is not None, stdout[-2000:]
+    workdir = os.path.join(root, job_id)
+    out["train_seconds"] = {
+        stage: sum(r["sec"] for r in epoch_records(
+            os.path.join(workdir, "logs", f"mobilenetv2x75_{stage}")))
+        for stage in ("stage1", "stage2")}
+    graft = load_params(os.path.join(workdir, "grafted_init.pt"))
+    src = load_params(pretrained)
+    fresh = YoloReT(ablation.BACKBONE, num_classes=len(CLASS_NAMES))
+    init_weights(fresh, torch.Generator().manual_seed(0))
+    fresh = fresh.state_dict()
     body = [k for k in graft if k.startswith("body.")]
     out["graft"] = dict(
         keys=len(graft), body_keys=len(body), same_keys=sorted(graft) == sorted(fresh),
@@ -3717,7 +3816,7 @@ def ablation_phase(pretrained, report, kernels):
     log(f"  ABLATION_RESULT {json.dumps(res)}")
     log(f"  the job: {out['job_seconds']:.1f} s in its subprocess (the trainer's own seconds: "
         f"stage 1 {out['train_seconds']['stage1']:.1f}, stage 2 "
-        f"{out['train_seconds']['stage2']:.1f}); kernel launches {launches}")
+        f"{out['train_seconds']['stage2']:.1f}; the card shared); kernel launches {launches}")
     log(f"  train mAP {res['train_mAP']:.6f}, held-out mAP {res['heldout_mAP']:.6f}: a smoke "
         "reading, not an ablation result (the source, the crowded recipe's weights, was "
         "trained on 48 scenes whose first 16 are this target's training set)")
@@ -3740,7 +3839,7 @@ def ablation_phase(pretrained, report, kernels):
             row["shapes"] += " and the ablation job's two evaluations (phase 15)"
     assert sum("ablation_launches" in r for r in kernels) == 2, "the learn rows are missing"
     out["seconds"] = time.perf_counter() - t_phase
-    log(f"== ablation phase: {out['seconds']:.1f} s")
+    log(f"== ablation phase: {out['seconds']:.1f} s (its job ran in the learn phase)")
 
 
 # -- phase 16: data parallelism ------------------------------------------------
@@ -3904,6 +4003,16 @@ def dp_train_a(state, seed, out):
         f"collectives {dict(coll)} B (the cost of the collectives on one card, not a scaling)")
     if not same:
         raise AssertionError("16(a): the world-size-1 NCCL steps differ from the no-group steps")
+
+
+def dp_train_b_beside(state, seed, out):
+    """16(b) and (f) (``dp_train_b``) as the learn phase runs them, beside its
+    trainings: their seconds go to ``out["part_seconds"]["b_f"]``."""
+    t0 = time.perf_counter()
+    log("== 16(b) and (f), beside the learn phase's trainings:")
+    dp_train_b(state, seed, out)
+    out["part_seconds"]["b_f"] = time.perf_counter() - t0
+    log(f"== 16(b) and (f): {out['part_seconds']['b_f']:.1f} s")
 
 
 def dp_train_b(state, seed, out):
@@ -4099,8 +4208,9 @@ def dp_phase(state, eval_root, seed, report):
     and its train img/s beside it; (b) 2 ranks on cuda:0 (gloo) against
     the global-batch step; (c) 2-replica serving; (d) DP evaluation; (e)
     the CLI's refusal of more devices than there are; (f) the scaling
-    accounting. Nothing here measures a multi-GPU speedup. Returns the
-    kernels line's b64 rows."""
+    accounting. (b) and (f) time nothing and run in the learn phase, beside
+    its trainings (``dp_train_b_beside``). Nothing here measures a multi-GPU
+    speedup. Returns the kernels line's b64 rows."""
     t_phase = time.perf_counter()
     out = report.setdefault("dp", {})
     log("== data parallelism on one card (no number here is a multi-GPU speedup):")
@@ -4108,8 +4218,6 @@ def dp_phase(state, eval_root, seed, report):
     t = time.perf_counter()
     dp_train_a(state, seed, out)
     parts["a"], t = time.perf_counter() - t, time.perf_counter()
-    dp_train_b(state, seed, out)
-    parts["b_f"], t = time.perf_counter() - t, time.perf_counter()
     rows, mesh = dp_serving_c(state, seed, out, make_flush())
     parts["c"], t = time.perf_counter() - t, time.perf_counter()
     dp_eval_d(state, eval_root, mesh, out, rows)
@@ -4124,6 +4232,13 @@ def dp_phase(state, eval_root, seed, report):
 
 SPATIAL_IMAGES = 128  # (d) detect_arrays images, matched against one device
 SPATIAL_TIMED = 6
+SPATIAL_E_TIMED = 1  # (e): batches timed a turn (after the matched drive's warm-up)
+SPATIAL_ZOOM_HW = (224, 224)  # (e): the zoom crop, Predictor's default
+# (e): the bf16 crop heads' gate, the row-sharded heads' distance from the float32
+# heads over one device's; the planted halo faults must exceed it. H100, 700 W: the
+# sound mesh 1.0044, the halo one row off 3.72, a zero halo 62.6; the gate at the
+# geometric mean of the first two, 1.93, rounded down
+SPATIAL_BF16_RATIO = 1.9
 
 
 def calm_state(state):
@@ -4159,25 +4274,28 @@ def slab_inputs(pred, mesh, batch, size):
     return out
 
 
-def spatial_slab_row(pred, mesh, flush, launches, out):
+def spatial_slab_row(pred, mesh, flush, launches, out, size=None):
     """17(c): the MBConv kernel of ``pred``'s dtype on every slab of one
     data shard's row-sharded forward (b64 @320, 2 row shards x 16
     blocks): against its plain version, its kept rows against the
     whole-map kernel's, and timed beside the plain version, cuDNN and its
     bound, and beside the whole-map kernel at b64; returns the kernels
-    line's row."""
+    line's row. 17(e): ``size`` the zoom crop's side (224, split 128/96)."""
     import torch
 
     from yoloret_tpu_torch.ops.mbconv import fused_mbconv, reference_mbconv
 
     dtype = str(pred.model.dtype).split(".")[-1]
     tol, batch = MBCONV_TOL[dtype], BATCH // mesh.data
+    crop = size is not None and size != SIZE
+    size = size or SIZE
+    at, part = (f"@zoom{size}", "(e)") if crop else (f"@{size}", "(c)")
     detail, tot = [], dict(ms=0.0, plain_ms=0.0, library_ms=0.0, bound_ms=0.0, whole_ms=0.0)
     by_kind = Counter()
     worst = worst_whole = 0.0
     owned = computed = 0
     with torch.inference_mode():
-        for meta, x, shards in slab_inputs(pred, mesh, batch, SIZE):
+        for meta, x, shards in slab_inputs(pred, mesh, batch, size):
             kw = dict(stride=meta.stride, residual=meta.residual)
             whole = fused_mbconv(x, *meta.args, packed=meta.packed, **kw)
             whole_ms = cuda_time_ms(lambda: fused_mbconv(x, *meta.args, packed=meta.packed, **kw),
@@ -4190,11 +4308,11 @@ def spatial_slab_row(pred, mesh, flush, launches, out):
                 kept = got[:, skip:skip + n]
                 err_whole = max_err(kept, whole[:, first:first + n])
                 if not torch.allclose(got.float(), want.float(), atol=tol, rtol=tol):
-                    raise AssertionError(f"17(c) block {meta.block_id} shard {k} slab "
+                    raise AssertionError(f"17{part} block {meta.block_id} shard {k} slab "
                                          f"{tuple(slab.shape)} {dtype}: max err {err}")
                 if not torch.allclose(kept.float(), whole[:, first:first + n].float(), atol=tol,
                                       rtol=tol):
-                    raise AssertionError(f"17(c) block {meta.block_id} shard {k}: kept rows "
+                    raise AssertionError(f"17{part} block {meta.block_id} shard {k}: kept rows "
                                          f"differ from the whole map's by {err_whole}")
                 ms = cuda_time_ms(lambda: fused_mbconv(slab, *meta.args, packed=meta.packed,
                                                        **kw), 5, 1, flush)
@@ -4212,28 +4330,220 @@ def spatial_slab_row(pred, mesh, flush, launches, out):
                                    stride=meta.stride, kept=[skip, skip + n], ms=ms,
                                    plain_ms=plain, library_ms=lib, bound_ms=bound, bound_by=by,
                                    max_abs_err=err, max_abs_err_vs_whole=err_whole))
-    out.setdefault("slabs", {})[dtype] = dict(blocks=detail, owned_rows=owned,
-                                              computed_rows=computed, **tot)
-    log(f"  (c) mbconv {dtype} on the {len(detail)} slabs of a data shard's forward (b{batch}"
-        f"@{SIZE}, 2 row shards x 16 blocks): max abs err {worst:.3g} vs plain, {worst_whole:.3g} "
+    out.setdefault("slabs", {})[dtype + (at if crop else "")] = dict(
+        blocks=detail, owned_rows=owned, computed_rows=computed, **tot)
+    what = f"the {size} crop's" if crop else "a data shard's"
+    log(f"  {part} mbconv {dtype} on the {len(detail)} slabs of {what} forward (b{batch}"
+        f"@{size}, 2 row shards x 16 blocks): max abs err {worst:.3g} vs plain, {worst_whole:.3g} "
         f"vs the whole map's kernel (tolerance {tol}); summed kernel {tot['ms']:.4f} ms, plain "
         f"{tot['plain_ms']:.4f}, cuDNN {tot['library_ms']:.4f}, bound {tot['bound_ms']:.4f}; "
         f"the whole map's kernel {tot['whole_ms']:.4f} ms; output rows computed / owned "
         f"{computed}/{owned} = {computed / owned:.4f}")
     return dict(
-        name=f"mbconv_slab_{'bf16' if dtype == 'bfloat16' else 'f32'}@{SIZE}_b{batch}x2",
+        name=f"mbconv_slab_{'bf16' if dtype == 'bfloat16' else 'f32'}{at}_b{batch}x2",
         route="cuda", source="yoloret_tpu_torch/csrc/mbconv.cu",
         replaces="yoloret_tpu/ops/mbconv_pallas.py:76",
         also_replaces=["yoloret_tpu/ops/mbconv_pallas.py:109",
                        "yoloret_tpu/ops/mbconv_pallas2.py:86"],
-        shapes=f"the {len(detail)} halo'd row slabs of one data shard's forward "
-               f"({pred.model.backbone} b{batch}@{SIZE} {dtype} over 2 row shards, 16 blocks "
-               "each; times summed); "
-               "launches: phase 17's row-sharded forwards",
+        shapes=f"the {len(detail)} halo'd row slabs of one data shard's "
+               f"{'zoom crop ' if crop else ''}forward ({pred.model.backbone} b{batch}@{size} "
+               f"{dtype} over 2 row shards, 16 blocks each; times summed); launches: phase "
+               f"17{part}'s row-sharded {'crop ' if crop else ''}forwards",
         launches=launches, max_abs_err=worst, ms=tot["ms"], plain_ms=tot["plain_ms"],
         bound_ms=tot["bound_ms"], bound_by=max(by_kind, key=by_kind.get),
         library_ms=tot["library_ms"], whole_map_ms=tot["whole_ms"],
         rows_computed_over_owned=computed / owned)
+
+
+def counted_with_crop(fn, *a, **kw):
+    """``counted(fn, ...)`` that also returns the MBConv launches made in
+    the predictor's row-sharded crop forwards (``spatial_forward`` with a
+    crop: the zoom ensemble's), counted on those calls alone: (result,
+    {kernel: launches}, {kernel: crop launches})."""
+    import yoloret_tpu_torch.infer.predictor as predictor
+    from yoloret_tpu_torch.ops.mbconv import fused_mbconv
+
+    inner, crop = predictor.spatial_forward, Counter()
+
+    def forward(*args, **kwargs):
+        if kwargs.get("crop") is None:
+            return inner(*args, **kwargs)
+        before = Counter(fused_mbconv.kernel_launches)
+        result = inner(*args, **kwargs)
+        crop.update(Counter(fused_mbconv.kernel_launches) - before)
+        return result
+
+    predictor.spatial_forward = forward
+    try:
+        result, launches = counted(fn, *a, **kw)
+    finally:
+        predictor.spatial_forward = inner
+    return result, launches, dict(crop)
+
+
+@contextlib.contextmanager
+def planted_halo(kind):
+    """A fault planted in the row shards' halo exchange (``Shard.rows``),
+    so that 17(e) can show that its bf16 gate rejects a sharding fault:
+    ``zero`` hands each shard zeros for the rows it does not own, ``shift``
+    those rows one further from its own. Undone on exit."""
+    from yoloret_tpu_torch.parallel.spatial import Shard
+
+    inner = Shard.rows
+
+    def rows(self, x, a, b):
+        first, n, _ = self.level(x.shape[1])
+        if kind == "zero":
+            got = inner(self, x, a, b).clone()
+            got[:, :max(0, min(first, b) - a)] = 0
+            got[:, max(0, first + n - a):] = 0
+            return got
+        wide = inner(self, x, a - 1, b + 1)
+        return wide[:, [r - a + 1 - (r < first) + (r >= first + n) for r in range(a, b)]]
+
+    Shard.rows = rows
+    try:
+        yield
+    finally:
+        Shard.rows = inner
+
+
+def spatial_int8_zoom(state, seed, mesh, images, arrays, u8, hw, flush, out):
+    """17(e): ``Predictor(mesh=)`` with ``use_int8`` and with
+    ``zoom_ensemble`` on the 2x2 mesh against one device, float32 and
+    bf16 (see the module docstring); returns the kernels line's crop-slab
+    rows."""
+    import torch
+
+    from yoloret_tpu_torch.nn.fused_infer import fused_detector_apply
+    from yoloret_tpu_torch.nn.int8_infer import mobilenetv2_int8_features
+    from yoloret_tpu_torch.parallel.spatial import run_groups, spatial_forward
+
+    res, rows = out.setdefault("e", {}), []
+    calib = wave_batch(seed, SIZE, INT8_CALIB_IMAGES)
+    nb = -(-len(arrays) // BATCH)
+    for dtype in ("float32", "bfloat16"):
+        bf16 = dtype == "bfloat16"
+        for flag in ("int8", "zoom"):
+            t = time.perf_counter()
+            if flag == "int8":
+                kw = dict(use_int8=True, calibration_images=calib, score_threshold=0.3,
+                          num_candidates=64)
+                weights, want_launch = state, {"nms_shared": nb * mesh.data}
+            else:  # bf16 zoom on calm_state's weights, as (a)
+                kw = dict(zoom_ensemble=True, zoom_hw=SPATIAL_ZOOM_HW, score_threshold=0.3,
+                          num_candidates=ZOOM_K)
+                weights = calm_state(state) if bf16 else state
+                want_launch = {"mbconv_wgmma" if bf16 else "mbconv_f32": 128 * nb,
+                               "nms_kernel": nb * mesh.data}
+            a = make_predictor(seed, weights=weights, bf16=bf16, **kw)
+            b = make_predictor(seed, weights=weights, bf16=bf16, mesh=mesh, **kw)
+            r = res[f"{flag}_{dtype}"] = {}
+            dets_one = a.detect_arrays(arrays)
+            dets_mesh, n_launch, crop_launch = counted_with_crop(b.detect_arrays, arrays)
+            r["crop_launches"] = crop_launch
+            n = matched_detections(dets_mesh, dets_one)
+            counts = (sum(map(len, dets_mesh)), sum(map(len, dets_one)))
+            with torch.inference_mode():
+                bitwise = all(torch.equal(g, w) for g, w in zip(b.infer(u8, hw), a.infer(u8, hw)))
+                x = images[:8]
+                halves = [x[:len(x) // 2], x[len(x) // 2:]]
+                if flag == "int8":  # the codes of every tap, each scaled by one float
+                    feats = lambda z: mobilenetv2_int8_features(a._qp, z, a.model.dtype,
+                                                                folded=True)
+                    want = feats(x)
+                    got = run_groups(feats, mesh, halves)
+                    gathered = {k: torch.cat([torch.cat([p[k] for p in g], dim=1) for g in got])
+                                for k in want}
+                    check = r["taps_bitwise"] = all(torch.equal(gathered[k], w)
+                                                    for k, w in want.items())
+                    # where the slates part: the float32 neck on a shard's rows, or
+                    # the neck on the gathered taps (one device's bits)
+                    one_heads = a._forward(x)
+                    heads = spatial_forward(b.model, mesh, halves, b._spatial)
+                    errs = r["heads_max_abs_err"] = [
+                        max_err(torch.cat([h[j] for h in heads]), w)
+                        for j, w in enumerate(one_heads)]
+                    neck = r["neck_on_gathered_taps_bitwise"] = all(
+                        torch.equal(g, w) for g, w in zip(a.model.neck_heads(gathered), one_heads))
+                    what = (f"int8 codes of the 4 taps bit for bit: {check}; heads (b8) from "
+                            f"the row-sharded neck max abs err {[f'{e:.3g}' for e in errs]}, "
+                            f"from the neck on the gathered taps bit for bit: {neck}")
+                else:
+                    box = b._zoom_box(x)
+                    y0, x0, zh, zw = box
+                    crop = x[:, y0:y0 + zh, x0:x0 + zw]
+                    want = fused_detector_apply(a.model, crop, a._fused)
+                    got = spatial_forward(b.model, mesh, halves, b._spatial, crop=box)
+                    got = [torch.cat([g[j] for g in got]) for j in range(len(want))]
+                    tol = MBCONV_TOL[dtype]
+                    errs = r["crop_heads_max_abs_err"] = [max_err(g, w) for g, w in zip(got, want)]
+                    check = r["crop_heads_close"] = all(
+                        torch.allclose(g.float(), w.float(), atol=tol, rtol=tol)
+                        for g, w in zip(got, want))
+                    share = r["worst_share_of_tolerance"] = max(
+                        ((g.float() - w.float()).abs() / (tol + tol * w.float().abs())).max().item()
+                        for g, w in zip(got, want))
+                    what = (f"crop {zh} heads (b8) max abs err {[f'{e:.3g}' for e in errs]}, "
+                            f"within atol=rtol {tol}: {check} (the worst element at {share:.3f} "
+                            "of it)")
+                    if bf16:  # how far bf16 itself moves the crop's heads
+                        f32 = make_predictor(seed, weights=weights, bf16=False)
+                        ref = fused_detector_apply(f32.model, crop, f32._fused)
+                        heads = {"one": want, "mesh": got}
+                        for kind in ("zero", "shift"):  # the gate's own check
+                            with planted_halo(kind):
+                                bad = spatial_forward(b.model, mesh, halves, b._spatial,
+                                                      crop=box)
+                            heads[f"{kind}_halo"] = [torch.cat([g[j] for g in bad])
+                                                     for j in range(len(want))]
+                        far = r["crop_heads_vs_float32"] = {
+                            who: max(max_err(h, q) for h, q in zip(hs, ref))
+                            for who, hs in heads.items()}
+                        ratio = r["crop_heads_ratio_to_one_device"] = {
+                            who: v / far["one"] for who, v in far.items()}
+                        check = check or ratio["mesh"] <= SPATIAL_BF16_RATIO
+                        what += (f"; from the float32 crop heads (max abs) one device "
+                                 f"{far['one']:.4g}, row-sharded {far['mesh']:.4g}, with a "
+                                 f"zero halo {far['zero_halo']:.4g}, with the halo one row off "
+                                 f"{far['shift_halo']:.4g}; over one device's "
+                                 f"{ {k: round(v, 4) for k, v in ratio.items()} } (held: the "
+                                 f"row-sharded at most {SPATIAL_BF16_RATIO}, each planted "
+                                 "fault above)")
+                        missed = [k for k in ("zero_halo", "shift_halo")
+                                  if ratio[k] <= SPATIAL_BF16_RATIO]
+                        if missed:
+                            raise AssertionError(f"17(e) bf16 zoom: the gate passes the planted "
+                                                 f"{missed}: {ratio}")
+                        del f32, ref, bad
+                ms = {"one": [], "mesh": []}
+                for who in ("one", "mesh", "mesh", "one"):
+                    p = a if who == "one" else b
+                    ms[who].append(cuda_time_ms(lambda: p.infer(u8, hw), SPATIAL_E_TIMED, 0))
+            rate = {k: [BATCH * 1e3 / v for v in vs] for k, vs in ms.items()}
+            r.update(matched=n, detections=counts, launches=n_launch, slates_bitwise=bitwise,
+                     img_per_s=rate, seconds=time.perf_counter() - t)
+            log(f"  (e) Predictor(mesh=, {flag}) {dtype} on {len(arrays)} images: {n} of "
+                f"{counts[0]} detections matched to one device's {counts[1]}; slates of a b{BATCH} "
+                f"batch bit for bit: {bitwise}; {what}; launches {n_launch} (in the crop's "
+                f"forwards {crop_launch}); img/s on one card "
+                f"b{BATCH}: one device {[round(v, 1) for v in rate['one']]}, 2x2 mesh "
+                f"{[round(v, 1) for v in rate['mesh']]}; {r['seconds']:.1f} s")
+            # bf16: the stem's cuDNN convolution rounds a slab otherwise than the
+            # whole map (17(a)), so bf16 int8 codes are printed, not gated
+            if n_launch != want_launch or counts[1] == 0 or not (check or bf16 and flag == "int8"):
+                raise AssertionError(f"17(e) {flag} {dtype}: launches {n_launch} (want "
+                                     f"{want_launch}), {counts}, check {check}")
+            if not bf16 and not (n == counts[0] == counts[1]):
+                raise AssertionError(f"17(e) {flag} float32: {n} matched of {counts}")
+            if flag == "zoom":
+                kernel = "mbconv_wgmma" if bf16 else "mbconv_f32"
+                if crop_launch != {kernel: 64 * nb}:
+                    raise AssertionError(f"17(e) zoom {dtype}: crop launches {crop_launch} "
+                                         f"(want {kernel}: {64 * nb})")
+                rows.append(spatial_slab_row(a, mesh, flush, crop_launch[kernel], out, size=zh))
+            del a, b
+    return rows
 
 
 def spatial_phase(state, seed, report):
@@ -4245,8 +4555,9 @@ def spatial_phase(state, seed, report):
     shard; (c) the MBConv kernel on each slab shape (``spatial_slab_row``);
     (d) ``Predictor(mesh=)``: float32 slates matched against one device's
     on ``detect_arrays`` (serving and MAP grade), bf16 matched share, and
-    serving and MAP-grade img/s beside one device's, in turns. Returns the
-    kernels line's slab rows."""
+    serving and MAP-grade img/s beside one device's, in turns; (e) the int8
+    backbone and the zoom ensemble on the mesh (``spatial_int8_zoom``).
+    Returns the kernels line's slab rows."""
     import numpy as np
     import torch
 
@@ -4335,6 +4646,9 @@ def spatial_phase(state, seed, report):
         parts[f"d_{dtype}"], t = time.perf_counter() - t, time.perf_counter()
         rows.append(spatial_slab_row(one, mesh, flush, drive, out))
         parts[f"c_{dtype}"] = time.perf_counter() - t
+    t = time.perf_counter()
+    rows += spatial_int8_zoom(state, seed, mesh, images, arrays, u8, hw, flush, out)
+    parts["e"] = time.perf_counter() - t
     out["seconds"] = time.perf_counter() - t_phase
     log(f"spatial sharding phase done in {out['seconds']:.1f} s "
         f"({ {k: round(v, 1) for k, v in parts.items()} } s by part)")
@@ -4412,8 +4726,8 @@ def main(argv=None) -> int:
 
         for name, config in COCO_CONFIGS.items():
             kernels += coco_phase(name, config, args.seed, report)
-        registry = registry_phase(args.seed, report)
-        log(f"phases 1-10 done at {time.perf_counter() - t_start:.1f} s")
+        log(f"phases 1-9 done at {time.perf_counter() - t_start:.1f} s (phase 10 runs in phase "
+            "13, beside its trainings)")
 
         int8_phase(state, eval_root, args.seed, report)
         kernels += dp_phase(state, eval_root, args.seed, report)
@@ -4421,9 +4735,23 @@ def main(argv=None) -> int:
     kernels += zoom_phase(state, args.seed, report)
     kernels += export_phase(state, args.seed, report, kernels)
     with tempfile.TemporaryDirectory(prefix="yoloret_learn_") as learn_root:
-        kernels += learn_phase(report, learn_root)
+
+        registry = {}
+
+        def beside():  # checks that time nothing, while the learn phase trains
+            dp_train_b_beside(state, args.seed, report["dp"])
+            t0 = time.perf_counter()
+            check_train_step(state, args.seed, report)
+            report["train_step_check_seconds"] = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            registry.update(registry_phase(args.seed, report))
+            report["registry_seconds"] = time.perf_counter() - t0
+
+        rows, abl = learn_phase(report, learn_root, beside)
+        kernels += rows
         video_phase(state, args.seed, report, kernels)
-        ablation_phase(report["learn"]["gate"]["weights"], report, kernels)
+        ablation_phase(report["learn"]["gate"]["weights"], report, kernels,
+                       os.path.join(learn_root, "ablation"), abl)
 
     report["kernels"] = kernels
     report["seconds"] = time.perf_counter() - t_start
@@ -4496,7 +4824,7 @@ def main(argv=None) -> int:
                                       ("a", "b", "c", "d", "e", "f", "seconds",
                                        "part_seconds")},
                     "spatial": {k: report["spatial"][k] for k in
-                                ("bfloat16", "float32", "seconds", "part_seconds")},
+                                ("bfloat16", "float32", "e", "seconds", "part_seconds")},
                     "seconds": report["seconds"],
                     "card": smi}))
     log(json.dumps({"kernels": kernels}))

@@ -160,11 +160,21 @@ def test_tfjs_artifact_round_trip(pairs, tmp_path):
                                            ("darknet53", "weighted_sum"),
                                            ("mobilenetv2x75", "concat")])
 def test_tfjs_unsupported_model_raises(peaked, tmp_path, backbone, rfcr):
+    """The tfjs graph model refuses YOLO-Nano and DarkNet-53 with the JAX
+    package's message, before building anything (their other flavours:
+    ``tests/test_torch_tf_export_legacy.py``); every flavour refuses the
+    RFCR ``concat`` fusion, which the JAX flavours never build, before
+    writing anything."""
     cfg = peaked.cfg.replace(backbone=backbone, rfcr=rfcr, model=None)
-    with pytest.raises(ValueError, match="mobilenetv2" if rfcr == "weighted_sum" else "item 5f"):
-        export_tfjs_graph_model(cfg, str(tmp_path / "x"))
-    with pytest.raises(ValueError, match="ROADMAP.md"):
-        export_tf_flavor(cfg, str(tmp_path / "y"), "serving")
+    if rfcr == "weighted_sum":
+        with pytest.raises(ValueError, match=r"\(mobilenetv2\*/efficientnetb\* backbones\); got "
+                                             f"'{backbone}'$"):
+            export_tfjs_graph_model(cfg, str(tmp_path / "x"))
+        assert not (tmp_path / "x").exists()
+        return
+    for flavor in ("serving", "tfjs"):
+        with pytest.raises(ValueError, match="without its rfcr"):
+            export_tf_flavor(cfg, str(tmp_path / "y"), flavor)
     assert not (tmp_path / "y").exists()
 
 

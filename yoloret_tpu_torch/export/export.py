@@ -401,15 +401,18 @@ def export_tf_flavor(cfg: RunConfig, out_dir: str, flavor: str, batch: int = 1) 
     - ``tflite``: ``model.tflite``, the SavedModel converted with
       ``Optimize.DEFAULT`` (dynamic-range int8 weights), and with
       ``cfg.quantize`` also ``model_int8.tflite`` (``_export_tflite_int8``);
-    - ``tfjs``: ``tfjs_model/``, the tfjs graph model of the conv stack;
+    - ``tfjs``: ``tfjs_model/``, the tfjs graph model of the conv stack
+      (``mobilenetv2*`` and ``efficientnetb*``; for another backbone the
+      SavedModel is staged and a message names the ``tensorflowjs_converter``
+      command that finishes it, as the JAX package does);
     - ``serving``: TF-Serving's warm-up records of two
       ``_representative_dataset`` batches in the SavedModel's
       ``assets.extra/``.
 
-    The weights (``cfg.model``, else the seeded init of seed 0) are read
-    on the CPU; ValueError for a backbone or RFCR fusion the TF mirror
-    does not cover (``export/tfjs.py::check_mirrored``). Needs
-    TensorFlow."""
+    Every backbone of the registry. The weights (``cfg.model``, else the
+    seeded init of seed 0) are read on the CPU; ValueError, before
+    anything is written, for the RFCR ``concat`` and ``none`` fusions
+    (``export/tfjs.py::check_mirrored``). Needs TensorFlow."""
     import tensorflow as tf
 
     from yoloret_tpu_torch.export.tfjs import export_tfjs_graph_model, load_detector
@@ -431,10 +434,15 @@ def export_tf_flavor(cfg: RunConfig, out_dir: str, flavor: str, batch: int = 1) 
         if cfg.quantize:
             _export_tflite_int8(cfg, out_dir, batch, model)
     elif flavor == "tfjs":
-        tfjs_dir = export_tfjs_graph_model(cfg, os.path.join(out_dir, "tfjs_model"), batch,
-                                           model)
-        print(f"TF.js graph model (conv stack, raw heads) -> {tfjs_dir}; full-pipeline "
-              f"SavedModel at {saved_dir}")
+        try:
+            tfjs_dir = export_tfjs_graph_model(cfg, os.path.join(out_dir, "tfjs_model"), batch,
+                                               model)
+            print(f"TF.js graph model (conv stack, raw heads) -> {tfjs_dir}; full-pipeline "
+                  f"SavedModel at {saved_dir}")
+        except ValueError as e:  # a backbone outside the graph model's families
+            print(f"native tfjs converter: {e}; SavedModel staged at {saved_dir} - finish "
+                  f"with: tensorflowjs_converter --input_format=tf_saved_model {saved_dir} "
+                  f"{out_dir}/tfjs_model")
     else:
         from yoloret_tpu_torch.export.warmup import write_warmup_records
 

@@ -25,10 +25,19 @@ reader are copies.
 The artifact is the conv stack, as the reference's TFJS and TFLite
 exports are: input ``images`` [B, H, W, 3] RGB float32 in [0, 1], outputs
 the three raw heads [B, gh, gw, A, 5+C] (decode and NMS run in the
-consumer). Coverage is the JAX mirror's: ``mobilenetv2*`` and
-``efficientnetb*`` backbones with the weighted-sum RFCR, every released
-reference config. ``read_graph_model`` loads the artifact back into a TF
-graph. TensorFlow is imported inside the functions that need it.
+consumer). ``read_graph_model`` loads the artifact back into a TF graph.
+TensorFlow is imported inside the functions that need it.
+
+Coverage (``check_mirrored``, ``check_graph_model``): the mirror, and
+with it the SavedModel, TFLite and TF-Serving flavours, covers every
+backbone of the registry, as the JAX package's ``jax2tf`` flavours do:
+MobileNetV2, EfficientNet and DarkNet-53 (LeakyReLU, the max-pool taps)
+into the weighted-sum RFCR and the neck, and the full YOLO-Nano and
+Yolo-Fastest(-XL) bodies, which return their three heads without RFCR
+or neck. The tfjs graph model covers the JAX mirror's families,
+``mobilenetv2*`` and ``efficientnetb*``, whose ops are all in
+``TFJS_SAFE_OPS``. The RFCR ``concat`` and ``none`` fusions are refused
+(``UNMIRRORED``).
 """
 
 from __future__ import annotations
@@ -43,7 +52,7 @@ import torch
 
 from yoloret_tpu_torch.configs import RunConfig
 from yoloret_tpu_torch.data.annotations import load_classes
-from yoloret_tpu_torch.nn import layers
+from yoloret_tpu_torch.nn import darknet, layers, legacy
 from yoloret_tpu_torch.nn.detector import BACKBONES, YoloReT, build_detector
 from yoloret_tpu_torch.nn.efficientnet import _TAP_STAGES
 from yoloret_tpu_torch.nn.mobilenetv2 import _TAP_BLOCKS
@@ -61,8 +70,11 @@ TFJS_SAFE_OPS = frozenset({
     "ConcatV2", "Reshape",
 })
 
-MIRRORED_KINDS = ("mobilenetv2", "efficientnet")
-UNMIRRORED = "ROADMAP.md, queue 1, item 5f"
+GRAPH_MODEL_KINDS = ("mobilenetv2", "efficientnet")
+UNMIRRORED = ("the TensorFlow flavours export the weighted-sum RFCR only: the JAX package's "
+              "flavours build the detector without its rfcr (they export a weighted-sum model "
+              "whatever the config says), so a {} mirror would have no reference to be held "
+              "against")
 
 
 def _np(t: torch.Tensor) -> np.ndarray:
@@ -82,20 +94,25 @@ def _fold(conv: layers.Conv2dSame, bn: layers.BatchNorm) -> Tuple[np.ndarray, np
 
 
 def check_mirrored(backbone: str, rfcr: str) -> None:
-    """ValueError unless the mirror covers ``backbone`` and ``rfcr``."""
-    if BACKBONES[backbone][0] not in MIRRORED_KINDS:
+    """ValueError unless the mirror covers ``backbone`` with ``rfcr``:
+    every backbone of the registry, with the weighted-sum RFCR where it
+    has one (a full body has none, so its ``rfcr`` means nothing)."""
+    if BACKBONES[backbone][0] != "fullbody" and rfcr != "weighted_sum":
+        raise ValueError(f"rfcr={rfcr!r}: {UNMIRRORED.format(repr(rfcr))}")
+
+
+def check_graph_model(backbone: str) -> None:
+    """ValueError (the JAX package's message) unless the tfjs graph model
+    covers ``backbone``: ``mobilenetv2*`` and ``efficientnetb*``."""
+    if BACKBONES[backbone][0] not in GRAPH_MODEL_KINDS:
         raise ValueError(f"tfjs export covers the reference's released configs "
-                         f"(mobilenetv2*/efficientnetb* backbones); got {backbone!r} (the "
-                         f"others: {UNMIRRORED})")
-    if rfcr != "weighted_sum":
-        raise ValueError(f"the TensorFlow export covers the weighted-sum RFCR, not rfcr={rfcr!r} "
-                         f"(the other fusions: {UNMIRRORED})")
+                         f"(mobilenetv2*/efficientnetb* backbones); got {backbone!r}")
 
 
 class _TFMirror:
     """Walks a port ``YoloReT`` (nn/detector.py, nn/mobilenetv2.py,
-    nn/efficientnet.py, nn/rfcr.py, nn/heads.py) and emits its inference
-    forward in TF ops."""
+    nn/efficientnet.py, nn/darknet.py, nn/legacy.py, nn/rfcr.py,
+    nn/heads.py) and emits its inference forward in TF ops."""
 
     def __init__(self, tf, model: YoloReT):
         self.tf = tf
@@ -107,6 +124,8 @@ class _TFMirror:
             return self.tf.nn.relu6(x)
         if act is layers.swish:
             return x * self.tf.sigmoid(x)
+        if act is layers.leaky:
+            return self.tf.nn.leaky_relu(x, alpha=0.1)
         assert act is None, act
         return x
 
@@ -162,11 +181,27 @@ class _TFMirror:
         x = self.conv_bn(x, blk.project, name=f"{name}/project")
         return x + inputs if blk.residual else x
 
+    def separable(self, x, mod, *, name: str):
+        """SeparableConvBN: depthwise, then pointwise, each BN + ReLU6."""
+        x = self.conv_bn(x, mod.depthwise, name=f"{name}/depthwise")
+        return self.conv_bn(x, mod.pointwise, name=f"{name}/pointwise")
+
     # -- backbone ------------------------------------------------------------
     def backbone_feats(self, x) -> Dict[str, Any]:
         body = self.model.body
         feats: Dict[str, Any] = {}
         x = self.conv_bn(x, body.stem, name="body/stem")
+        if self.model.kind == "darknet":
+            for si, (repeats, _) in enumerate(darknet._STAGES):
+                x = self.conv_bn(x, getattr(body, f"down_{si}"), name=f"body/down_{si}")
+                for r in range(repeats):
+                    bname = f"stage_{si}_block_{r}"
+                    blk = getattr(body, bname)
+                    y = self.conv_bn(x, blk.reduce, name=f"body/{bname}/reduce")
+                    x = x + self.conv_bn(y, blk.expand, name=f"body/{bname}/expand")
+                if si in darknet._TAPS:
+                    feats[darknet._TAPS[si]] = x
+            return feats
         if self.model.kind == "mobilenetv2":
             for block_id, bname in enumerate(body.block_names):
                 x = self.block(x, getattr(body, bname), name=f"body/{bname}")
@@ -223,27 +258,102 @@ class _TFMirror:
         _, y1 = self.head(tf.concat([self.maxpool(x, 2), c1], axis=-1), "pan_head_32")
         return y1, y2, y3
 
+    # -- the full legacy bodies (nn/legacy.py) --------------------------------
+    def run(self, x, *names):
+        """The body's submodules ``names`` in order: ConvBN and
+        DepthwiseConvBN, and YOLO-Nano's EP and PEP and Yolo-Fastest's
+        block, each with its residual."""
+        for n in names:
+            mod, name = getattr(self.model.body, n), f"body/{n}"
+            if isinstance(mod, (layers.ConvBN, layers.DepthwiseConvBN)):
+                x = self.conv_bn(x, mod, name=name)
+                continue
+            if isinstance(mod, legacy.EP):
+                y = self.separable(x, mod.conv.sep, name=f"{name}/conv")
+            elif isinstance(mod, legacy.PEP):
+                y = self.conv_bn(x, mod.proj, name=f"{name}/proj")
+                y = self.separable(y, mod.conv.sep, name=f"{name}/conv")
+            else:
+                assert isinstance(mod, legacy._FastestBlock), type(mod)
+                y = self.conv_bn(x, mod.expand, name=f"{name}/expand")
+                y = self.conv_bn(y, mod.depthwise, name=f"{name}/depthwise")
+                y = self.conv_bn(y, mod.project, name=f"{name}/project")
+            x = x + y if mod.residual else y
+        return x
+
+    def body_head(self, x, name: str):
+        return self.conv(x, getattr(self.model.body, name), name=f"body/{name}")
+
+    def fca(self, x):
+        """FCA: global mean, the two bias-free dense layers as MatMul
+        (ReLU6, then sigmoid), scale."""
+        tf, fca = self.tf, self.model.body.fca
+        with tf.name_scope("body/fca"):
+            s = tf.reduce_mean(x, [1, 2])
+            s = tf.nn.relu6(tf.matmul(s, tf.constant(_np(fca.reduce.weight).T)))
+            s = tf.sigmoid(tf.matmul(s, tf.constant(_np(fca.expand.weight).T)))
+            return x * tf.reshape(s, [-1, 1, 1, int(s.shape[-1])])
+
+    def nano(self, x):
+        """YoloNano.forward: (y1, y2, y3) before the split."""
+        tf = self.tf
+        x = self.run(x, "stem_a", "stem_b", "p1", "e1", "p2", "p3", "e2", "p4", "c_mid")
+        out52 = self.run(self.fca(x), "p5", "p6", "p7")
+        p8 = (f"p8_{i}" for i in range(len(self.model.body.p8_mids)))
+        out26 = self.run(out52, "e3", *p8, "p9")
+        out13 = self.run(out26, "e4", "p10", "c_down", "e5", "p11")
+        x1 = self.run(out13, "n13_a")
+        x = self.run(x1, "n13_b")
+        x = self.run(tf.concat([self.upsample2x(x), out26], axis=-1), "n26_a", "n26_b")
+        x2 = self.run(x, "n26_c")
+        x = self.run(x2, "n26_d")
+        x = self.run(tf.concat([self.upsample2x(x), out52], axis=-1), "n52_a", "n52_b",
+                     "n52_c")
+        return (self.body_head(self.run(x1, "n13_e"), "head_13"),
+                self.body_head(self.run(x2, "n26_e"), "head_26"),
+                self.body_head(x, "head_52"))
+
+    def fastest(self, x):
+        """YoloFastest.forward (plain or ``xl``): (y1, y2, y3) before the
+        split."""
+        x = self.run(x, "stem_conv", "stem_pw", "stem_dw", "stem_proj")
+        routes = {}
+        for step in self.model.body.steps:
+            if step.startswith("route"):
+                routes[step] = x
+            else:
+                x = self.run(x, step)
+        x = self.run(x, "bridge")
+        b1 = self.tf.concat([routes["route1"], self.upsample2x(x)], axis=-1)
+        b1 = self.run(b1, "h16_a", "h16_dw1", "h16_b", "h16_dw2", "h16_c")
+        b2 = self.run(x, "h32_dw1", "h32_a", "h32_dw2", "h32_b")
+        return (self.body_head(b2, "head_32"), self.body_head(b1, "head_16"),
+                self.body_head(routes["route2"], "head_8"))
+
     # -- full forward --------------------------------------------------------
     def forward(self, images):
         tf = self.tf
         m = self.model
-        feats = self.backbone_feats(images)
-        b4 = self.maxpool(feats["c2"], 4)
-        r1, r2, r3 = self.rfcr(feats["c5"], feats["c4"], feats["c3"], b4)
+        if m.kind == "fullbody":  # its own neck and heads (nn/detector.py)
+            heads = (self.nano if isinstance(m.body, legacy.YoloNano) else self.fastest)(images)
+        else:
+            feats = self.backbone_feats(images)
+            b4 = self.maxpool(feats["c2"], 4)
+            heads = self.neck(*self.rfcr(feats["c5"], feats["c4"], feats["c3"], b4))
 
         def split(y, i):
             b, gh, gw = (int(d) for d in y.shape[:3])
             y = tf.reshape(y, [b, gh, gw, m.num_anchors, 5 + m.num_classes])
             return tf.identity(y, name=f"y{i}")
 
-        return tuple(split(y, i) for i, y in enumerate(self.neck(r1, r2, r3), start=1))
+        return tuple(split(y, i) for i, y in enumerate(heads, start=1))
 
 
 def tf_mirror(model: YoloReT, batch: int, input_hw: Tuple[int, int]):
     """tf.function ``raw(images)`` -> (y1, y2, y3) of ``model``'s weights
     (read on the CPU, inlined as graph constants), for ``images``
-    [batch, H, W, 3] float32. ValueError outside ``mobilenetv2*`` /
-    ``efficientnetb*`` with the weighted-sum RFCR."""
+    [batch, H, W, 3] float32. ValueError for the RFCR ``concat`` and
+    ``none`` fusions (``check_mirrored``)."""
     import tensorflow as tf
 
     check_mirrored(model.backbone, model.rfcr_fusion)
@@ -268,8 +378,8 @@ def load_detector(cfg: RunConfig) -> YoloReT:
 
 def build_tf_mirror(cfg: RunConfig, batch: int = 1):
     """(tf.function raw(images) -> (y1, y2, y3), the port model whose
-    weights it holds) for ``cfg``. ValueError for backbone families and
-    RFCR fusions outside the reference's released configs."""
+    weights it holds) for ``cfg``. ValueError for the RFCR ``concat`` and
+    ``none`` fusions (``check_mirrored``)."""
     model = load_detector(cfg)
     return tf_mirror(model, batch, cfg.input_size), model
 
@@ -385,7 +495,10 @@ def export_tfjs_graph_model(cfg: RunConfig, out_dir: str, batch: int = 1,
                             model: YoloReT = None) -> str:
     """cfg -> tfjs graph-model directory (the reference's TFJS mode,
     code/yolo.py:333-348, without the external converter); ``model``: the
-    detector to export, else ``load_detector(cfg)``'s."""
+    detector to export, else ``load_detector(cfg)``'s. ValueError, before
+    anything is built, outside ``mobilenetv2*`` / ``efficientnetb*``
+    (``check_graph_model``)."""
+    check_graph_model(cfg.backbone)
     raw = build_tf_mirror(cfg, batch)[0] if model is None else tf_mirror(model, batch,
                                                                           cfg.input_size)
     return write_graph_model(raw.get_concrete_function(), out_dir)

@@ -37,8 +37,10 @@ device's. A mesh whose ``model`` axis is above 1 splits each shard's
 images by rows over its model group (``parallel/spatial.py``: the
 weights once a device, the fused kernel on each row shard's slabs), and
 runs the shard's postprocess on the group's first device on the
-gathered heads; its int8 backbone and zoom ensemble are not ported
-(``SPATIAL_INT8_ZOOM``).
+gathered heads: the int8 backbone there runs on the row shards too (its
+int8 params calibrated once, copied once a device), and the zoom
+ensemble's centre crop is split over the row shards as an image of its
+own.
 """
 
 from __future__ import annotations
@@ -64,7 +66,7 @@ from yoloret_tpu_torch.ops.letterbox import letterbox_numpy_u8
 from yoloret_tpu_torch.ops.nms import NMSResult
 from yoloret_tpu_torch.ops.postprocess import detect_batch
 from yoloret_tpu_torch.parallel.mesh import Mesh, replicate, shard_batch
-from yoloret_tpu_torch.parallel.spatial import spatial_forward, spatial_params
+from yoloret_tpu_torch.parallel.spatial import Replica, spatial_forward, spatial_params
 from yoloret_tpu_torch.utils.checkpoint import load_params
 from yoloret_tpu_torch.weights import from_flax
 
@@ -78,9 +80,6 @@ class Detection:
 
 
 Weights = Union[str, Mapping[str, Any], None]
-
-SPATIAL_INT8_ZOOM = ("{} on a mesh whose model axis is above 1 (spatial sharding) is not "
-                     "ported: it waits for ROADMAP.md queue 1 item 2b")
 
 
 class Predictor:
@@ -123,10 +122,6 @@ class Predictor:
     ):
         self.mesh = mesh
         self._n_data = 1 if mesh is None else mesh.data
-        if mesh is not None and mesh.model > 1:
-            for flag, name in ((use_int8, "use_int8"), (zoom_ensemble, "zoom_ensemble")):
-                if flag:
-                    raise ValueError(SPATIAL_INT8_ZOOM.format(name))
         self.device = resolve_device(device if mesh is None else mesh.devices[0])
         if class_names is None:
             if not classes_path:
@@ -179,27 +174,27 @@ class Predictor:
         changed (the fused path reads a folded copy), and with
         ``use_int8`` re-calibrate and re-quantize them; on a mesh, copy
         them to every data shard's first device (with a model axis above
-        1, to every device of the mesh once) and fold and pack each
-        there."""
+        1, to every device of the mesh once, the int8 params with them)
+        and fold and pack each there."""
         self._anchors_t = torch.as_tensor(self.anchors, device=self.device)
         self._qp = None if self._calib is None else quantize_from_data(self.model, self._calib)
         self._spatial = None
         if self.mesh is not None and self.mesh.model > 1:
-            self._spatial = spatial_params(self.model, self.mesh)
-            self._fused = self._spatial[self.device][1]
+            self._spatial = spatial_params(self.model, self.mesh, self._qp)
+            self._fused = self._spatial[self.device].fused
             self._replicas = []  # each data shard's forward runs over its model group
             self._anchors = [self._anchors_t.to(dev) for dev in self.mesh.data_devices]
             return
         with on_device(self.device):
             self._fused = fused_params(self.model) if self._qp is None else None
-        self._replicas = [(self.model, self._qp, self._fused)]
+        self._replicas = [Replica(self.model, self._qp, self._fused)]
         self._anchors = [self._anchors_t]
         if self.mesh is not None:
             copies = replicate(self.mesh, [self.model, self._qp, self._anchors_t])
             for dev, (model, qp, anchors) in list(zip(self.mesh.data_devices, copies))[1:]:
                 with on_device(dev):
                     fused = fused_params(model) if qp is None else None
-                self._replicas.append((model, qp, fused))
+                self._replicas.append(Replica(model, qp, fused))
                 self._anchors.append(anchors)
 
     def _forward(self, images: torch.Tensor, replica: int = 0):
@@ -228,13 +223,17 @@ class Predictor:
             return self._infer_replica(0, images, image_hw, **kw)
         shards = shard_batch(self.mesh, (images, image_hw))
         if self._spatial is not None:
-            heads = spatial_forward(self.model, self.mesh, [to_unit_float(x) for x, _ in shards],
-                                    self._spatial)
+            xs = [to_unit_float(x) for x, _ in shards]
+            heads = spatial_forward(self.model, self.mesh, xs, self._spatial)
+            zoom = [None] * len(xs)
+            if self.zoom_ensemble:
+                zoom = spatial_forward(self.model, self.mesh, xs, self._spatial,
+                                       crop=self._zoom_box(xs[0]))
         slates = []
         for i, (dev, (x, hw)) in enumerate(zip(self.mesh.data_devices, shards)):
             with on_device(dev):
                 slates.append(self._infer_replica(i, x, hw, **kw) if self._spatial is None
-                              else self._postprocess(i, heads[i], hw, None, **kw))
+                              else self._postprocess(i, heads[i], hw, zoom[i], **kw))
         return NMSResult(*(torch.cat([field.to(self.device) for field in fields])
                            for fields in zip(*slates)))
 
@@ -244,10 +243,15 @@ class Predictor:
         outs = self._forward(images, replica)
         zoom_outs = None
         if self.zoom_ensemble:
-            (h, w), (zh, zw) = images.shape[1:3], self.zoom_hw
-            y0, x0 = (h - zh) // 2, (w - zw) // 2
+            y0, x0, zh, zw = self._zoom_box(images)
             zoom_outs = self._forward(images[:, y0:y0 + zh, x0:x0 + zw, :], replica)
         return self._postprocess(replica, outs, image_hw, zoom_outs, **kw)
+
+    def _zoom_box(self, images: torch.Tensor) -> Tuple[int, int, int, int]:
+        """(y0, x0, zh, zw): the zoom ensemble's centre crop of ``images``
+        [B, H, W, 3]."""
+        (h, w), (zh, zw) = images.shape[1:3], self.zoom_hw
+        return (h - zh) // 2, (w - zw) // 2, zh, zw
 
     def _postprocess(self, replica: int, outs, image_hw: torch.Tensor, zoom_outs, *,
                      score_threshold: Optional[float], iou_threshold: Optional[float],

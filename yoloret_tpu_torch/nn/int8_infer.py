@@ -26,6 +26,12 @@ Every tensor between backbone convs is ``torch.int8``. The arithmetic:
     order, so that no code flips at .5 (rounding is half to even in
     both frameworks).
 
+On a row shard (``parallel/spatial.py``) the same forward runs on the
+shard's rows: the stem and the depthwise take their halo rows through
+``conv2d_same``, the 1x1 convs and the epilogues are local to a row, and
+EfficientNet's squeeze-excite mean sums the group's codes
+(``layers.mean_hw`` of the codes), so the codes are one device's bit for bit.
+
 ``int8_detector_apply`` is the forward ``Predictor(use_int8=True)`` runs:
 no hand kernel of the port on the backbone (the JAX package's int8 path
 runs no Pallas kernel either; its convs are XLA's), the NMS kernel after
@@ -42,7 +48,7 @@ import torch.nn.functional as F
 
 from yoloret_tpu_torch.nn.detector import YoloReT
 from yoloret_tpu_torch.nn.efficientnet import _TAP_STAGES, EfficientNet
-from yoloret_tpu_torch.nn.layers import conv2d_same, relu6, swish
+from yoloret_tpu_torch.nn.layers import conv2d_same, mean_hw, relu6, swish
 from yoloret_tpu_torch.nn.mobilenetv2 import _TAP_BLOCKS, MobileNetV2
 
 Params = Dict[str, Any]
@@ -174,7 +180,7 @@ def _int8_block(xq: torch.Tensor, blk: Params, folded: bool = False) -> torch.Te
     y = _q(d, blk["d_s"])
     if "se_reduce_w" in blk:
         # float32 on the pooled vector; the expanded tensor is read as int8
-        m = y.float().mean(dim=(1, 2), keepdim=True) * blk["d_s"]
+        m = mean_hw(y, keepdim=True) * blk["d_s"]
         s = swish(torch.matmul(m, blk["se_reduce_w"]) + blk["se_reduce_b"])
         s = torch.sigmoid(torch.matmul(s, blk["se_excite_w"]) + blk["se_excite_b"])
         y = _q(y.float() * (blk["d_s"] * s), blk["p_in_s"])

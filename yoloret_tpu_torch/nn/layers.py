@@ -289,11 +289,19 @@ class WeightedSum(nn.Module):
 def mean_hw(x: torch.Tensor, keepdim: bool = False) -> torch.Tensor:
     """[B, H, W, C] -> the mean over H and W, [B, C] ([B, 1, 1, C] with
     ``keepdim``); on a row shard the mean over the whole map (the group's
-    sum, float32 at least, over the global pixel count), in x's dtype."""
+    sum, float32 at least, over the global pixel count), in x's dtype.
+    Integer codes (the int8 backbone's) sum exactly as int32 and come out
+    float32, the whole map's sum times the float32 reciprocal of its
+    pixel count: the JAX package's ``jnp.mean`` of the codes bit for bit
+    (XLA multiplies by the reciprocal), on a row shard too."""
     shard = spatial_shard()
+    h = x.shape[-3] if shard is None else shard.level(x.shape[-3])[2]
+    if not x.is_floating_point():
+        total = x.sum(dim=(-3, -2), keepdim=keepdim, dtype=torch.int32)
+        total = total if shard is None else shard.sum(total)
+        return total.float() * torch.tensor(float(h * x.shape[-2])).reciprocal()
     if shard is None:
         return x.mean(dim=(-3, -2), keepdim=keepdim)
-    _, _, h = shard.level(x.shape[1])
     total = shard.sum(x.to(torch.promote_types(x.dtype, torch.float32))
                       .sum(dim=(-3, -2), keepdim=keepdim))
     return (total / (h * x.shape[2])).to(x.dtype)

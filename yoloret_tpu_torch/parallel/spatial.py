@@ -35,13 +35,15 @@ shard thread runs on the streams that were current in the caller.
 ``spatial_apply`` is the counterpart of ``jax.jit(model.apply,
 in_shardings=(replicate, spatial_sharding(mesh)), out_shardings=
 replicate)``: inference only, weights on each device once
-(``spatial_params``), the three heads whole on the mesh's first device.
+(``spatial_params``; the int8 backbone's params too), the three heads
+whole on the mesh's first device. ``spatial_forward``'s ``crop`` runs
+the zoom ensemble's centre crop as an image of its own.
 """
 
 from __future__ import annotations
 
 import threading
-from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
+from typing import Any, Callable, Dict, List, NamedTuple, Optional, Sequence, Tuple
 
 import torch
 
@@ -52,6 +54,16 @@ DEEPEST_STRIDE = 32
 TIMEOUT = 300.0  # seconds a row shard thread waits for its turn
 
 _local = threading.local()
+
+
+class Replica(NamedTuple):
+    """One device's weights of the inference forward: the model, its int8
+    params (``nn/int8_infer.quantize_from_data``'s tree, or None) and its
+    fused MobileNetV2 params (``nn/fused_infer.fused_params``, or None);
+    a replica with int8 params has no fused ones."""
+    model: Any
+    qp: Optional[Dict[str, Any]]
+    fused: Any
 
 
 def partition_rows(height: int, parts: int) -> List[Tuple[int, int]]:
@@ -267,30 +279,39 @@ def run_groups(fn: Callable[[torch.Tensor], Any], mesh: Mesh, shards: Sequence[t
 run_groups.exchanges = 0
 
 
-def spatial_params(model, mesh: Mesh) -> Dict[torch.device, Tuple[Any, Any]]:
-    """{device: (model, fused params)} for every distinct device of the
-    mesh: ``model`` itself on its own device, a copy elsewhere; the fused
-    MobileNetV2 weights (``nn/fused_infer.fused_params``: folded and
-    packed, None for another backbone) once a device, shared by the
-    shards that run there."""
+def spatial_params(model, mesh: Mesh, qp: Optional[Dict[str, Any]] = None
+                   ) -> Dict[torch.device, Replica]:
+    """{device: Replica} for every distinct device of the mesh: ``model``
+    itself on its own device, a copy elsewhere; with ``qp``
+    (``nn/int8_infer.quantize_from_data``'s tree, calibrated once) that
+    tree, copied once a device, else the fused MobileNetV2 weights
+    (folded and packed, None for another backbone) once a device. The
+    shards that run on a device share its entry."""
     import copy
 
     from yoloret_tpu_torch.nn.fused_infer import fused_params
+    from yoloret_tpu_torch.parallel.mesh import _copy_to
 
     home = next(model.parameters()).device
     out = {}
     for dev in dict.fromkeys(mesh.devices):
         m = model if dev == home else copy.deepcopy(model).to(dev)
+        if qp is not None:
+            out[dev] = Replica(m, qp if dev == home else _copy_to(qp, dev), None)
+            continue
         with on_device(dev):
-            out[dev] = (m, fused_params(m))
+            out[dev] = Replica(m, None, fused_params(m))
     return out
 
 
-def _shard_forward(params: Dict[torch.device, Tuple[Any, Any]]) -> Callable:
+def _shard_forward(params: Dict[torch.device, Replica]) -> Callable:
     from yoloret_tpu_torch.nn.fused_infer import mobilenetv2_fused_features
+    from yoloret_tpu_torch.nn.int8_infer import int8_detector_apply
 
     def fn(x: torch.Tensor):
-        model, fused = params[current().device]
+        model, qp, fused = params[current().device]
+        if qp is not None:
+            return int8_detector_apply(model, qp, x)
         x = x.to(model.dtype)
         if fused is not None:
             return model.neck_heads(mobilenetv2_fused_features(x.contiguous(), fused))
@@ -300,13 +321,21 @@ def _shard_forward(params: Dict[torch.device, Tuple[Any, Any]]) -> Callable:
 
 
 def spatial_forward(model, mesh: Mesh, shards: Sequence[torch.Tensor],
-                    params: Dict[torch.device, Tuple[Any, Any]]
+                    params: Dict[torch.device, Replica],
+                    crop: Optional[Tuple[int, int, int, int]] = None
                     ) -> List[Tuple[torch.Tensor, ...]]:
     """The inference heads of each data shard's images (``shards[i]``,
     whole images [b, H, W, 3]) over its model group's row shards, each
-    head whole on the group's first device: the fused forward for a
-    MobileNetV2 backbone, the stock forward for any other. ``params`` is
-    ``spatial_params(model, mesh)``."""
+    head whole on the group's first device: the int8 forward where
+    ``params`` holds int8 params, else the fused forward for a
+    MobileNetV2 backbone and the stock forward for any other. ``params``
+    is ``spatial_params(model, mesh[, qp])``. ``crop`` (y0, x0, h, w)
+    takes rows [y0, y0 + h) and columns [x0, x0 + w) of each image
+    instead, cut on the data shard's device and split over the row
+    shards as an image of its own (``partition_rows(h, model)``)."""
+    if crop is not None:
+        y0, x0, h, w = crop
+        shards = [x[:, y0:y0 + h, x0:x0 + w].contiguous() for x in shards]
     for x in shards:
         model.check_input(x)
     outs = run_groups(_shard_forward(params), mesh, shards)
@@ -316,13 +345,14 @@ def spatial_forward(model, mesh: Mesh, shards: Sequence[torch.Tensor],
 
 
 def spatial_apply(model, mesh: Mesh, images: torch.Tensor,
-                  params: Dict[torch.device, Tuple[Any, Any]]) -> Tuple[torch.Tensor, ...]:
+                  params: Dict[torch.device, Replica]) -> Tuple[torch.Tensor, ...]:
     """``model``'s inference heads for ``images`` [B, H, W, 3] with the
     batch split over the mesh's ``data`` axis and the rows over its
     ``model`` axis, returned whole on the mesh's first device (the heads
-    of ``nn/fused_infer.fused_detector_apply``). ``params``
-    (``spatial_params(model, mesh)``) holds the weights on each device,
-    made once and reused across calls."""
+    of ``nn/fused_infer.fused_detector_apply``, or of
+    ``nn/int8_infer.int8_detector_apply`` with int8 params). ``params``
+    (``spatial_params(model, mesh[, qp])``) holds the weights on each
+    device, made once and reused across calls."""
     n = mesh.data
     if images.shape[0] % n:
         raise ValueError(f"batch of {images.shape[0]} rows does not split over the mesh data "
