@@ -10,7 +10,9 @@ Phases (any failure exits non-zero and prints no result):
    (``yoloret_tpu_torch/native/dataloader.cc``; one compiler each, in
    parallel; the loader may fail to build, which is reported, and the
    data path then decodes with PIL) and print each kernel's ``ptxas``
-   registers and spills.
+   registers and spills; every bf16 MBConv instance (``mbconv_wgmma<S,NB>``)
+   must show 0 bytes of spill stores and the library no ptxas note on its
+   wgmmas (C7510-C7520: serialised, or an arrive injected).
 2. Each kernel against its plain PyTorch version on the card, at the
    serving path's shapes: the fused MBConv at all 16 backbone blocks of
    MobileNetV2 x0.75 (float32, ``mbconv_f32``, with TF32 off at [2, 320]
@@ -103,10 +105,15 @@ Phases (any failure exits non-zero and prints no result):
    ``configs/coco_efficientnetb3_416.yaml``; class names and anchors from
    the files they name), each with seeded, calibrated weights: for
    MobileNetV2 x1.4 @224 the MBConv kernel against its plain version at
-   all 16 blocks (float32 b2 and b128, bitwise repeats; bf16 b2 and b128,
-   the tile plan of each block and the ptxas line of the NB=11 instance
-   its Cout 136 and 224 take) and ``mbconv_f32`` timed block by block at
-   b128; for both, the suppression kernels exactly on model candidates
+   all 16 blocks (float32 b2 and b128, bf16 b2 and b128, bitwise repeats;
+   the tile plan of each block and the ptxas lines of the wide instances
+   its Cout 136 and 224 take, with exactly 6 and 10 accumulator blocks)
+   and ``mbconv_f32`` timed block by block at b128, the blocks past Cout
+   120 also summed beside cuDNN; then MobileNetV2 x1.0 @320's blocks 13-15
+   (Cout 160) at b128 bf16 on the registry's x1.0 model: a
+   ``detect_arrays`` with its launch counts, each block against its plain
+   version with a bitwise repeat, and timed beside cuDNN; for both COCO
+   configurations, the suppression kernels exactly on model candidates
    (shared pool M=64 and M=512 at B=128, 8 and 1; the large-pool kernel
    on the exact evaluation's whole grid, K=3,087 and 10,647, at B=128 and
    1); ``detect_arrays`` on 1, 8 and 130 images (and the HTTP server for
@@ -523,6 +530,27 @@ def ptxas_lines(text):
     return out
 
 
+def check_wgmma_ptxas(report):
+    """Every bf16 MBConv instance (``mbconv_wgmma<S,NB>``) compiled with 0
+    bytes of spill stores, and ptxas noted nothing on the library's wgmmas
+    (C7510-C7520: serialised, or an arrive injected); prints each
+    instance's registers and spills."""
+    from yoloret_tpu_torch.ops import _build
+
+    text = _build.ptxas_log("mbconv")
+    lines = [ln for ln in ptxas_lines(text) if ln.startswith("mbconv_wgmma")]
+    spills = {ln.split(":")[0]: int(m.group(1)) for ln in lines
+              for m in [re.search(r"(\d+) bytes spill stores", ln)] if m}
+    notes = [ln.strip() for ln in text.splitlines() if re.search(r"\(C75(1\d|20)\)", ln)]
+    for ln in lines:
+        log(f"  ptxas bf16 instance {ln}")
+    report["ptxas_wgmma"] = dict(lines=lines, spill_stores=spills, wgmma_notes=notes)
+    if not spills or any(spills.values()) or notes:
+        raise AssertionError(f"bf16 MBConv instances: spill stores {spills}, notes {notes}")
+    log(f"  ptxas: {len(spills)} bf16 instances, 0 bytes of spill stores each, no wgmma note "
+        "(C7510-C7520)")
+
+
 def cuda_time_ms(fn, iters=10, warmup=2, flush=None):
     """Mean device ms of ``fn`` over ``iters`` calls, each between CUDA
     events. ``flush`` (kernel timings) evicts L2 first and then queues a
@@ -724,10 +752,10 @@ def make_predictor(seed, weights=None, *, size=None, class_names=None, mixed=Fal
 def check_mbconv(pred, report, key="mbconv_check", f32_shapes=()):
     """Each MBConv kernel against its plain version at all 16 blocks:
     float32 (``mbconv_f32``) at b2 and at ``f32_shapes`` ((batch, size)
-    pairs: the float32 path's own shapes), each float32 launch repeated
-    and held bitwise equal to the first; bfloat16 (the Hopper kernel, on
+    pairs: the float32 path's own shapes); bfloat16 (the Hopper kernel, on
     the packed weights of the main path) at b2 and at b128, where the
-    work items outnumber the persistent CTAs. Returns (the largest error,
+    work items outnumber the persistent CTAs; each launch repeated and
+    held bitwise equal to the first. Returns (the largest error,
     the largest float32 error)."""
     import torch
 
@@ -749,16 +777,16 @@ def check_mbconv(pred, report, key="mbconv_check", f32_shapes=()):
             want = reference_mbconv(x, *meta.args, **kw)
             row = dict(block=meta.block_id, dtype=str(dtype), batch=batch, size=sz,
                        shape=list(x.shape), stride=meta.stride)
+            again = fused_mbconv(x, *meta.args, packed=meta.packed, **kw)
+            row["bitwise_repeat"] = bool(torch.equal(got, again))
+            if not row["bitwise_repeat"]:
+                raise AssertionError(f"mbconv block {meta.block_id} {dtype} [{batch}, {sz}]: "
+                                     "two launches on one input differ")
             if dtype == torch.float32:
-                again = fused_mbconv(x, *meta.args, packed=meta.packed, **kw)
-                row["bitwise_repeat"] = bool(torch.equal(got, again))
                 row["cluster"] = plan_tile_f32(
                     x.shape[1] // meta.stride, x.shape[2] // meta.stride, meta.stride,
                     x.shape[3], meta.args[2].shape[-1], meta.args[4].shape[-1],
                     meta.args[0] is not None, batch, num_sms).cluster
-                if not row["bitwise_repeat"]:
-                    raise AssertionError(f"mbconv_f32 block {meta.block_id} [{batch}, {sz}]: "
-                                         "two launches on one input differ")
             torch.cuda.synchronize()
             tol = MBCONV_TOL[str(dtype).split(".")[-1]]
             err = max_err(got, want)
@@ -778,8 +806,8 @@ def check_mbconv(pred, report, key="mbconv_check", f32_shapes=()):
     clusters = sorted({r["cluster"] for r in rows if "cluster" in r})
     log(f"mbconv kernel vs plain, {pred.model.backbone}, {len(pred._fused.blocks)} blocks at "
         f"each [batch, size]: max abs err {worst} (tolerance atol=rtol {MBCONV_TOL}; smallest "
-        f"block max |out| {scale:.3g}); every float32 launch bitwise equal to its repeat "
-        f"(cluster sizes {clusters})")
+        f"block max |out| {scale:.3g}); every launch bitwise equal to its repeat (float32 "
+        f"cluster sizes {clusters})")
     if scale < 0.1:
         raise AssertionError(f"block outputs too small ({scale}) for the check to mean much")
     return max(worst.values()), max(v for k, v in worst.items() if k.startswith("float32"))
@@ -1513,10 +1541,11 @@ def make_flush():
     return flush
 
 
-def time_mbconv(pred, flush, batch=BATCH, size=None):
-    """Each block's kernel, plain and cuDNN times at ``batch`` and
-    ``size`` (default: the Predictor's) and its bound and tile plan;
-    returns (rows, sums)."""
+def time_mbconv(pred, flush, batch=BATCH, size=None, blocks=None):
+    """Each block's (or each of ``blocks``') kernel, plain and cuDNN times
+    at ``batch`` and ``size`` (default: the Predictor's) and its bound and
+    tile plan; returns (rows, sums). In bf16 the blocks past Cout 120 (the
+    wide instances) are also summed apart (``wide_*`` in the sums)."""
     import torch
 
     from yoloret_tpu_torch.ops.mbconv import (fused_mbconv, plan_tile, plan_tile_f32,
@@ -1527,6 +1556,8 @@ def time_mbconv(pred, flush, batch=BATCH, size=None):
     with torch.inference_mode():
         ins = block_inputs(pred, batch, seed=12, size=size)
         for meta, x in zip(pred._fused.blocks, ins):
+            if blocks is not None and meta.block_id not in blocks:
+                continue
             a = dict(stride=meta.stride, residual=meta.residual)
             ms = cuda_time_ms(lambda: fused_mbconv(x, *meta.args, packed=meta.packed, **a),
                               5, 1, flush)
@@ -1546,7 +1577,8 @@ def time_mbconv(pred, flush, batch=BATCH, size=None):
             for k, v in (("ms", ms), ("plain_ms", plain), ("library_ms", lib),
                          ("bound_ms", bound)):
                 tot[k] += v
-            how = (f"tile {plan.th}x{plan.tw} ({plan.nc} warpgroups), stages {plan.xst} input / "
+            how = (f"tile {plan.th}x{plan.tw} ({plan.nc} warpgroups in {plan.ks} chunk "
+                   f"group{'s' if plan.ks > 1 else ''}), stages {plan.xst} input / "
                    f"{plan.wst} weights, grid {plan.grid} for {plan.items} items, smem "
                    f"{plan.smem}" if bf16 else
                    f"float32 tile {plan.th}x{plan.tw}, {plan.rq} project / {plan.px} expand "
@@ -1561,6 +1593,15 @@ def time_mbconv(pred, flush, batch=BATCH, size=None):
         log(f"  mbconv stride-{stride} blocks ({len(sel)} launches per forward), summed: kernel "
             f"{sums['ms']:.4f} ms, plain {sums['plain_ms']:.4f}, cuDNN {sums['library_ms']:.4f}, "
             f"bound {sums['bound_ms']:.4f}")
+    wide = [r for r in rows if r["cout"] > 120 and "ks" in r["tile"]]  # bf16 only
+    if wide:
+        for k in ("ms", "plain_ms", "library_ms", "bound_ms"):
+            tot["wide_" + k] = sum(r[k] for r in wide)
+        slower = [r["block"] for r in wide if r["ms"] >= r["library_ms"]]
+        log(f"  mbconv blocks past Cout 120 ({[r['block'] for r in wide]}, the wide instances), "
+            f"summed: kernel {tot['wide_ms']:.4f} ms, cuDNN {tot['wide_library_ms']:.4f}, plain "
+            f"{tot['wide_plain_ms']:.4f}, bound {tot['wide_bound_ms']:.4f}; blocks not faster "
+            f"than cuDNN: {slower}")
     return rows, tot
 
 
@@ -1702,7 +1743,7 @@ def mbconv_entry(pred, suffix, launches, err, mbconv, batch, size, where):
         bound_ms=tot["bound_ms"],
         bound_by=max(("bytes", "operations"),
                      key=lambda by: sum(r["bound_ms"] for r in rows if r["bound_by"] == by)),
-        library_ms=tot["library_ms"])
+        library_ms=tot["library_ms"], **{k: v for k, v in tot.items() if k.startswith("wide_")})
 
 
 def kernel_entries(pred, suffix, launches, eval_launches, errs, mbconv, nms):
@@ -1800,9 +1841,11 @@ def coco_phase(name, config, seed, report):
     errs = {}
     with torch.no_grad():
         if fused:
-            eleven = [ln for ln in ptxas_lines(_build.ptxas_log("mbconv")) if ",11>" in ln]
-            for line in eleven:
-                log(f"  ptxas mbconv, the NB=11 instances (Cout 144-264): {line}")
+            inst = {f"mbconv_wgmma<{m.stride},{n}>" for m in pred._fused.blocks
+                    for n in [-(-m.args[4].shape[-1] // 24)] if n >= 6}
+            for line in ptxas_lines(_build.ptxas_log("mbconv")):
+                if line.split(":")[0] in inst:
+                    log(f"  ptxas mbconv, a wide instance its blocks past Cout 120 take: {line}")
             errs["mbconv"], errs["mbconv_f32"] = check_mbconv(pred, out,
                                                               f32_shapes=((BATCH, size),))
         nms_err = check_nms(pred, out, synthetic=False)
@@ -1834,6 +1877,62 @@ def coco_phase(name, config, seed, report):
     del pred, map_pred
     torch.cuda.empty_cache()
     return kernels
+
+
+def wide_x10_phase(seed, report):
+    """MobileNetV2 x1.0 @320's blocks past Cout 120 (13-15: Cout 160, the
+    wide instance of 7 accumulator blocks) at b128 bf16, on the registry's
+    x1.0 model (seeded, calibrated as in phase 10): one ``detect_arrays``
+    of REGISTRY_BATCH images with the launch counts set to 0 just before and
+    read just after; the three blocks against their plain version on the
+    real activations (atol = rtol 2e-2, each launch repeated and held
+    bitwise equal) and timed beside cuDNN and the bound. Returns the kernels
+    line's row."""
+    import numpy as np
+    import torch
+
+    from yoloret_tpu_torch.ops.mbconv import fused_mbconv, reference_mbconv
+    from yoloret_tpu_torch.ops.nms_kernel import suppress
+
+    t0 = time.perf_counter()
+    out = report.setdefault("wide_x10", {})
+    pred = make_predictor(seed, size=REGISTRY_SIZE, backbone="mobilenetv2x10",
+                          score_threshold=0.3, num_candidates=64, mixed=True)
+    wide = [m.block_id for m in pred._fused.blocks if m.args[4].shape[-1] > 120]
+    assert wide == [13, 14, 15], wide
+    rs = np.random.RandomState(seed + 5)
+    images = [rs.randint(0, 256, (300, 400, 3), dtype=np.uint8) for _ in range(REGISTRY_BATCH)]
+    fused_mbconv.launches = suppress.launches = 0
+    dets = pred.detect_arrays(images)
+    launches = {"mbconv": fused_mbconv.launches, "nms": suppress.launches}
+    assert len(dets) == len(images) and launches == {"mbconv": 16, "nms": 1}, launches
+    err, tol = 0.0, MBCONV_TOL["bfloat16"]
+    with torch.inference_mode():
+        for meta, x in zip(pred._fused.blocks, block_inputs(pred, BATCH, seed=13)):
+            if meta.block_id not in wide:
+                continue
+            kw = dict(stride=meta.stride, residual=meta.residual)
+            got = fused_mbconv(x, *meta.args, packed=meta.packed, **kw)
+            same = torch.equal(got, fused_mbconv(x, *meta.args, packed=meta.packed, **kw))
+            want = reference_mbconv(x, *meta.args, **kw)
+            e = max_err(got, want)
+            if not same or not torch.allclose(got.float(), want.float(), atol=tol, rtol=tol):
+                raise AssertionError(f"x1.0 mbconv block {meta.block_id} [{BATCH}, "
+                                     f"{REGISTRY_SIZE}]: max err {e}, bitwise repeat {same}")
+            err = max(err, e)
+    log(f"x1.0 @{REGISTRY_SIZE}: detect_arrays of {len(images)} images, launches {launches}; "
+        f"blocks {wide} at b{BATCH} bf16 vs plain: max abs err {err:.3g} (atol=rtol {tol}), "
+        "each launch bitwise equal to its repeat")
+    mbconv = time_mbconv(pred, make_flush(), blocks=set(wide))
+    out.update(launches=launches, max_abs_err=err, timing=mbconv[0], sums=mbconv[1],
+               seconds=time.perf_counter() - t0)
+    row = mbconv_entry(pred, f"@mobilenetv2x10_{REGISTRY_SIZE}_blocks13-15", launches["mbconv"],
+                       err, mbconv, BATCH, REGISTRY_SIZE,
+                       f"one detect_arrays of {len(images)} images through the x1.0 Predictor "
+                       "(16 MBConv launches, 3 of them these blocks)")
+    del pred
+    torch.cuda.empty_cache()
+    return row
 
 
 def registry_phase(seed, report):
@@ -4691,7 +4790,9 @@ def main(argv=None) -> int:
         f"beside them: {report['native_loader']})")
     for name in ("mbconv", "nms"):
         for line in ptxas_lines(_build.ptxas_log(name)):
-            log(f"  ptxas {name}: {line}")
+            if not line.startswith("mbconv_wgmma"):
+                log(f"  ptxas {name}: {line}")
+    check_wgmma_ptxas(report)
 
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -4726,6 +4827,7 @@ def main(argv=None) -> int:
 
         for name, config in COCO_CONFIGS.items():
             kernels += coco_phase(name, config, args.seed, report)
+        kernels.append(wide_x10_phase(args.seed, report))
         log(f"phases 1-9 done at {time.perf_counter() - t_start:.1f} s (phase 10 runs in phase "
             "13, beside its trainings)")
 

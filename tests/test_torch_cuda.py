@@ -73,9 +73,17 @@ X14_BLOCK_SHAPES = [
     (7, 7, 224, 1344, 224, 1, True, True),
 ]
 MBCONV_CASES += [s + (1,) for s in X14_BLOCK_SHAPES] + [
-    s + (128,) for s in X14_BLOCK_SHAPES[-3:]] + [
+    s + (128,) for s in X14_BLOCK_SHAPES] + [
     (10, 10, 160, 960, 160, 1, True, True, 8),  # x1.0 @320, blocks 14-15
 ]
+# The blocks past Cout 120 (the wide instances: exactly 6, 7 or 10
+# accumulator blocks, chunks split among groups of warpgroups): x1.4's
+# blocks 10-15 and x1.0 @320's blocks 13-15 (Cout 160), at b1, b8 and b128.
+WIDE_SHAPES = [s for s in X14_BLOCK_SHAPES if s[4] > 120] + [
+    (20, 20, 96, 576, 160, 2, True, False),  # x1.0 block 13
+    (10, 10, 160, 960, 160, 1, True, True),  # blocks 14-15
+]
+MBCONV_CASES += [s + (128,) for s in WIDE_SHAPES[-2:]]
 # Multi-scale training's detection passes (--tb_images): x0.75 at 288 and
 # 352 (last maps 9x9 and 11x11), batch 4. IMAGE runs 320 at batch 1
 # (BLOCK_SHAPES above).
@@ -119,6 +127,26 @@ def test_mbconv_kernel_matches_plain(cuda, case):
     want = reference_mbconv(*bf, stride=stride, residual=residual)
     assert got.dtype == torch.bfloat16
     torch.testing.assert_close(got.float(), want.float(), atol=2e-2, rtol=2e-2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("batch", [1, 8, 128])
+@pytest.mark.parametrize("case", WIDE_SHAPES)
+def test_mbconv_wide_bf16_repeats_bitwise(cuda, case, batch):
+    """The wide instances in bf16, on weights packed once as the main path
+    packs them: within 2e-2 of the plain version, and two launches on one
+    input give the same bits (the chunk groups' partial sums are added in
+    a fixed order, no atomics)."""
+    h, w, cin, ce, cout, stride, expand, residual = case
+    args = _mbconv_inputs(2, h, w, cin, ce, cout, expand, cuda, batch)
+    bf = [None if a is None else a.to(torch.bfloat16) if i in (0, 1, 3, 5) else a
+          for i, a in enumerate(args)]
+    packed = M.pack_mbconv(*bf[1:6])
+    got = fused_mbconv(*bf, stride=stride, residual=residual, packed=packed)
+    again = fused_mbconv(*bf, stride=stride, residual=residual, packed=packed)
+    want = reference_mbconv(*bf, stride=stride, residual=residual)
+    torch.testing.assert_close(got.float(), want.float(), atol=2e-2, rtol=2e-2)
+    assert torch.equal(got, again)
 
 
 # The float32 kernel at the float32 path's own shapes: the learn phase's

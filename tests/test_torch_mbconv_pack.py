@@ -5,8 +5,11 @@ The bf16 kernel (``csrc/mbconv.cu``) reads weights packed once per model
 Python and are held here without a GPU. The packed form must compute
 what the unpacked weights compute: the plain version over the packed
 weights, with all of the kernel's zero padding (Cin to 16, Ce to chunks
-of 48, Cout to 24), equals ``reference_mbconv`` bit for bit. Maps are
-small; channel widths are those of the real blocks.
+of 48, Cout to 24), equals ``reference_mbconv`` bit for bit. Past Cout
+120 a numpy model holds the chunk groups' split and fixed-order reduction
+against it, and a model of the weight ring's protocol shows that the
+partial sums overwrite no stage still in use. The flagship's 16 plans are
+pinned. Maps are small; channel widths are those of the real blocks.
 """
 
 import numpy as np
@@ -158,7 +161,9 @@ def test_tile_plan_at_the_multi_scale_sizes(size):
 def test_tile_plan_other_widths(alpha, size, batch):
     """The 16 blocks of MobileNetV2 x1.4 @224 (the COCO config: Cout up to
     224, Ce up to 1344, 7x7 maps) and x1.0 @320 fit too; x1.4's last
-    blocks take one consumer warpgroup and one 7x8 tile per image."""
+    blocks (Cout 224: the instance of exactly 10 accumulator blocks, two
+    consumer warpgroups) split their 17 or 28 chunks between the two
+    warpgroups, at b128 on one 7x8 tile per image."""
     shapes = _block_shapes(size, alpha)
     _check_plans(shapes, batch)
     if alpha == 1.4:
@@ -166,16 +171,67 @@ def test_tile_plan_other_widths(alpha, size, batch):
                                                  (224, 1344, 224)]
         for shape in shapes[13:]:
             p = M.plan_tile(*shape, batch)
-            assert (p.th, p.tw, p.nc, p.items) == (7, 8, 1, batch)
+            assert (p.nc, p.ks) == (2, 2)
+            if batch == 128:
+                assert (p.th, p.tw, p.items) == (7, 8, batch)
             assert p.smem <= M.SMEM_LIMIT and M._round_up(shape[5], M.NBW) // M.NBW == 10
+
+
+# MobileNetV2 x0.75 @320's 16 bf16 plans at b1, b8 and b128, as the kernel's
+# first redesign chose them: (th, tw, nc, xst, wst, smem, items, grid,
+# ctas_per_sm), no chunk groups. The wide blocks' plans must not move them.
+FLAGSHIP_PLANS = {
+    1: [
+        (16, 16, 4, 2, 3, 135552, 100, 100, 1), (10, 16, 3, 2, 3, 207744, 40, 40, 1),
+        (16, 16, 4, 2, 3, 144768, 25, 25, 1), (8, 20, 3, 1, 2, 205568, 10, 10, 1),
+        (6, 40, 4, 2, 3, 147328, 7, 7, 1), (6, 40, 4, 2, 3, 147328, 7, 7, 1),
+        (7, 20, 3, 2, 2, 229888, 3, 3, 1), (10, 20, 4, 2, 3, 155008, 2, 2, 1),
+        (10, 20, 4, 2, 3, 155008, 2, 2, 1), (10, 20, 4, 2, 3, 155008, 2, 2, 1),
+        (7, 20, 3, 2, 3, 135040, 3, 3, 1), (7, 20, 3, 2, 3, 177024, 3, 3, 1),
+        (7, 20, 3, 2, 3, 177024, 3, 3, 1), (10, 10, 2, 1, 2, 206592, 1, 1, 1),
+        (10, 10, 2, 2, 3, 208768, 1, 1, 1), (10, 10, 2, 2, 3, 208768, 1, 1, 1),
+    ],
+    8: [
+        (16, 16, 4, 2, 3, 135552, 800, 132, 1), (10, 16, 3, 2, 3, 207744, 320, 132, 1),
+        (16, 16, 4, 2, 3, 144768, 200, 132, 1), (8, 20, 3, 1, 2, 205568, 80, 80, 1),
+        (6, 40, 4, 2, 3, 147328, 56, 56, 1), (6, 40, 4, 2, 3, 147328, 56, 56, 1),
+        (7, 20, 3, 2, 2, 229888, 24, 24, 1), (10, 20, 4, 2, 3, 155008, 16, 16, 1),
+        (10, 20, 4, 2, 3, 155008, 16, 16, 1), (10, 20, 4, 2, 3, 155008, 16, 16, 1),
+        (7, 20, 3, 2, 3, 135040, 24, 24, 1), (7, 20, 3, 2, 3, 177024, 24, 24, 1),
+        (7, 20, 3, 2, 3, 177024, 24, 24, 1), (10, 10, 2, 1, 2, 206592, 8, 8, 1),
+        (10, 10, 2, 2, 3, 208768, 8, 8, 1), (10, 10, 2, 2, 3, 208768, 8, 8, 1),
+    ],
+    128: [
+        (16, 16, 4, 2, 3, 135552, 12800, 132, 1), (10, 16, 3, 2, 3, 207744, 5120, 132, 1),
+        (16, 16, 4, 2, 3, 144768, 3200, 132, 1), (8, 20, 3, 1, 2, 205568, 1280, 132, 1),
+        (6, 40, 4, 2, 3, 147328, 896, 132, 1), (6, 40, 4, 2, 3, 147328, 896, 132, 1),
+        (7, 20, 3, 2, 2, 229888, 384, 132, 1), (10, 20, 4, 2, 3, 155008, 256, 132, 1),
+        (10, 20, 4, 2, 3, 155008, 256, 132, 1), (10, 20, 4, 2, 3, 155008, 256, 132, 1),
+        (7, 20, 3, 2, 3, 135040, 384, 132, 1), (7, 20, 3, 2, 3, 177024, 384, 132, 1),
+        (7, 20, 3, 2, 3, 177024, 384, 132, 1), (10, 10, 2, 1, 2, 206592, 128, 128, 1),
+        (10, 10, 2, 2, 3, 208768, 128, 128, 1), (10, 10, 2, 2, 3, 208768, 128, 128, 1),
+    ],
+}
+
+
+@pytest.mark.parametrize("batch", sorted(FLAGSHIP_PLANS))
+def test_flagship_plans_pinned(batch):
+    """The serving path's 16 bf16 launches (x0.75 @320) keep their plans:
+    the instances of 2 and 5 accumulator blocks, no chunk groups."""
+    got = [M.plan_tile(*shape, batch) for shape in _block_shapes(320)]
+    assert [tuple(p)[:9] for p in got] == FLAGSHIP_PLANS[batch]
+    assert all(p.ks == 1 for p in got)
+    assert all(M._round_up(s[5], M.NBW) // M.NBW <= 5 for s in _block_shapes(320))
 
 
 def _check_plans(shapes, batch):
     for ho, wo, stride, cin, ce, cout, expand in shapes:
         p = M.plan_tile(ho, wo, stride, cin, ce, cout, expand, batch)
-        lay = M.kernel_layout(stride, p.th, p.tw, cin, cout, expand, p.xst, p.wst)
+        lay = M.kernel_layout(stride, p.th, p.tw, cin, cout, expand, p.xst, p.wst, p.ks)
+        nchunks, nb = -(-ce // M.CH), lay.coutp // M.NBW
         assert p.smem == lay.smem <= M.SMEM_LIMIT
-        assert 1 <= p.nc <= M.max_warpgroups(cout) and p.th * p.tw <= 64 * p.nc
+        assert 1 <= p.nc <= M.max_warpgroups(cout) and p.nc % p.ks == 0
+        assert p.th * p.tw <= 64 * (p.nc // p.ks)  # each group covers the tile's rows
         assert p.tw % 2 == 0 and p.th <= ho and p.tw <= wo + 1  # even: neighbouring pixel pairs
         assert lay.pinp % 64 == 0 and lay.pinp >= lay.pin  # wgmma M of the expand
         assert lay.kpad % 16 == 0 and M.CH % 16 == 0  # wgmma K of expand and project
@@ -187,6 +243,180 @@ def _check_plans(shapes, batch):
         assert p.items == batch * tiles
         assert 1 <= p.grid <= min(p.items, 132 * p.ctas_per_sm)
         assert 1 <= p.xst <= 2 and 2 <= p.wst <= 3
+        if nb < M.WIDE_NB:
+            assert p.ks == 1
+        if p.ks > 1:  # the ring holds one of the last wst chunks a stage, and the partial sums
+            assert nb >= M.WIDE_NB and p.wst <= nchunks and p.ks <= nchunks
+            assert M.red_bytes(p.nc, p.ks, cout) <= p.wst * M._round_up(lay.chunk_bytes, 128)
+
+
+# -- the wide bf16 instances: chunk groups and their reduction ------------------
+
+
+def _bf16(a):
+    return torch.from_numpy(np.asarray(a, np.float32)).to(torch.bfloat16).double().numpy()
+
+
+def ring_schedule(nchunks, ks, wst, items):
+    """The weight ring's protocol under chunk groups, step by step: the
+    producer fills stage s % wst with the CTA's s-th chunk once the chunk
+    before it there is released; group g takes chunks g, g + ks, ... of
+    each item in order and releases each stage when done, except the
+    stages of an item's last wst chunks, which it releases after the item's
+    reduction, once every group has finished the item. Returns, per item,
+    the chunks the stages hold at the reduction; raises on a deadlock."""
+    n = nchunks
+    filled, released = 0, set()  # chunks loaded so far; chunks whose stage is free
+    pos = [0] * ks  # next chunk index (within the item) of each group
+    item, held, at_reduction = 0, [], []
+    while item < items:
+        progress = False
+        while filled < items * n and (filled < wst or filled - wst in released):
+            filled, progress = filled + 1, True  # the producer loads in order
+        for g in range(ks):
+            c = g + pos[g] * ks
+            if c < n and item * n + c < filled:  # its chunk has arrived
+                pos[g] += 1
+                progress = True
+                if c < n - wst:
+                    released.add(item * n + c)
+                else:
+                    held.append(item * n + c)
+        if all(g + pos[g] * ks >= n for g in range(ks)):  # the reduction
+            assert len(held) == min(wst, n) and sorted(s % wst for s in held) == list(
+                range(wst)), "a stage under the partial sums holds no chunk of this item"
+            at_reduction.append(sorted(held))
+            released.update(held)
+            held, pos, item, progress = [], [0] * ks, item + 1, True
+        if not progress:
+            raise AssertionError(f"deadlock: item {item}, groups at {pos}, {filled} loaded")
+    return at_reduction
+
+
+def kernel_model_bf16(x, packed, bp, stride, residual, plan):
+    """numpy model of the wide bf16 kernel's arithmetic under ``plan``
+    (csrc/mbconv.cu): per (image, tile), the halo rows the expand computes
+    (image padding zero after the ReLU6), chunk group g of the plan's ks
+    summing chunks g, g + ks, ... in order into its own float32-exact
+    project sums over the tile's rows (nc / ks M blocks of 64), then group
+    0 adding groups 1..ks-1 in order, the bias and the residual; rounded to
+    bf16 where the kernel rounds (after the expand, after the depthwise, at
+    the output). Rows past the tile's pixels stay NaN, so a pixel no group
+    computed shows. float64 sums."""
+    we, be, wd, bd, wp = (None if t is None else t.double().numpy()
+                          for t in M.unpack_mbconv(packed))
+    xb = x.double().numpy()
+    B, H, W, cin = xb.shape
+    S, PAD, CH = stride, 1 if stride == 1 else 0, M.CH
+    lay = M.kernel_layout(S, plan.th, plan.tw, cin, packed.cout, packed.expand, plan.xst,
+                          plan.wst, plan.ks)
+    nm, n = plan.nc // plan.ks, packed.nchunks
+    assert plan.th * plan.tw <= 64 * nm and plan.nc % plan.ks == 0
+    groups = [list(range(g, n, plan.ks)) for g in range(plan.ks)]
+    assert sorted(sum(groups, [])) == list(range(n))  # each chunk summed by one group
+    Ho, Wo = H // S, W // S
+    tw_n, th_n = -(-Wo // plan.tw), -(-Ho // plan.th)
+    out = np.full((B, Ho, Wo, packed.cout), np.nan)
+    for b in range(B):
+        for t in range(tw_n * th_n):
+            oy0, ox0 = t // tw_n * plan.th, t % tw_n * plan.tw
+            iy0, ix0 = oy0 * S - PAD, ox0 * S - PAD
+            halo = np.zeros((lay.hin, lay.win, packed.kpad if packed.expand else cin))
+            ys, xs_ = np.arange(lay.hin) + iy0, np.arange(lay.win) + ix0
+            iny, inx = (ys >= 0) & (ys < H), (xs_ >= 0) & (xs_ < W)
+            halo[np.ix_(iny, inx, np.arange(cin))] = xb[b][np.ix_(ys[iny], xs_[inx])]
+            inside = np.outer(iny, inx)[..., None]
+            sums = []
+            for chunks in groups:
+                acc = np.full((64 * nm, lay.coutp), np.nan)
+                acc[:plan.th * plan.tw] = 0.0
+                for c in chunks:
+                    sl = slice(c * CH, (c + 1) * CH)
+                    if packed.expand:
+                        e = _bf16(np.clip(halo @ we[:, sl] + be[sl], 0, 6)) * inside
+                    else:
+                        e = np.zeros(halo.shape[:2] + (CH,))
+                        k = min(CH, cin - c * CH)
+                        e[..., :k] = halo[..., c * CH:c * CH + k]
+                    dsum = np.zeros((plan.th, plan.tw, CH))
+                    for dy in range(3):
+                        for dx in range(3):
+                            dsum += e[dy:dy + S * plan.th:S, dx:dx + S * plan.tw:S] * wd[dy, dx,
+                                                                                         sl]
+                    dw = _bf16(np.clip(dsum + bd[sl], 0, 6)).reshape(-1, CH)
+                    acc[:plan.th * plan.tw] += dw @ wp[sl]
+                sums.append(acc)
+            total = sums[0]
+            for part in sums[1:]:  # group order
+                total = total + part
+            for q in range(plan.th * plan.tw):
+                oy, ox = oy0 + q // plan.tw, ox0 + q % plan.tw
+                if oy < Ho and ox < Wo:
+                    v = total[q, :packed.cout] + bp.double().numpy()
+                    if residual:
+                        v = v + xb[b, oy, ox]
+                    out[b, oy, ox] = v
+    return _bf16(out)
+
+
+WIDE_CASES = [
+    # (h, w, cin, ce, cout, stride, expand, residual): x1.4's and x1.0's wide
+    # blocks at their real widths on small maps, and a ragged Ce
+    (7, 7, 224, 1344, 224, 1, True, True),  # x1.4 blocks 14-15
+    (14, 14, 136, 816, 224, 2, True, False),  # block 13
+    (5, 6, 136, 816, 136, 1, True, True),  # blocks 11-12
+    (6, 6, 96, 576, 160, 2, True, False),  # x1.0 block 13
+    (4, 4, 160, 960, 160, 1, True, True),  # x1.0 blocks 14-15
+    (3, 5, 88, 264, 264, 1, True, False),  # Cout 264 (11 blocks), Ce 264: 5.5 chunks
+]
+
+
+@pytest.mark.parametrize("ks", [1, 2, 3])
+@pytest.mark.parametrize("case", WIDE_CASES)
+def test_wide_chunk_groups_model_matches_reference(case, ks):
+    """The kernel's sums under 1, 2 or 3 chunk groups (each group its share
+    of the chunks in order, then the partial sums added in group order)
+    give the plain version over the packed weights within atol = rtol =
+    2e-2 in bf16 (the card tests' tolerance), with every output written."""
+    h, w, cin, ce, cout, stride, expand, residual = case
+    x, we, be, wd, bd, wp, bp = _block(case, torch.bfloat16)
+    packed = M.pack_mbconv(we, be, wd, bd, wp)
+    ho, wo = h // stride, w // stride
+    plan = M.plan_tile(ho, wo, stride, cin, ce, cout, expand, 2)
+    nm = -(-(plan.th * plan.tw) // 64)
+    plan = plan._replace(nc=nm * ks, ks=ks)
+    got = kernel_model_bf16(x, packed, bp, stride, residual, plan)
+    want = M.reference_mbconv_packed(x, packed, bp, stride=stride, residual=residual)
+    assert not np.isnan(got).any()
+    np.testing.assert_allclose(got, want.double().numpy(), atol=2e-2, rtol=2e-2)
+
+
+@pytest.mark.parametrize("nchunks,ks,wst", [(28, 2, 3), (17, 2, 2), (17, 3, 3), (12, 2, 3),
+                                            (3, 2, 3), (11, 4, 2), (20, 2, 3)])
+def test_wide_ring_protocol_under_chunk_groups(nchunks, ks, wst):
+    """Over 3 items of one CTA, the groups take their chunks without
+    deadlock, and at each reduction every stage holds one of the item's
+    last wst chunks, consumed and not released: the partial sums written
+    over the ring overwrite nothing the producer or a group still needs."""
+    held = ring_schedule(nchunks, ks, wst, 3)
+    assert held == [[i * nchunks + c for c in range(nchunks - wst, nchunks)] for i in range(3)]
+
+
+def test_wide_plans_at_the_real_shapes():
+    """Past Cout 120 the plan takes the instance of exactly the launch's
+    accumulator blocks, at most its warpgroups (3 for Cout 136, 2 past
+    Cout 144), and the chunk groups only where every group's rows cover
+    the tile; the partial sums fit the ring."""
+    for alpha, size in ((1.4, 224), (1.0, 320)):
+        wide = [s for s in _block_shapes(size, alpha) if s[5] > 120]
+        assert len(wide) == {1.4: 6, 1.0: 3}[alpha]
+        for batch in (1, 8, 128):
+            _check_plans(wide, batch)
+            for ho, wo, stride, cin, ce, cout, expand in wide:
+                p = M.plan_tile(ho, wo, stride, cin, ce, cout, expand, batch)
+                nb = M._round_up(cout, M.NBW) // M.NBW
+                assert nb in (6, 7, 10) and M.max_warpgroups(cout) == (3 if nb == 6 else 2)
+                assert p.nc <= M.max_warpgroups(cout)
 
 
 # -- the float32 kernel (mbconv_f32): packing, a model of the kernel, the plan --

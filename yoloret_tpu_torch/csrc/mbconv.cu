@@ -53,6 +53,37 @@
 // chunk (now bf16, half the shared memory and reads) and the depthwise
 // round trip through shared memory.
 //
+// Wide blocks (Cout 121-264: MobileNetV2 x1.4's blocks 10-15, x1.0's
+// 13-15). Each consumer thread holds its 64-row block's project sums,
+// 12 floats per 24 output channels. The first version sized that array
+// for 11 blocks whatever the launch, so its Cout 136 and 224 spilled ~2.6
+// KB a thread at 160 registers and ptxas serialised every wgmma (C7511),
+// and its 7x7 maps ran one warpgroup an SM. Now:
+// - an instance per accumulator count from 6 to 11 holds exactly the
+//   launch's blocks (Cout 136: 6, 160: 7, 224: 10); up to 6 blocks three
+//   consumer warpgroups fit at 160 registers, past that two at 232. The
+//   register file holds no more (six blocks in four warpgroups at 112
+//   spill), so a 14x14 map takes two items an image, not one;
+// - the chunks of a tile may be split among ks groups of nc / ks
+//   warpgroups: group g sums chunks g, g + ks, ... of the whole tile into
+//   its own project sums, expanding each chunk into a buffer of its own;
+//   then groups 1..ks-1 write their sums over the weight ring (whose
+//   stages hold the item's last chunks, released only after this) and
+//   group 0 adds them in group order and stores. No atomics: the same
+//   bits on every launch. A 7x7 map is one 7x8 tile an image with its 17
+//   or 28 chunks split between two warpgroups, so both are busy;
+// - no instance spills and ptxas serialises no wgmma nor injects an
+//   arrive (notes C7510-C7520): the producer keeps 32 registers (at 24 it
+//   spilled one); the warpgroup index comes through a shuffle, so loops
+//   bounded by it are not divergent paths (the chunk groups' loops were,
+//   and their wgmmas serialised, C7520); each expand k16 step is fenced
+//   and committed on its own, and the project's chain is unrolled for the
+//   launch's block count between its fence and commit.
+// plan_tile's wide model (ops/mbconv.py::wide_cost, fitted to every
+// plan's time at the six wide block shapes) chooses tile, warpgroups and
+// groups. tools/mbconv_ablation.py --variants undoes these choices one
+// at a time.
+//
 // Values are rounded to bf16 where the JAX kernel rounds (after the
 // expand, after the depthwise, at the output); sums are float32.
 //
@@ -565,11 +596,16 @@ constexpr int NBW = 24;         // project wgmma N per instruction (Cout padded 
 __host__ __device__ constexpr int es(int stride) { return stride == 1 ? CH + 8 : CH + 4; }
 constexpr int MAX_NC = 4;       // consumer warpgroups, 64 output pixels each
 // Consumer warpgroups a kernel with NB accumulator blocks launches at
-// most: four while the project sums are small (Cout <= 48), else three;
-// with the producer warpgroup that is 640 or 512 threads at 96 or 128
-// registers, and the consumers take 112 or 160 each from what the
-// producer gives back (setmaxnreg moves registers within the CTA).
-__host__ __device__ constexpr int max_nc(int nb) { return nb <= 2 ? 4 : 3; }
+// most: four while the project sums are small (Cout <= 48), three up to
+// NB = 6 (Cout <= 144), else two; with the producer warpgroup that is
+// 640, 512 or 384 threads at 96, 128 or 168 registers. The producer keeps
+// 32 (24 spilled a register) and the consumers take 112, 160 or 232 each
+// from what it gives back (setmaxnreg moves registers within the CTA).
+__host__ __device__ constexpr int max_nc(int nb) { return nb <= 2 ? 4 : nb <= 6 ? 3 : 2; }
+// The wide instances (NB >= 6, Cout 121-264) hold exactly the launch's
+// accumulator blocks, and may split a tile's chunks among `ks` groups of
+// consumer warpgroups (see the note at mbconv_wgmma).
+__host__ __device__ constexpr bool is_wide(int nb) { return nb >= 6; }
 constexpr int BAR_BYTES = 128;  // mbarriers at the start of shared memory
 constexpr int MAX_STAGES = 3;
 
@@ -579,7 +615,7 @@ struct HParams {
   const float* bp;
   bf16* out;
   int H, W, Cin, Ce, Cout, nchunks, expand, residual;
-  int th, tw, nc, xst, wst, tiles_w, items_per_image, items;
+  int th, tw, nc, ks, xst, wst, tiles_w, items_per_image, items;
   int kpad, coutp, win, hin, pin, pinp;
   // bytes: one input stage, one weight chunk and its parts, shared-memory offsets
   uint32_t x_bytes, chunk_bytes, w_stride, wp_off, wd_off, be_off, bd_off;
@@ -694,6 +730,24 @@ __device__ __forceinline__ void wgmma_m64n24_rs(float (&d)[12], const uint32_t (
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
 }
 
+// The project of one chunk for the first R accumulator blocks, issued as
+// one group: acc[nb] += A . wp chunk[:, 24nb : 24nb + 24], k16 step ks of
+// every block, then the next step. Straight-line from fence to commit: a
+// wgmma under a runtime condition, or a fence or commit across a branch,
+// makes ptxas inject arrives (C7519), so the launch's block count picks
+// a chain.
+template <int R, int NB>
+__device__ __forceinline__ void project_chain(float (&acc)[NB][12], const uint32_t (&a)[KS][4],
+                                              uint32_t wp, uint32_t lbo_wp) {
+  wg_fence();
+#pragma unroll
+  for (int ks = 0; ks < KS; ++ks)
+#pragma unroll
+    for (int nb = 0; nb < R; ++nb)
+      wgmma_m64n24_rs(acc[nb], a[ks], gmma_desc(wp + nb * 3 * 128 + 2 * ks * lbo_wp, lbo_wp, 128));
+  wg_commit();
+}
+
 __device__ __forceinline__ void fma4(float s[4], const float e[4], const float4 w) {
   s[0] = fmaf(e[0], w.x, s[0]);
   s[1] = fmaf(e[1], w.y, s[1]);
@@ -740,17 +794,20 @@ __global__ void __launch_bounds__(128 * (max_nc(NB) + 1), 1)
   auto x_empty = [&](int i) { return base + 8 * (MAX_STAGES + i); };
   auto w_full = [&](int i) { return base + 8 * (2 * MAX_STAGES + i); };
   auto w_empty = [&](int i) { return base + 8 * (3 * MAX_STAGES + i); };
-  const int tid = threadIdx.x, wg = tid / 128, lane = tid % 32;
+  // the warpgroup index through a shuffle: ptxas then knows it is the same
+  // in every thread of a warp, and loops bounded by it are not divergent
+  // paths (where an arrive it injects before a wgmma serialises them, C7520)
+  const int tid = threadIdx.x, wg = __shfl_sync(0xffffffffu, tid / 128, 0), lane = tid % 32;
 
   if (tid == 0) {
-    // empties count one arrival per consumer warp
+    // empties count one arrival per consumer warp (of the chunk's group)
     for (int i = 0; i < p.xst; ++i) {
       mbar_init(x_full(i), 1);
       mbar_init(x_empty(i), 4 * p.nc);
     }
     for (int i = 0; i < p.wst; ++i) {
       mbar_init(w_full(i), 1);
-      mbar_init(w_empty(i), 4 * p.nc);
+      mbar_init(w_empty(i), 4 * (p.nc / p.ks));
     }
     asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
   }
@@ -763,7 +820,7 @@ __global__ void __launch_bounds__(128 * (max_nc(NB) + 1), 1)
 
   if (wg == p.nc) {
     // ---- producer warpgroup: one thread issues every load ---------------
-    asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n" ::: "memory");
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 32;\n" ::: "memory");
     if (tid == 128 * p.nc) {
       int xs = 0, ws = 0;
       uint32_t xph = 0, wph = 0;
@@ -790,16 +847,23 @@ __global__ void __launch_bounds__(128 * (max_nc(NB) + 1), 1)
     // ---- consumers: expand, depthwise, project --------------------------
     if constexpr (max_nc(NB) == 4)
       asm volatile("setmaxnreg.inc.sync.aligned.u32 112;\n" ::: "memory");
-    else
+    else if constexpr (max_nc(NB) == 3)
       asm volatile("setmaxnreg.inc.sync.aligned.u32 160;\n" ::: "memory");
+    else
+      asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n" ::: "memory");
+    constexpr bool WIDE = is_wide(NB);
+    // chunk group grp (chunks grp, grp + ks, ...) of nm warpgroups; this
+    // one computes the tile's rows [64 mwg, 64 mwg + 64)
+    const int nm = WIDE ? p.nc / p.ks : p.nc;
+    const int grp = WIDE ? wg / nm : 0, mwg = WIDE ? wg % nm : wg;
     const int wid = (tid / 32) % 4, g = lane >> 2, t4 = lane & 3;
     const int nthreads = 128 * p.nc;
     const int win = p.win, pout = p.th * p.tw, Ho = p.H / S, Wo = p.W / S;
-    const int nbr = p.coutp / NBW, n_mb = p.pinp / 64, ksteps = p.kpad / 16;
+    const int nbr = WIDE ? NB : p.coutp / NBW, n_mb = p.pinp / 64, ksteps = p.kpad / 16;
     // this thread's two rows of the project GEMM, g and g + 8 of its warp's
     // 16, are two neighbouring output pixels of one tile row (tw is even),
     // so their 3x3 windows share taps; hb: the window's top-left halo pixel
-    const int q0 = 64 * wg + 16 * wid + 2 * g;
+    const int q0 = 64 * mwg + 16 * wid + 2 * g;
     const int hb = q0 < pout ? (q0 / p.tw) * S * win + (q0 % p.tw) * S : 0;
     const uint32_t lbo_x = p.pinp * 16, lbo_we = (CH / 8) * 128, lbo_wp = (p.coutp / 8) * 128;
     int xs = 0, ws = 0;
@@ -823,12 +887,15 @@ __global__ void __launch_bounds__(128 * (max_nc(NB) + 1), 1)
 
       // expand of 64-row block mb of a chunk (weights at shared address
       // wa): issue its k16 steps into d, asynchronously
+      // (a fence and a commit each step: at a runtime loop's head and exit
+      // ptxas would inject the arrives itself, note C7519)
       auto expand_issue = [&](int mb, uint32_t wa) {
-        wg_fence();
-        for (int k = 0; k < ksteps; ++k)
+        for (int k = 0; k < ksteps; ++k) {
+          wg_fence();
           wgmma_m64n48_ss(d, gmma_desc(xa + 2 * k * lbo_x + mb * 1024, lbo_x, 128),
                           gmma_desc(wa + 2 * k * lbo_we, lbo_we, 128), k > 0);
-        wg_commit();
+          wg_commit();
+        }
       };
       // its epilogue: + bias, ReLU6, image padding zeroed after the ReLU6,
       // bf16 into the expanded chunk e_s
@@ -853,7 +920,7 @@ __global__ void __launch_bounds__(128 * (max_nc(NB) + 1), 1)
       };
       // this warpgroup's blocks of a chunk from block mb0 on, one at a time
       auto expand_blocks = [&](int mb0, uint32_t wa, const unsigned char* w_s, bf16* e_s) {
-        for (int mb = mb0; mb < n_mb; mb += p.nc) {
+        for (int mb = mb0; mb < n_mb; mb += nm) {
           expand_issue(mb, wa);
           wg_wait0();
           expand_store(mb, w_s, e_s);
@@ -864,16 +931,6 @@ __global__ void __launch_bounds__(128 * (max_nc(NB) + 1), 1)
       auto e_ptr = [&](uint32_t b) {
         return reinterpret_cast<bf16*>(sm + p.e_off + b * p.e_bytes);
       };
-
-      // chunk 0's expand; later chunks' expands run one chunk ahead. It
-      // takes the buffer the previous item's last chunk did not use: every
-      // warpgroup has passed a barrier since it last read that one
-      mbar_wait(w_full(ws), wph);
-      if (p.expand) {
-        ebuf ^= 1;
-        expand_blocks(wg, stage_addr(ws), stage_ptr(ws), e_ptr(ebuf));
-        named_bar_sync(1, nthreads);  // the chunk is read across warpgroups
-      }
 
       // depthwise 3x3 + ReLU6 of chunk c (weights in w_s), f32 sums rounded
       // to bf16 straight into the A fragments of the project wgmma. In k16
@@ -923,18 +980,21 @@ __global__ void __launch_bounds__(128 * (max_nc(NB) + 1), 1)
           a[ks][3] = relu6_bf16x2(s1[2] + b.z, s1[3] + b.w);
         }
       };
-      // project partial sums, issued: acc[nb] += A . wp chunk[:, 24nb : 24nb+24]
-      auto project_issue = [&](const uint32_t (&a)[KS][4], int cval, uint32_t wa) {
-        wg_fence();
-#pragma unroll
-        for (int ks = 0; ks < KS; ++ks)
-#pragma unroll
-          for (int nb = 0; nb < NB; ++nb)
-            if (nb < nbr && 16 * ks < cval)
-              wgmma_m64n24_rs(acc[nb], a[ks],
-                              gmma_desc(wa + p.wp_off + nb * 3 * 128 + 2 * ks * lbo_wp,
-                                        lbo_wp, 128));
-        wg_commit();
+      // project partial sums, issued, over the launch's nbr blocks (NB 2
+      // and 5 take 1-2 and 3-5; a wide instance exactly NB). Every k16 step,
+      // a ragged chunk's padding too: its A fragments and weights are zero
+      auto project_issue = [&](const uint32_t (&a)[KS][4], uint32_t wa) {
+        const uint32_t wp = wa + p.wp_off;
+        if constexpr (NB == 2) {
+          if (nbr == 1) project_chain<1>(acc, a, wp, lbo_wp);
+          else project_chain<2>(acc, a, wp, lbo_wp);
+        } else if constexpr (NB == 5) {
+          if (nbr == 3) project_chain<3>(acc, a, wp, lbo_wp);
+          else if (nbr == 4) project_chain<4>(acc, a, wp, lbo_wp);
+          else project_chain<5>(acc, a, wp, lbo_wp);
+        } else {
+          project_chain<NB>(acc, a, wp, lbo_wp);
+        }
       };
       auto project_done = [&](uint32_t (&a)[KS][4]) {
         wg_wait0();
@@ -944,41 +1004,110 @@ __global__ void __launch_bounds__(128 * (max_nc(NB) + 1), 1)
         for (int ks = 0; ks < KS; ++ks) fence_regs(a[ks]);
       };
 
-      for (int c = 0; c < p.nchunks; ++c) {
-        const int cval = min(CH, p.Ce - c * CH);  // real channels in this chunk (% 8 == 0)
-        mbar_wait(w_full(ws), wph);  // (already passed if the expand ran ahead)
-        const unsigned char* w_s = stage_ptr(ws);
-        uint32_t a[KS][4];
-        if (p.expand && c + 1 < p.nchunks) {
-          // the next chunk's first expand block runs on the tensor cores
-          // while this chunk's depthwise runs on the CUDA cores, and its
-          // epilogue while this chunk's project runs
-          const int ws_n = ws + 1 == p.wst ? 0 : ws + 1;
-          mbar_wait(w_full(ws_n), ws_n == 0 ? wph ^ 1 : wph);
-          expand_issue(wg, stage_addr(ws_n));
-          depthwise(a, c, cval, w_s);
-          project_issue(a, cval, stage_addr(ws));
-          wg_wait1();  // the expand; the project's group is the newer one
-          expand_store(wg, stage_ptr(ws_n), e_ptr(ebuf ^ 1));
-          expand_blocks(wg + p.nc, stage_addr(ws_n), stage_ptr(ws_n), e_ptr(ebuf ^ 1));
+      if (WIDE && p.ks > 1) {
+        // The chunks split among ks groups of nm warpgroups: group grp
+        // sums chunks grp, grp + ks, ... of the tile into its own project
+        // accumulators, expanding each into its own buffer (no run-ahead:
+        // two group barriers a chunk). Stage of chunk c: this CTA's item
+        // count k times nchunks plus c, modulo wst, as the producer fills
+        // them. The stages of the item's last wst chunks are released only
+        // after the reduction below, which uses them.
+        const int k_item = (item - int(blockIdx.x)) / int(gridDim.x);
+        ebuf = grp;
+        for (int c = grp; c < p.nchunks; c += p.ks) {
+          const int cval = min(CH, p.Ce - c * CH);
+          const int s = k_item * p.nchunks + c, st = s % p.wst;
+          mbar_wait(w_full(st), (s / p.wst) & 1);
+          if (p.expand) {
+            expand_blocks(mwg, stage_addr(st), stage_ptr(st), e_ptr(ebuf));
+            named_bar_sync(2 + grp, 128 * nm);  // the chunk is read across the group
+          }
+          uint32_t a[KS][4];
+          depthwise(a, c, cval, stage_ptr(st));
+          project_issue(a, stage_addr(st));
           project_done(a);
-          if (lane == 0) mbar_arrive(w_empty(ws));  // this warp is done with the stage
-          named_bar_sync(1, nthreads);  // the next chunk is read across warpgroups
-          ebuf ^= 1;
-        } else {
-          depthwise(a, c, cval, w_s);
-          project_issue(a, cval, stage_addr(ws));
-          project_done(a);
-          if (lane == 0) mbar_arrive(w_empty(ws));
+          if (lane == 0 && c < p.nchunks - p.wst) mbar_arrive(w_empty(st));
+          if (p.expand) named_bar_sync(2 + grp, 128 * nm);  // read before the next expand
         }
-        if (++ws == p.wst) { ws = 0; wph ^= 1; }
+        // Reduction in a fixed order, no atomics: groups 1..ks-1 write
+        // their sums to the weight ring (every stage holds one of the
+        // item's last wst chunks, read by now and not yet released, so the
+        // producer writes none), group 0 adds them in group order. A
+        // thread writes the accumulators of its own fragment position, the
+        // one that holds the same outputs in group 0: [group][M block]
+        // [register][thread], conflict-free.
+        named_bar_sync(1, nthreads);  // every group is done with every stage
+        float* red = reinterpret_cast<float*>(sm + p.w_off) + (tid % 128);
+        const int part = nbr * 12 * 128;
+        if (grp > 0) {
+          float* r = red + ((grp - 1) * nm + mwg) * part;
+#pragma unroll
+          for (int nb = 0; nb < NB; ++nb)
+#pragma unroll
+            for (int i = 0; i < 12; ++i) r[(nb * 12 + i) * 128] = acc[nb][i];
+        }
+        named_bar_sync(1, nthreads);
+        if (grp == 0)
+          for (int gg = 1; gg < p.ks; ++gg) {
+            const float* r = red + ((gg - 1) * nm + mwg) * part;
+#pragma unroll
+            for (int nb = 0; nb < NB; ++nb)
+#pragma unroll
+              for (int i = 0; i < 12; ++i) acc[nb][i] += r[(nb * 12 + i) * 128];
+          }
+        // the ring's next writes are the producer's bulk copies
+        asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+        named_bar_sync(1, nthreads);
+        if (lane == 0)
+          for (int c = p.nchunks - p.wst; c < p.nchunks; ++c)
+            if (c % p.ks == grp) mbar_arrive(w_empty((k_item * p.nchunks + c) % p.wst));
+      } else {
+        // chunk 0's expand; later chunks' expands run one chunk ahead. It
+        // takes the buffer the previous item's last chunk did not use: every
+        // warpgroup has passed a barrier since it last read that one
+        mbar_wait(w_full(ws), wph);
+        if (p.expand) {
+          ebuf ^= 1;
+          expand_blocks(wg, stage_addr(ws), stage_ptr(ws), e_ptr(ebuf));
+          named_bar_sync(1, nthreads);  // the chunk is read across warpgroups
+        }
+
+        for (int c = 0; c < p.nchunks; ++c) {
+          const int cval = min(CH, p.Ce - c * CH);  // real channels in this chunk (% 8 == 0)
+          mbar_wait(w_full(ws), wph);  // (already passed if the expand ran ahead)
+          const unsigned char* w_s = stage_ptr(ws);
+          uint32_t a[KS][4];
+          if (p.expand && c + 1 < p.nchunks) {
+            // the next chunk's first expand block runs on the tensor cores
+            // while this chunk's depthwise runs on the CUDA cores, and its
+            // epilogue while this chunk's project runs
+            const int ws_n = ws + 1 == p.wst ? 0 : ws + 1;
+            mbar_wait(w_full(ws_n), ws_n == 0 ? wph ^ 1 : wph);
+            expand_issue(wg, stage_addr(ws_n));
+            depthwise(a, c, cval, w_s);
+            project_issue(a, stage_addr(ws));
+            wg_wait1();  // the expand; the project's group is the newer one
+            expand_store(wg, stage_ptr(ws_n), e_ptr(ebuf ^ 1));
+            expand_blocks(wg + p.nc, stage_addr(ws_n), stage_ptr(ws_n), e_ptr(ebuf ^ 1));
+            project_done(a);
+            if (lane == 0) mbar_arrive(w_empty(ws));  // this warp is done with the stage
+            named_bar_sync(1, nthreads);  // the next chunk is read across warpgroups
+            ebuf ^= 1;
+          } else {
+            depthwise(a, c, cval, w_s);
+            project_issue(a, stage_addr(ws));
+            project_done(a);
+            if (lane == 0) mbar_arrive(w_empty(ws));
+          }
+          if (++ws == p.wst) { ws = 0; wph ^= 1; }
+        }
       }
 
       // epilogue: + bias [+ residual], round, store the pixels inside the map
 #pragma unroll
       for (int r = 0; r < 2; ++r) {  // accumulator row g + 8r: pixel q0 + r
         const int q = q0 + r;
-        if (q >= pout) continue;
+        if (q >= pout || grp > 0) continue;  // (with chunk groups, group 0 stores)
         const int qy = q / p.tw, qx = q % p.tw;
         const int oy = oy0 + qy, ox = ox0 + qx;
         if (oy >= Ho || ox >= Wo) continue;
@@ -1029,7 +1158,14 @@ void h_layout(HParams& p, int stride) {
   p.x_off = BAR_BYTES;
   p.w_off = p.x_off + p.xst * p.x_bytes;
   p.e_off = p.w_off + p.wst * p.w_stride;
-  p.smem = p.e_off + 2 * p.e_bytes + 128;  // + room to align the base to 128 bytes
+  // expanded chunks: two (one ahead), or one for each chunk group
+  p.smem = p.e_off + (p.ks > 1 ? p.ks : 2) * p.e_bytes + 128;  // + room to align the base
+}
+
+// Bytes of the chunk groups' partial sums (groups 1..ks-1), which the
+// reduction writes over the weight ring.
+uint32_t red_bytes(const HParams& p) {
+  return uint32_t(p.ks - 1) * (p.nc / p.ks) * 128 * (p.coutp / NBW) * 12 * 4;
 }
 
 typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
@@ -1066,14 +1202,24 @@ cudaError_t launch_wgmma(const CUtensorMap& map, const HParams& p, int grid,
   return cudaGetLastError();
 }
 
+// The instance for a launch: NB 2 or 5 hold up to that many accumulator
+// blocks (Cout <= 120); past that, the instance with exactly the launch's.
 template <int S>
 cudaError_t launch_wgmma_nb(const CUtensorMap& map, const HParams& p, int grid,
                             cudaStream_t stream) {
   const int nbr = p.coutp / NBW;
-  if (nbr <= 2) return launch_wgmma<S, 2>(map, p, grid, stream);
-  if (nbr <= 5) return launch_wgmma<S, 5>(map, p, grid, stream);
-  if (nbr <= 11) return launch_wgmma<S, 11>(map, p, grid, stream);
-  return cudaErrorInvalidValue;
+  if (p.ks > 1 && !is_wide(nbr)) return cudaErrorInvalidValue;
+  switch (nbr) {
+    case 1: case 2: return launch_wgmma<S, 2>(map, p, grid, stream);
+    case 3: case 4: case 5: return launch_wgmma<S, 5>(map, p, grid, stream);
+    case 6: return launch_wgmma<S, 6>(map, p, grid, stream);
+    case 7: return launch_wgmma<S, 7>(map, p, grid, stream);
+    case 8: return launch_wgmma<S, 8>(map, p, grid, stream);
+    case 9: return launch_wgmma<S, 9>(map, p, grid, stream);
+    case 10: return launch_wgmma<S, 10>(map, p, grid, stream);
+    case 11: return launch_wgmma<S, 11>(map, p, grid, stream);
+    default: return cudaErrorInvalidValue;
+  }
 }
 
 }  // namespace
@@ -1122,19 +1268,22 @@ int yrt_mbconv_f32(const void* x, const void* w, const void* bp, void* out, int 
 // bfloat16: x [B, H, W, Cin]; w the packed weights of ops/mbconv.py::
 // pack_mbconv (nchunks chunks); bp [Cout] float32; out [B, H/stride,
 // W/stride, Cout]. The tile plan (th x tw output pixels, nc consumer
-// warpgroups, xst input and wst weight stages, a persistent grid of
-// `grid` CTAs, `smem` bytes) comes from ops/mbconv.py::plan_tile; a plan
+// warpgroups in ks chunk groups, xst input and wst weight stages, a
+// persistent grid of `grid` CTAs, `smem` bytes) comes from
+// ops/mbconv.py::plan_tile; a plan
 // this file would lay out differently is refused. Needs Cin % 8 == 0,
 // Cout % 8 == 0 and x 16-byte aligned. Returns the CUDA error (0 on success).
 int yrt_mbconv_bf16(const void* x, const void* w, const void* bp, void* out, int B, int H, int W,
                     int Cin, int Ce, int Cout, int nchunks, int stride, int expand, int residual,
-                    int th, int tw, int nc, int xst, int wst, int grid, int smem, void* stream) {
+                    int th, int tw, int nc, int ks, int xst, int wst, int grid, int smem,
+                    void* stream) {
   if (Cin % 8 || Cout % 8 || (stride != 1 && stride != 2) ||
       (stride == 2 && (H % 2 || W % 2)) || (residual && (stride != 1 || Cin != Cout)) ||
       reinterpret_cast<uintptr_t>(x) % 16 || reinterpret_cast<uintptr_t>(w) % 16 || th < 1 ||
-      tw < 2 || tw % 2 || nc < 1 || nc > MAX_NC || th * tw > 64 * nc || xst < 1 ||
-      xst > MAX_STAGES || wst < 1 || wst > MAX_STAGES || grid < 1 || Ce % 8 ||
-      nchunks != (Ce + CH - 1) / CH || (!expand && Ce != Cin))
+      tw < 2 || tw % 2 || nc < 1 || nc > MAX_NC || ks < 1 || nc % ks ||
+      th * tw > 64 * (nc / ks) || xst < 1 || xst > MAX_STAGES || wst < 1 || wst > MAX_STAGES ||
+      grid < 1 || Ce % 8 || nchunks != (Ce + CH - 1) / CH || (!expand && Ce != Cin) ||
+      (ks > 1 && (nchunks < wst || nchunks < ks)))
     return int(cudaErrorInvalidValue);
   HParams p;
   p.w = static_cast<const unsigned char*>(w);
@@ -1142,13 +1291,14 @@ int yrt_mbconv_bf16(const void* x, const void* w, const void* bp, void* out, int
   p.out = static_cast<bf16*>(out);
   p.H = H; p.W = W; p.Cin = Cin; p.Ce = Ce; p.Cout = Cout; p.nchunks = nchunks;
   p.expand = expand; p.residual = residual;
-  p.th = th; p.tw = tw; p.nc = nc; p.xst = xst; p.wst = wst;
+  p.th = th; p.tw = tw; p.nc = nc; p.ks = ks; p.xst = xst; p.wst = wst;
   const int Ho = H / stride, Wo = W / stride;
   p.tiles_w = (Wo + tw - 1) / tw;
   p.items_per_image = p.tiles_w * ((Ho + th - 1) / th);
   p.items = B * p.items_per_image;
   h_layout(p, stride);
-  if (int(p.smem) != smem || p.smem > SMEM_LIMIT || p.win > 256 || p.hin > 256)
+  if (int(p.smem) != smem || p.smem > SMEM_LIMIT || p.win > 256 || p.hin > 256 ||
+      red_bytes(p) > p.wst * p.w_stride)
     return int(cudaErrorInvalidValue);
 
   EncodeTiledFn encode = encode_tiled();

@@ -33,8 +33,9 @@ BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "yoloret_tpu_torch"
 ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
 BASE_FLAGS = ["-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 # nms.cu: no FMA contraction, so IoU and its threshold test round exactly
-# as the plain PyTorch version does.
-EXTRA_FLAGS = {"mbconv": [], "nms": ["-fmad=false"]}
+# as the plain PyTorch version does. mbconv.cu: its 18 kernels compiled in
+# parallel (tools/mbconv_ablation.py --variants times the build both ways).
+EXTRA_FLAGS = {"mbconv": ["-split-compile=0"], "nms": ["-fmad=false"]}
 # Host libraries: name -> source. g++ flags of yoloret_tpu/native/__init__.py.
 HOST_SOURCES = {"native": PKG / "native" / "dataloader.cc"}
 HOST_FLAGS = ["-O3", "-march=native", "-shared", "-fPIC"]

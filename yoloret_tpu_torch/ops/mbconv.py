@@ -28,7 +28,10 @@ barriers per chunk, its f32 expanded chunk and its depthwise round trip
 through shared memory (see the note at the top of the CUDA source).
 ``plan_tile`` chooses the output tile, the warpgroups, the pipeline
 stages and the persistent grid, and checks shared memory against the
-227 KB a block may use.
+227 KB a block may use. Past Cout 120 an instance holds exactly the
+launch's accumulator blocks, two or three warpgroups fit the register
+file, and a tile's chunks may be split among groups of warpgroups whose
+partial sums are added in a fixed order (``_plan_wide``, ``wide_cost``).
 
 float32 (``mbconv_f32``), the port's exact mode: the float32 evaluation
 path (the self-check's verdict, the accuracy gate, the top-k study, every
@@ -47,7 +50,7 @@ expand 1x1 + ReLU6 -> depthwise 3x3 "SAME" + ReLU6 -> project 1x1
 float32, rounded to the input dtype after the expand, after the
 depthwise and at the output, as the JAX kernel rounds. The kernels take
 Cin and Cout multiples of 8 (bfloat16; float32 Cin % 4), Cout <= 264 in
-bfloat16; every block of MobileNetV2 x0.75 fits.
+bfloat16; every block of MobileNetV2 x0.75, x1.0 and x1.4 fits.
 
 Layouts, as in the JAX kernel: x [B, H, W, Cin]; we [Cin, Ce] (None
 without expand); wd [3, 3, Ce]; wp [Ce, Cout] in x's dtype; biases be
@@ -72,7 +75,7 @@ from yoloret_tpu_torch.ops import _build
 _vp, _ci = ctypes.c_void_p, ctypes.c_int
 _PROTOTYPES = {
     "yrt_mbconv_f32": ([_vp] * 4 + [_ci] * 16 + [_vp], _ci),
-    "yrt_mbconv_bf16": ([_vp] * 4 + [_ci] * 17 + [_vp], _ci),
+    "yrt_mbconv_bf16": ([_vp] * 4 + [_ci] * 18 + [_vp], _ci),
     "yrt_error_string": ([_ci], ctypes.c_char_p),
 }
 
@@ -80,6 +83,7 @@ _PROTOTYPES = {
 CH = 48  # expanded channels per chunk: the expand wgmma's N, the project's K
 NBW = 24  # project wgmma N per instruction; Cout is padded to a multiple
 MAX_NB = 11  # project accumulator blocks: Cout <= 264
+WIDE_NB = 6  # from here on an instance holds exactly the launch's blocks
 SMEM_LIMIT = 232448  # 227 KB, what one block may use on sm_90
 SM_SHARED = 233472  # 228 KB of shared memory per SM, 1 KB reserved per block
 BAR_BYTES = 128
@@ -348,12 +352,12 @@ class KernelLayout(NamedTuple):
 
 
 def kernel_layout(stride: int, th: int, tw: int, cin: int, cout: int, expand: bool,
-                  xst: int, wst: int) -> KernelLayout:
+                  xst: int, wst: int, ks: int = 1) -> KernelLayout:
     """Shared-memory layout of the bf16 kernel for a th x tw output tile
     (the same formulas as ``h_layout`` in csrc/mbconv.cu): barriers, xst
-    input stages [kpad/8][pinp][8], wst weight stages, two expanded
-    chunks [pin][CH + 8 (stride 1) or CH + 4 (stride 2)] bf16, and 128
-    bytes to align the base."""
+    input stages [kpad/8][pinp][8], wst weight stages, expanded chunks
+    [pin][CH + 8 (stride 1) or CH + 4 (stride 2)] bf16 (two, or with ks > 1
+    chunk groups one a group), and 128 bytes to align the base."""
     kpad, coutp = _round_up(cin, 16), _round_up(cout, NBW)
     hin, win = (th - 1) * stride + 3, (tw - 1) * stride + 3
     pin = hin * win
@@ -361,8 +365,14 @@ def kernel_layout(stride: int, th: int, tw: int, cin: int, cout: int, expand: bo
     x_bytes = kpad * pinp * 2
     cb = chunk_bytes(kpad, coutp, expand)
     smem = (BAR_BYTES + xst * x_bytes + wst * _round_up(cb, 128)
-            + 2 * _round_up(pin * (CH + 8 if stride == 1 else CH + 4) * 2, 128) + 128)
+            + max(2, ks) * _round_up(pin * (CH + 8 if stride == 1 else CH + 4) * 2, 128) + 128)
     return KernelLayout(kpad, coutp, hin, win, pin, pinp, x_bytes, cb, smem)
+
+
+def red_bytes(nc: int, ks: int, cout: int) -> int:
+    """Bytes of the partial sums of chunk groups 1..ks-1, which the
+    reduction writes over the weight ring (``red_bytes`` in the source)."""
+    return (ks - 1) * (nc // ks) * 128 * (_round_up(cout, NBW) // NBW) * 12 * 4
 
 
 class TilePlan(NamedTuple):
@@ -375,6 +385,7 @@ class TilePlan(NamedTuple):
     items: int  # (image, tile) work items
     grid: int  # persistent CTAs
     ctas_per_sm: int
+    ks: int = 1  # chunk groups: nc // ks warpgroups each, a share of the chunks
 
 
 _STAGES = ((2, 3), (2, 2), (1, 2))  # (input, weight) stages, most first
@@ -397,7 +408,10 @@ def plan_tile(h_out: int, w_out: int, stride: int, cin: int, ce: int, cout: int,
     most 64-row expand blocks (``EXPAND_COST`` each) plus one depthwise
     and project (``DEPTHWISE_COST``); an item adds a fixed ``ITEM_COST``,
     and ``ONE_STAGE_COST`` more when only one input stage fits (the next
-    tile's load then waits for this one); ties go to the smaller halo."""
+    tile's load then waits for this one); ties go to the smaller halo.
+    Past Cout 120 (``WIDE_NB`` accumulator blocks) ``_plan_wide`` plans."""
+    if _round_up(cout, NBW) // NBW >= WIDE_NB:
+        return _plan_wide(h_out, w_out, stride, cin, ce, cout, expand, batch, num_sms)
     nchunks = -(-ce // CH)
     max_nc = max_warpgroups(cout)
     best, best_key = None, None
@@ -425,18 +439,107 @@ def plan_tile(h_out: int, w_out: int, stride: int, cin: int, ce: int, cout: int,
         raise ValueError(f"no tile of the bf16 kernel fits {h_out}x{w_out}, Cin={cin}, "
                          f"Cout={cout} in {SMEM_LIMIT} bytes of shared memory")
     th, tw, nc, xst, wst, smem, tiles = best
-    threads = 128 * (nc + 1)  # consumer warpgroups and the producer warpgroup
-    regs = 65536 // (128 * (max_nc + 1))  # per thread at launch, as compiled
-    per_sm = max(1, min(SM_SHARED // (smem + 1024), 65536 // (threads * regs),
-                        2048 // threads))
+    per_sm = _ctas_per_sm(smem, nc, max_nc)
     items = batch * tiles
     return TilePlan(th, tw, nc, xst, wst, smem, items, min(items, num_sms * per_sm), per_sm)
 
 
+# _plan_wide's time model of one launch, in units of 0.30 us, fitted to the
+# block times of every plan of x1.4 @224's and x1.0 @320's wide blocks at
+# b128 on an H100 (tools/mbconv_ablation.py --plans; 653 launches,
+# log-error 8.2% rms): a group's chunk takes its rounds of 64-row expand
+# blocks (WIDE_EXPAND_K per k16 step of one) and the depthwise and project
+# (WIDE_CHUNK); the consumer warpgroups of a CTA share one SM, so each
+# further one slows every chunk by WIDE_SHARE; an item adds WIDE_ITEM, and
+# WIDE_ONE_STAGE with one input stage when the CTA takes more than one
+# item. A launch takes its CTAs' rounds of items. (The project's width and
+# the chunk groups' reduction fitted to no cost.) It picks the fastest
+# measured plan at four of the six shapes, and one within 1.6% and 3.5% of
+# it on the 14x14 maps, where the best five plans lie within 4%.
+WIDE_EXPAND_K, WIDE_CHUNK, WIDE_SHARE, WIDE_ITEM, WIDE_ONE_STAGE = 0.268, 3.73, 0.358, 25.2, 16.5
+
+
+def wide_cost(h_out: int, w_out: int, stride: int, cin: int, ce: int, cout: int, expand: bool,
+              batch: int, th: int, tw: int, nc: int, ks: int, xst: int, wst: int,
+              num_sms: int = 132) -> float:
+    """``_plan_wide``'s modelled time of one launch under a plan."""
+    lay = kernel_layout(stride, th, tw, cin, cout, expand, xst, wst, ks)
+    rounds = -(-(lay.pinp // 64) // (nc // ks)) if expand else 0
+    chunk = (rounds * WIDE_EXPAND_K * lay.kpad / 16 + WIDE_CHUNK) * (1 + WIDE_SHARE * (nc - 1))
+    items = batch * -(-h_out // th) * -(-w_out // tw)
+    per_cta = -(-items // min(items, num_sms * _ctas_per_sm(lay.smem, nc, max_warpgroups(cout))))
+    nchunks = -(-ce // CH)
+    item = (-(-nchunks // ks) * chunk + WIDE_ITEM
+            + (WIDE_ONE_STAGE if xst == 1 and per_cta > 1 else 0.0))
+    return per_cta * item
+
+
+def wide_plans(h_out: int, w_out: int, stride: int, cin: int, ce: int, cout: int, expand: bool,
+               batch: int, num_sms: int = 132):
+    """Every launch the wide instances take for one block shape, with its
+    ``wide_cost``: (cost, plan) for each tile, warpgroups and chunk groups,
+    with the most pipeline stages that fit (with chunk groups, no more
+    weight stages than chunks, and room in them for the groups' partial
+    sums)."""
+    nchunks = -(-ce // CH)
+    max_nc = max_warpgroups(cout)
+    for th in range(1, min(h_out, 64) + 1):
+        for tw in range(2, min(_round_up(w_out, 2), 64) + 1, 2):
+            nm = -(-(th * tw) // 64)
+            if nm > max_nc:
+                break
+            for ks in range(1, min(max_nc // nm, nchunks) + 1):
+                nc = nm * ks
+                for xst, wst in ((2, 3), (1, 3), (2, 2), (1, 2)):
+                    lay = kernel_layout(stride, th, tw, cin, cout, expand, xst, wst, ks)
+                    if (lay.smem <= SMEM_LIMIT and lay.win <= 256 and lay.hin <= 256
+                            and (ks == 1 or (wst <= nchunks and red_bytes(nc, ks, cout)
+                                             <= wst * _round_up(lay.chunk_bytes, 128)))):
+                        break
+                else:
+                    continue
+                items = batch * -(-h_out // th) * -(-w_out // tw)
+                per_sm = _ctas_per_sm(lay.smem, nc, max_nc)
+                yield (wide_cost(h_out, w_out, stride, cin, ce, cout, expand, batch, th, tw, nc,
+                                 ks, xst, wst, num_sms),
+                       TilePlan(th, tw, nc, xst, wst, lay.smem, items,
+                                min(items, num_sms * per_sm), per_sm, ks))
+
+
+def _plan_wide(h_out, w_out, stride, cin, ce, cout, expand, batch, num_sms) -> TilePlan:
+    """``plan_tile`` past Cout 120: the instance holds exactly the launch's
+    accumulator blocks and at most ``max_warpgroups(cout)`` consumer
+    warpgroups, which may split the tile's chunks among ks groups (each
+    group nc / ks warpgroups of 64 rows; the partial sums added in group
+    order). Of ``wide_plans`` the least ``wide_cost``, then the smaller
+    halo, then the fewer warpgroups."""
+    def key(cp):
+        cost, p = cp
+        return cost, ((p.th - 1) * stride + 3) * ((p.tw - 1) * stride + 3), p.nc
+
+    best = min(wide_plans(h_out, w_out, stride, cin, ce, cout, expand, batch, num_sms), key=key,
+               default=None)
+    if best is None:
+        raise ValueError(f"no tile of the bf16 kernel fits {h_out}x{w_out}, Cin={cin}, "
+                         f"Cout={cout} in {SMEM_LIMIT} bytes of shared memory")
+    return best[1]
+
+
+def _ctas_per_sm(smem: int, nc: int, max_nc: int) -> int:
+    """CTAs of a launch one SM holds, by shared memory, registers (each
+    thread has what the instance was compiled for: the register file over
+    its most threads) and threads."""
+    threads = 128 * (nc + 1)  # consumer warpgroups and the producer warpgroup
+    regs = 65536 // (128 * (max_nc + 1))
+    return max(1, min(SM_SHARED // (smem + 1024), 65536 // (threads * regs), 2048 // threads))
+
+
 def max_warpgroups(cout: int) -> int:
     """Consumer warpgroups the bf16 kernel takes: four while its project
-    sums are small (Cout <= 48), else three (``max_nc`` in the source)."""
-    return 4 if _round_up(cout, NBW) <= 2 * NBW else 3
+    sums are small (Cout <= 48), three up to Cout 144, else two (``max_nc``
+    in the source: the register file holds no more accumulators)."""
+    nb = _round_up(cout, NBW) // NBW
+    return 4 if nb <= 2 else 3 if nb <= WIDE_NB else 2
 
 
 class F32Layout(NamedTuple):
@@ -709,7 +812,7 @@ def fused_mbconv(
             rc = lib.yrt_mbconv_bf16(
                 x.data_ptr(), packed.w.data_ptr(), bp.data_ptr(), out.data_ptr(), b, h, w, cin,
                 ce, cout, packed.nchunks, stride, int(expand), int(residual), plan.th, plan.tw,
-                plan.nc, plan.xst, plan.wst, plan.grid, plan.smem, stream)
+                plan.nc, plan.ks, plan.xst, plan.wst, plan.grid, plan.smem, stream)
     else:
         plan = plan_tile_f32(h // stride, w // stride, stride, cin, ce, cout, expand, b,
                              num_sms)
