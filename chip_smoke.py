@@ -12,7 +12,9 @@ Phases (any failure exits non-zero and prints no result):
    data path then decodes with PIL) and print each kernel's ``ptxas``
    registers and spills; every bf16 MBConv instance (``mbconv_wgmma<S,NB>``)
    must show 0 bytes of spill stores and the library no ptxas note on its
-   wgmmas (C7510-C7520: serialised, or an arrive injected).
+   wgmmas (C7510-C7520: serialised, or an arrive injected); every
+   per-class NMS instance (``nms_kernel<NPL>``) no stack frame and 0 bytes
+   of spill stores.
 2. Each kernel against its plain PyTorch version on the card, at the
    serving path's shapes: the fused MBConv at all 16 backbone blocks of
    MobileNetV2 x0.75 (float32, ``mbconv_f32``, with TF32 off at [2, 320]
@@ -150,9 +152,11 @@ Phases (any failure exits non-zero and prints no result):
    (``nms_kernel``, per-class pools of 256 over 9,387 positions), float32
    card vs CPU detections, the MBConv kernel against its plain version at
    x0.75 @224 (b2 and b128) and timed with its tile plan, ``nms_kernel``
-   exactly against its plain version on the zoom's pools (B=128 and 1)
-   and timed, zoom serving img/s and its profile; then int8 with zoom at
-   b8 (0 + 1).
+   exactly against its plain version on the zoom's pools (serving, K=256
+   t=0.3, and MAP grade, K=512 t=0; B=128 and 1; sorted as the path gives
+   them, the walk, and shuffled, the rounds) and timed, each pool size a
+   row of the kernels line, zoom serving img/s and its profile; then int8
+   with zoom at b8 (0 + 1).
 12. The EXPORT path (``yoloret_tpu_torch/export/``, the kernels as the
    operators ``yoloret::mbconv`` and ``yoloret::nms``): the CLI's
    ``--mode=EXPORT --bf16`` on the flagship weights at batch 1, the
@@ -263,7 +267,9 @@ Phases (any failure exits non-zero and prints no result):
    shown to fail that gate; bf16 matched counts printed; the launch
    counters (zoom: 64 MBConv for the forward and 64 for the crop a b128
    batch, the crop's counted on its forwards alone; int8: none; one NMS
-   a data shard);
+   a data shard); zoom: ``nms_kernel`` held exactly against its plain
+   version on each data shard's per-class pools of a b128 batch
+   (``held_per_class_nms``);
    img/s beside one device, in turns; the MBConv kernel on each slab of
    the crop's row-sharded forward (b64, [64, 128 / 96 rows of 224]) as in
    (c) (the kernels line's crop-slab rows).
@@ -549,6 +555,24 @@ def check_wgmma_ptxas(report):
         raise AssertionError(f"bf16 MBConv instances: spill stores {spills}, notes {notes}")
     log(f"  ptxas: {len(spills)} bf16 instances, 0 bytes of spill stores each, no wgmma note "
         "(C7510-C7520)")
+
+
+def check_per_class_ptxas(report):
+    """Every per-class NMS instance (``nms_kernel<NPL>``) compiled with 0
+    bytes of spill stores and no stack frame (local memory); prints each
+    instance's lines."""
+    from yoloret_tpu_torch.ops import _build
+
+    lines = [ln for ln in ptxas_lines(_build.ptxas_log("nms")) if ln.startswith("nms_kernel")]
+    local = {ln.split(":")[0]: [int(m.group(1)), int(m.group(2))] for ln in lines
+             for m in [re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores", ln)] if m}
+    for ln in lines:
+        log(f"  ptxas per-class NMS instance {ln}")
+    report["ptxas_per_class"] = dict(lines=lines, stack_and_spill_bytes=local)
+    if len(local) != 5 or any(v != [0, 0] for v in local.values()):
+        raise AssertionError(f"nms_kernel instances: stack frame and spill stores {local}")
+    log(f"  ptxas: {len(local)} per-class NMS instances, no stack frame and 0 bytes of spill "
+        "stores each")
 
 
 def cuda_time_ms(fn, iters=10, warmup=2, flush=None):
@@ -2995,10 +3019,11 @@ def zoom_phase(state, seed, report):
     + 1 NMS a forward, the per-class kernel), float32 card vs CPU, the
     MBConv kernel against its plain version at the crop's shapes (b2 and
     b128) and timed with its tile plan, ``nms_kernel`` held exactly
-    against its plain version on the zoom's per-class pools and timed,
-    zoom serving img/s and its profile; then int8 with zoom once at b8
-    (0 MBConv + 1 NMS).
-    Returns the kernels line's two rows."""
+    against its plain version on the zoom's per-class pools (serving,
+    K=ZOOM_K t=0.3, and MAP grade, K=512 t=0; b128 and b1; sorted as the
+    path gives them and shuffled) and timed, zoom serving img/s and its
+    profile; then int8 with zoom once at b8 (0 MBConv + 1 NMS).
+    Returns the kernels line's three rows."""
     import numpy as np
     import torch
 
@@ -3015,7 +3040,9 @@ def zoom_phase(state, seed, report):
     log(f"== zoom: {pred.model.backbone} @{SIZE} with the centre {pred.zoom_hw} crop, bf16, "
         f"per-class pools of {ZOOM_K} (MAP grade 512)")
     launches = drive_main_path(pred, map_pred, seed, out, mbconv_per_forward=32)
-    nms_launches = out["main_path"]["nms_variant_launches"]["per_class"]
+    # one per-class launch a forward: the MAP-grade Predictor's, and the rest
+    map_launches = map_pred.forwards
+    nms_launches = out["main_path"]["nms_variant_launches"]["per_class"] - map_launches
     check_against_cpu(pred, seed, out, zoom_ensemble=True, zoom_hw=pred.zoom_hw)
     g = torch.Generator(device=DEVICE).manual_seed(0)
     images = torch.randint(0, 256, (BATCH, SIZE, SIZE, 3), generator=g, device=DEVICE,
@@ -3033,30 +3060,44 @@ def zoom_phase(state, seed, report):
     mbconv = time_mbconv(pred, flush, batch=BATCH, size=zh)
     rows = [mbconv_entry(pred, f"@zoom{zh}", launches["mbconv"] // 2, max(errs), mbconv, BATCH,
                          zh, "the zoom drive's crop passes, 16 of its 32 a forward")]
-    cases = []
-    boxes, scores = zoom_candidates(pred, ZOOM_K, seed=21)
-    c, n_pos = scores.shape[1], exact_k(SIZE) + exact_k(zh)
-    for b in (BATCH, 1):
-        same, err, dets = nms_exact(boxes[:b].contiguous(), scores[:b].contiguous(), 0.3,
-                                    float("-inf"))
-        plan = plan_nms(c, ZOOM_K, 20, False)
-        cases.append(dict(batch=b, exact=same, max_abs_err=err, detections=dets,
-                          plan=plan._asdict()))
-        log(f"  nms kernel vs plain, zoom per-class pools b{b} C={c} K={ZOOM_K} over {n_pos} "
-            f"positions t=0.3 ({plan.variant} kernel, {plan.npl} candidates a lane): max abs "
-            f"err {err} (tolerance 0: exact), {dets} detections")
-        if not same or dets == 0:
-            raise AssertionError(f"nms zoom b{b}: kernel differs from plain by {err}")
-    t = time_nms_case(boxes, scores, 0.3, flush, f"per-class K={ZOOM_K} (zoom)")
-    out["nms_check"], out["nms_timing"] = cases, t
-    rows.append(dict(
-        name="nms_per_class@zoom", route="cuda", source="yoloret_tpu_torch/csrc/nms.cu",
-        replaces="yoloret_tpu/ops/nms_pallas.py:36",
-        shapes=f"per-class pools b{BATCH} C={c} K={ZOOM_K} over {n_pos} positions ({SIZE} and "
-               f"its {zh} crop) t=0.3 max_det 20; launches: the zoom drive's",
-        launches=nms_launches, max_abs_err=0.0, ms=t["ms"], plain_ms=t["plain_ms"],
-        bound_ms=t["bound_ms"], bound_by=t["bound_by"], library_ms=None))
-    del boxes, scores, pred
+    cases, timings = [], {}
+    n_pos = exact_k(SIZE) + exact_k(zh)
+    # the serving pools (K=ZOOM_K, t=0.3) and the MAP grade's (K=512, t=0), as
+    # the path sorts them (the walk) and shuffled (the rounds)
+    for k, thr, name, where, n in ((ZOOM_K, 0.3, "nms_per_class@zoom", "serving", nms_launches),
+                                   (512, 0.0, "nms_per_class@zoom_map", "MAP-grade",
+                                    map_launches)):
+        boxes, scores = zoom_candidates(pred, k, seed=21)
+        c = scores.shape[1]
+        plan = plan_nms(c, k, 20, False)
+        for order in ("sorted", "shuffled"):
+            if order == "shuffled":
+                boxes, scores = shuffle_pools(boxes, scores, seed=1)
+            for b in (BATCH, 1):
+                same, err, dets = nms_exact(boxes[:b].contiguous(), scores[:b].contiguous(), thr,
+                                            float("-inf"))
+                cases.append(dict(batch=b, k=k, order=order, exact=same, max_abs_err=err,
+                                  detections=dets, plan=plan._asdict()))
+                log(f"  nms kernel vs plain, zoom per-class pools b{b} C={c} K={k} {order} over "
+                    f"{n_pos} positions t={thr} ({plan.variant} kernel, {plan.npl} candidates a "
+                    f"lane): max abs err {err} (tolerance 0: exact), {dets} detections")
+                if not same or dets == 0:
+                    raise AssertionError(f"nms zoom b{b} K={k} {order}: kernel differs from "
+                                         f"plain by {err}")
+            t = timings[f"K{k}_{order}"] = time_nms_case(
+                boxes, scores, thr, flush, f"per-class K={k} {order} (zoom, {where})")
+            if order == "sorted":
+                rows.append(dict(
+                    name=name, route="cuda", source="yoloret_tpu_torch/csrc/nms.cu",
+                    replaces="yoloret_tpu/ops/nms_pallas.py:36",
+                    shapes=f"per-class pools b{BATCH} C={c} K={k} over {n_pos} positions ({SIZE} "
+                           f"and its {zh} crop) t={thr} max_det 20, sorted as the path gives "
+                           f"them; launches: the zoom drive's {where} Predictor's",
+                    launches=n, max_abs_err=0.0, ms=t["ms"], plain_ms=t["plain_ms"],
+                    bound_ms=t["bound_ms"], bound_by=t["bound_by"], library_ms=None))
+        del boxes, scores
+    out["nms_check"], out["nms_timing"] = cases, timings
+    del pred
 
     both = make_predictor(seed, weights=state, score_threshold=0.3, num_candidates=ZOOM_K,
                           zoom_ensemble=True, use_int8=True,
@@ -4454,6 +4495,37 @@ def spatial_slab_row(pred, mesh, flush, launches, out, size=None):
         rows_computed_over_owned=computed / owned)
 
 
+def held_per_class_nms(fn, *a, **kw):
+    """``fn(*a, **kw)`` with every per-class NMS call of the postprocess
+    recorded, then each held against ``suppress_plain`` on the same inputs:
+    (result, [(exact, detections) a call])."""
+    import torch
+
+    from yoloret_tpu_torch.ops import postprocess
+    from yoloret_tpu_torch.ops.nms_kernel import suppress_plain
+
+    inner, calls = postprocess.suppress, []
+
+    def recorded(boxes, scores, **skw):
+        out = inner(boxes, scores, **skw)
+        if boxes.dim() == 4:
+            calls.append((boxes, scores, skw, out))
+        return out
+
+    postprocess.suppress = recorded
+    try:
+        result = fn(*a, **kw)
+    finally:
+        postprocess.suppress = inner
+    held = []
+    for boxes, scores, skw, out in calls:
+        want = suppress_plain(boxes, scores, **skw)
+        held.append((all(torch.equal(g, w) for g, w in zip(out, want)),
+                     int(torch.isfinite(out[1]).sum() if skw.get("empty_score", 0.0) != 0.0
+                         else (out[1] > 0).sum())))
+    return result, held
+
+
 def counted_with_crop(fn, *a, **kw):
     """``counted(fn, ...)`` that also returns the MBConv launches made in
     the predictor's row-sharded crop forwards (``spatial_forward`` with a
@@ -4544,7 +4616,15 @@ def spatial_int8_zoom(state, seed, mesh, images, arrays, u8, hw, flush, out):
             n = matched_detections(dets_mesh, dets_one)
             counts = (sum(map(len, dets_mesh)), sum(map(len, dets_one)))
             with torch.inference_mode():
-                bitwise = all(torch.equal(g, w) for g, w in zip(b.infer(u8, hw), a.infer(u8, hw)))
+                if flag == "zoom":  # the per-class kernel on each data shard's pools
+                    got_mesh, held = held_per_class_nms(b.infer, u8, hw)
+                    r["nms_per_class_held"] = held
+                    if len(held) != mesh.data or not all(e for e, _ in held):
+                        raise AssertionError(f"17(e) zoom {dtype}: the per-class kernel against "
+                                             f"its plain version on the mesh's pools {held}")
+                else:
+                    got_mesh = b.infer(u8, hw)
+                bitwise = all(torch.equal(g, w) for g, w in zip(got_mesh, a.infer(u8, hw)))
                 x = images[:8]
                 halves = [x[:len(x) // 2], x[len(x) // 2:]]
                 if flag == "int8":  # the codes of every tap, each scaled by one float
@@ -4622,6 +4702,10 @@ def spatial_int8_zoom(state, seed, mesh, images, arrays, u8, hw, flush, out):
             rate = {k: [BATCH * 1e3 / v for v in vs] for k, vs in ms.items()}
             r.update(matched=n, detections=counts, launches=n_launch, slates_bitwise=bitwise,
                      img_per_s=rate, seconds=time.perf_counter() - t)
+            if flag == "zoom":
+                what += (f"; nms_kernel against its plain version on the b{BATCH} batch's "
+                         f"per-class pools, a data shard each: (exact, detections) "
+                         f"{r['nms_per_class_held']}")
             log(f"  (e) Predictor(mesh=, {flag}) {dtype} on {len(arrays)} images: {n} of "
                 f"{counts[0]} detections matched to one device's {counts[1]}; slates of a b{BATCH} "
                 f"batch bit for bit: {bitwise}; {what}; launches {n_launch} (in the crop's "
@@ -4793,6 +4877,7 @@ def main(argv=None) -> int:
             if not line.startswith("mbconv_wgmma"):
                 log(f"  ptxas {name}: {line}")
     check_wgmma_ptxas(report)
+    check_per_class_ptxas(report)
 
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False

@@ -497,6 +497,125 @@ def test_nms_large_kernel_sorted_ties(cuda, k):
             _nms_exact(bt, st, max_det=max_det, iou_threshold=0.5, score_threshold=thr)
 
 
+PER_CLASS_ORDERS = ("sorted", "shuffled", "lane_boundary", "last_index")
+
+
+def lane_group(k):
+    """Scores a load of ``nms_kernel<npl>`` on a pool of ``k`` (group g q
+    .. g q + g - 1 is lane q mod 32's): min(npl, 4)."""
+    return min(next(n for n in (1, 2, 4, 8, 16) if 32 * n >= k), 4)
+
+
+def per_class_pools(k, c=2, order="sorted", seed=0, grid=12, inf_corners=False):
+    """(boxes [1, C, K, 4], scores [1, C, K]) for the per-class kernel, each
+    class its own boxes: integer boxes on a ``grid`` (overlaps, identical
+    boxes), the pairs of ``AT_THRESHOLD`` at random places, with
+    ``inf_corners`` every 13th box's xmax infinite; scores in eighths
+    (ties, -0 beside +0, some negative); each pool in a stable descending
+    sort (``sorted``), then ``shuffled``, or with one inversion in the last
+    class at a lane boundary (the first score of a group of
+    ``lane_group``, above its predecessor; ``lane_boundary``) or at the
+    last index (``last_index``). float32 numpy, made from ``seed``."""
+    rs = np.random.RandomState(seed)
+    yx = rs.randint(0, grid, (1, c, k, 2))
+    boxes = np.concatenate([yx, yx + rs.randint(1, 9, (1, c, k, 2))], -1).astype(np.float32)
+    pairs = np.array([q for pair in AT_THRESHOLD for q in pair], np.float32)
+    for j in range(c):
+        at = rs.choice(k, min(k, len(pairs)), replace=False)
+        boxes[0, j, at] = pairs[:len(at)]
+    if inf_corners:
+        boxes[..., ::13, 3] = np.inf
+    scores = (rs.randint(-2, 9, (1, c, k)) / 8).astype(np.float32)
+    scores[(scores == 0) & (rs.rand(1, c, k) < 0.5)] = -0.0
+    s, i = torch.sort(torch.from_numpy(scores), dim=-1, descending=True, stable=True)
+    boxes = np.take_along_axis(boxes, i.numpy()[..., None], 2)
+    scores = s.numpy().copy()
+    if order == "shuffled":
+        perm = rs.permutation(k)
+        boxes, scores = boxes[:, :, perm], scores[:, :, perm]
+    elif order != "sorted" and k > 1:
+        g = lane_group(k)
+        at = k - 1 if order == "last_index" else g * int(rs.randint(1, -(-k // g)))
+        scores[0, -1, at] = scores[0, -1, at - 1] + np.float32(0.125)
+    return np.ascontiguousarray(boxes), np.ascontiguousarray(scores)
+
+
+def _per_class_launch(bt, st, **kw):
+    """``_nms_exact`` on per-class pools, which must be one launch of the
+    per-class kernel."""
+    assert plan_nms(st.shape[1], st.shape[2], kw["max_det"], False).variant == "per_class"
+    before = suppress.variant_launches["per_class"]
+    got = _nms_exact(bt, st, **kw)
+    assert suppress.variant_launches["per_class"] == before + 1
+    return got
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("order", ["sorted", "shuffled"])
+@pytest.mark.parametrize("k", [1, 31, 32, 33, 64, 255, 256, 257, 511, 512])
+def test_nms_per_class_kernel_sizes(cuda, k, order):
+    """Model-like per-class pools (``model_like_pool``: the walk) and the
+    same shuffled (the rounds) at every lane count's edges, C = 1, 4, 20
+    and 80, thresholds 0 and 0.2 and above every score; exact, one launch
+    of the per-class kernel a call."""
+    for c in (1, 4, 20, 80):
+        boxes, scores = reorder(*model_like_pool(k, b=2, c=c), order)
+        bt, st = torch.from_numpy(boxes).to(cuda), torch.from_numpy(scores).to(cuda)
+        for thr, empty in ((0.0, float("-inf")), (0.2, 0.0), (2.0, 0.0)):
+            got = _per_class_launch(bt, st, max_det=NMS_MAX_DET, iou_threshold=0.5,
+                                    score_threshold=thr, empty_score=empty)
+            assert (got[1] > 0).any() == (thr < 1)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("order", PER_CLASS_ORDERS)
+@pytest.mark.parametrize("k", [1, 2, 33, 64, 200, 256, 300, 512])
+def test_nms_per_class_kernel_edges(cuda, k, order):
+    """``per_class_pools`` (ties, -0 beside +0, pairs at IoU 0.5, infinite
+    corners; sorted, shuffled, one inversion at a lane boundary or the
+    last index) at thresholds 0, 0.25, -inf and above every score, max_det
+    1, 20 and 60, empty scores 0 and -inf; exact."""
+    for seed, (grid, inf) in enumerate(((4, False), (12, True), (40, False))):
+        boxes, scores = per_class_pools(k, c=3, order=order, seed=seed, grid=grid,
+                                        inf_corners=inf)
+        bt, st = torch.from_numpy(boxes).to(cuda), torch.from_numpy(scores).to(cuda)
+        for thr in (0.0, 0.25, float("-inf"), 2.0):
+            for max_det in (1, 20, 60):
+                for empty in (0.0, float("-inf")):
+                    _per_class_launch(bt, st, max_det=max_det, iou_threshold=0.5,
+                                      score_threshold=thr, empty_score=empty)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [1, 40, 256, 512])
+def test_nms_per_class_kernel_shared_box_set(cuda, k):
+    """A shared box set [B, K, 4] seen as per-class pools (class stride 0)
+    through the C entry, against the plain version on the boxes copied to
+    every class; sorted and shuffled pools, infinite corners; max_det 600
+    (the kernel's shared memory above 48 KB at K=512)."""
+    from yoloret_tpu_torch.ops.nms_kernel import VARIANTS, _lib
+
+    for order in ("sorted", "shuffled"):
+        boxes, scores = per_class_pools(k, c=3, order=order, seed=k, inf_corners=True)
+        shared = np.ascontiguousarray(boxes[:, 0])  # class 0's boxes for every class
+        bt, st = torch.from_numpy(shared).to(cuda), torch.from_numpy(scores).to(cuda)
+        b, c, _ = scores.shape
+        for thr, max_det, empty in ((0.0, 20, float("-inf")), (0.25, 60, 0.0),
+                                    (0.0, 600, float("-inf"))):  # above 48 KB at K >= 486
+            plan = plan_nms(c, k, max_det, shared=False)
+            out_b = torch.empty((b, c, max_det, 4), dtype=torch.float32, device=cuda)
+            out_s = torch.empty((b, c, max_det), dtype=torch.float32, device=cuda)
+            rc = _lib().yrt_nms(st.data_ptr(), bt.data_ptr(), out_b.data_ptr(), out_s.data_ptr(),
+                                b, c, k, max_det, k * 4, 0, 0.5, thr, empty,
+                                VARIANTS.index("per_class"), plan.warps, plan.classes_per_pass,
+                                plan.smem, None, torch.cuda.current_stream().cuda_stream)
+            assert rc == 0, rc
+            want = suppress_plain(bt[:, None].expand(b, c, k, 4), st, max_det=max_det,
+                                  iou_threshold=0.5, score_threshold=thr, empty_score=empty)
+            for g, w in zip((out_b, out_s), want):
+                torch.testing.assert_close(g, w, atol=0, rtol=0)
+
+
 def _train_pair(stage, device, dtype=torch.float32, size=64, batch=2, classes=4):
     """One train step (TF32 off) of seeded MobileNetV2 x0.75 with
     calibrated BatchNorm, on ``device`` at ``dtype`` compute, the loss

@@ -9,7 +9,9 @@ score threshold, one image, 3 and 20 classes); the card tests hold the
 kernel against the plain version on the same cases. Also here: the box
 IoU is symmetric (the kernel computes each pair once), the kernel's
 margin test decides as the division does, its algorithm (mask once,
-then one mask row per round) gives the plain result, and its launch plan.
+then one mask row per round) gives the plain result, and its launch plan;
+the large-pool walk's algorithm; and the per-class kernel's (order test
+over its lane slots, then the walk or the rounds) under hypothesis.
 """
 
 import jax.numpy as jnp
@@ -19,13 +21,15 @@ import torch
 from hypothesis import given, settings
 from hypothesis import strategies as st
 
-from test_torch_cuda import AT_THRESHOLD, NMS_CASES, NMS_MAX_DET, large_pool_case, nms_case
+from test_torch_cuda import (AT_THRESHOLD, NMS_CASES, NMS_MAX_DET, PER_CLASS_ORDERS,
+                             large_pool_case, lane_group, nms_case, per_class_pools)
 from yoloret_tpu.ops.nms_pallas import nms_fused
 from yoloret_tpu.ops.postprocess import _suppress_lax, _suppress_lax_shared
 from yoloret_tpu_torch.ops.boxes import iou
 from yoloret_tpu_torch.ops.nms_kernel import (
-    MAX_CANDIDATES, ROUNDS_WARPS, ROUNDS_WARPS_GLOBAL, SMEM_LIMIT, WALK_WARPS, large_smem_bytes,
-    large_staged_bytes, plan_nms, shared_smem_bytes, suppress, suppress_plain, walk_smem_bytes)
+    MAX_CANDIDATES, PER_CLASS_WARPS, ROUNDS_WARPS, ROUNDS_WARPS_GLOBAL, SMEM_LIMIT, WALK_WARPS,
+    large_smem_bytes, large_staged_bytes, per_class_smem_bytes, plan_nms, shared_smem_bytes,
+    suppress, suppress_plain, walk_smem_bytes)
 
 torch.set_num_threads(1)
 IOU_THR = 0.5
@@ -244,7 +248,7 @@ def test_plan_serving_and_map_grade():
     assert mapg.classes_per_pass == 20 and 48 * 1024 < mapg.smem <= SMEM_LIMIT
     # the mask is M x M bits: 32 KB at M=512, 512 B at M=64
     assert 4 * 32 * 16 * 16 == 32 * 1024 and 4 * 32 * 2 * 2 == 512
-    assert plan_nms(20, 512, 20, shared=False) == ("per_class", 16, 4, 20, 0)
+    assert plan_nms(20, 512, 20, shared=False) == ("per_class", 16, 4, 20, 4 * (20 * 24 + 640))
 
 
 @pytest.mark.parametrize("k", [1, 31, 32, 33, 64, 65, 100, 200, 256, 257, 511, 512])
@@ -534,3 +538,196 @@ def test_walk_algorithm_matches_plain(case):
     np.testing.assert_array_equal(np.signbit(walked[1]), np.signbit(want[1].numpy()))
     np.testing.assert_array_equal(walked[0], want[0].numpy())
     assert (want[1] > 0).any() and ((want[1] == 0).any() or case == "distinct")
+
+
+# -- the per-class kernel (pools up to 512): its algorithm -------------------
+
+
+def _active_keys(scores, thr):
+    """``csrc/nms.cu::active_key`` in numpy: float32 scores as unsigned keys
+    that order as the floats do (-0 = +0), 0 for an inactive score."""
+    v = np.asarray(scores, np.float32)
+    u = np.where(v == 0, np.float32(0), v).astype(np.float32).view(np.uint32)
+    key = np.where(u & np.uint32(0x80000000), ~u, u | np.uint32(0x80000000)).astype(np.uint32)
+    return np.where((v >= thr) & (v > -np.inf), key, np.uint32(0))
+
+
+def _lane_slots(k):
+    """(npl, g, index [32, npl]) of ``nms_kernel<npl>``: slot u g + j of
+    lane l holds candidate g (l + 32 u) + j (16-byte groups of g scores,
+    group l + 32 u of lane l)."""
+    npl = next(n for n in (1, 2, 4, 8, 16) if 32 * n >= k)
+    g = lane_group(k)
+    slot = np.arange(npl)[None, :]
+    return npl, g, g * (np.arange(32)[:, None] + 32 * (slot // g)) + slot % g
+
+
+def _per_class_order(scores, thr):
+    """The kernel's order test on one pool: its keys in the lane slots
+    (0 past the end), no key below its successor inside a group, and each
+    group's last key against the next group's first (lane l + 1's group
+    u, or lane 0's group u + 1 for lane 31). Returns (sorted, keys [32,
+    npl], the count of active keys)."""
+    k = len(scores)
+    npl, g, idx = _lane_slots(k)
+    keys = np.where(idx < k, _active_keys(scores, thr)[np.minimum(idx, k - 1)], np.uint32(0))
+    ok = True
+    for u in range(npl // g):
+        for j in range(1, g):
+            ok &= bool((keys[:, u * g + j - 1] >= keys[:, u * g + j]).all())
+        nxt = np.roll(keys[:, u * g], -1)  # lane l: lane l + 1's first
+        nxt[31] = keys[0, (u + 1) * g] if u + 1 < npl // g else 0
+        ok &= bool((keys[:, u * g + g - 1] >= nxt).all())
+    return ok, keys, int((keys != 0).sum())
+
+
+def _per_class_model(boxes, scores, max_det, iou_threshold, score_threshold, empty_score):
+    """``csrc/nms.cu::nms_kernel`` on one pool (boxes [K, 4], scores [K]) in
+    numpy: the order test; on a sorted pool the walk over the active prefix
+    in chunks of 32 (the next chunk's boxes fetched while a chunk is
+    tested; chunk 0 while the scores arrive), each lane's candidate tested
+    against the picks so far, then the chunk's own order from its kill
+    bits (each survivor against the earlier ones, once), lowest survivor
+    first; on an unsorted pool the rounds (the lowest index holding the top
+    key, the kill test on every slot); every kill by ``_kills`` (the
+    margin test).
+    Returns (boxes [D, 4], scores [D], "walk" or "rounds", boxes read)."""
+    k = len(scores)
+    ordered, keys, n_act = _per_class_order(scores, score_threshold)
+    picks, read = [], min(k, 32)
+    if ordered:
+        for base in range(0, n_act, 32):
+            if len(picks) == max_det:
+                break
+            lanes = base + np.arange(32)
+            read = max(read, min(n_act, base + 64))
+            q = np.where((lanes < k)[:, None], boxes[np.minimum(lanes, k - 1)], np.float32(0))
+            alive = lanes < n_act
+            for j in picks:
+                alive &= ~_kills(boxes[j], q, iou_threshold)
+            # the chunk's own order: km[i, j], survivor j < i kills lane i
+            km = np.zeros((32, 32), bool)
+            if len(picks) + 1 < max_det and alive.sum() > 1:
+                for j in np.nonzero(alive)[0]:
+                    km[:, j] = _kills(q[j], q, iou_threshold) & (np.arange(32) > j)
+            while alive.any() and len(picks) < max_det:
+                lane = int(np.argmax(alive))
+                picks.append(base + lane)
+                alive &= (np.arange(32) > lane) & ~km[:, lane]
+    else:
+        _, _, idx = _lane_slots(k)
+        qb = np.where((keys != 0)[..., None], boxes[np.minimum(idx, k - 1)], np.float32(0))
+        while len(picks) < max_det and keys.max() > 0:
+            top = keys.max()
+            cand = idx[np.arange(32), keys.argmax(1)]  # each lane's lowest slot of its top key
+            p = int(cand[keys.max(1) == top].min())
+            picks.append(p)
+            kill = _kills(boxes[p], qb.reshape(-1, 4), iou_threshold).reshape(keys.shape)
+            keys = np.where((idx == p) | kill, np.uint32(0), keys)
+    out_b = np.zeros((max_det, 4), np.float32)
+    out_s = np.full(max_det, empty_score, np.float32)
+    out_b[:len(picks)], out_s[:len(picks)] = boxes[picks], scores[picks]
+    return out_b, out_s, "walk" if ordered else "rounds", read
+
+
+@st.composite
+def _per_class_pools(draw):
+    """``per_class_pools`` of one image: 1 or 2 classes of 1 to 512
+    candidates, sorted, shuffled or with one inversion at a lane boundary
+    or the last index, on a grid of 4 to 160, with or without infinite
+    corners; a score threshold, max_det and empty score."""
+    boxes, scores = per_class_pools(
+        draw(st.integers(1, 512)), c=draw(st.integers(1, 2)),
+        order=draw(st.sampled_from(PER_CLASS_ORDERS)), seed=draw(st.integers(0, 2 ** 31 - 1)),
+        grid=draw(st.sampled_from([4, 12, 40, 160])), inf_corners=draw(st.booleans()))
+    return (boxes, scores, draw(st.sampled_from([0.0, 0.25, float("-inf"), 2.0])),
+            draw(st.sampled_from([1, 20, 60])), draw(st.sampled_from([0.0, float("-inf")])))
+
+
+@settings(max_examples=200, deadline=None, derandomize=True, database=None)
+@given(_per_class_pools())
+def test_per_class_kernel_algorithm_matches_plain(pools):
+    """The per-class kernel's algorithm (``_per_class_model``: lane
+    layout, order test, walk or rounds, margin test) equals the plain
+    version exactly, signs of zero included; it walks exactly the pools
+    whose keys do not increase, and the walk reads no box past the chunk
+    after the one that ends it."""
+    boxes, scores, thr, max_det, empty = pools
+    kw = dict(max_det=max_det, iou_threshold=IOU_THR, score_threshold=thr, empty_score=empty)
+    want_b, want_s = suppress_plain(torch.from_numpy(boxes), torch.from_numpy(scores), **kw)
+    for c in range(scores.shape[1]):
+        got_b, got_s, branch, read = _per_class_model(boxes[0, c], scores[0, c], **kw)
+        np.testing.assert_array_equal(got_s, want_s[0, c].numpy())
+        np.testing.assert_array_equal(np.signbit(got_s), np.signbit(want_s[0, c].numpy()))
+        np.testing.assert_array_equal(got_b, want_b[0, c].numpy())
+        key = np.where((scores[0, c] >= thr) & (scores[0, c] > -np.inf), scores[0, c], -np.inf)
+        assert branch == ("walk" if (key[:-1] >= key[1:]).all() else "rounds")
+        if branch == "walk":
+            n = int(np.isfinite(key).sum())
+            picks = int((got_s != empty).sum()) if empty == float("-inf") else None
+            last_chunk = (n - 1) // 32 if n else 0
+            if picks == max_det:  # ended by its last pick: the chunk after it is in flight
+                last = np.nonzero((scores[0, c] == got_s[-1]) & (boxes[0, c] == got_b[-1]).all(-1))
+                last_chunk = int(last[0][0]) // 32
+            assert read <= max(min(len(key), 32), min(n, 32 * (last_chunk + 2)))
+
+
+@pytest.mark.parametrize("k", [1, 2, 31, 33, 64, 65, 255, 256, 257, 511, 512])
+def test_per_class_order_test_sees_every_inversion(k):
+    """The order test over the lane slots finds one inversion at every
+    index of a pool of distinct scores (inside a group, at a group's
+    boundary within a lane's neighbour, from lane 31 to lane 0's next
+    group, at the last index) and none in the pool sorted, and counts
+    its active keys."""
+    rs = np.random.RandomState(k)
+    scores = np.sort(rs.permutation(k).astype(np.float32) / k)[::-1].copy()
+    ok, _, n_act = _per_class_order(scores, 0.25)
+    assert ok and n_act == int((scores >= 0.25).sum())
+    for i in range(1, k):
+        bad = scores.copy()
+        bad[i] = bad[i - 1] + np.float32(0.5)
+        assert not _per_class_order(bad, 0.0)[0], i
+
+
+@pytest.mark.parametrize("ref", ["lax", "pallas"])
+@pytest.mark.parametrize("k", [33, 256])
+def test_sorted_per_class_pools_match_jax(k, ref):
+    """``suppress_plain`` on sorted per-class pools (``_sorted_pools``, b1
+    C=2; K=33: ``nms_case("b1_c3_ragged")``'s first two classes; K=256:
+    ``large_pool_case``'s ties in eighths, -0 beside +0 and pairs at IoU
+    0.5), the pools the per-class kernel walks, against ``_suppress_lax``
+    and the Pallas ``nms_fused`` (interpret mode), exactly."""
+    if k == 33:
+        boxes, scores, thr = nms_case("b1_c3_ragged")
+        scores = np.ascontiguousarray(scores[:, :2])
+    else:
+        boxes, scores = large_pool_case(256, b=1, c=2, shared=True)
+        thr = 0.25
+    bx, sc = _sorted_pools(boxes, scores)
+    kw = dict(iou_threshold=IOU_THR, score_threshold=thr)
+    pb, ps = suppress_plain(torch.from_numpy(bx), torch.from_numpy(sc), max_det=NMS_MAX_DET, **kw)
+    if ref == "lax":
+        jb, js = _suppress_lax(jnp.asarray(bx), jnp.asarray(sc), max_det=NMS_MAX_DET, **kw)
+    else:
+        jb, js = nms_fused(jnp.asarray(bx), jnp.asarray(sc), max_det_per_class=NMS_MAX_DET,
+                           interpret=True, **kw)
+    np.testing.assert_array_equal(ps.numpy(), np.asarray(js))
+    np.testing.assert_array_equal(pb.numpy(), np.asarray(jb))
+    assert (ps > 0).sum() > 2
+
+
+@pytest.mark.parametrize("k", [1, 33, 64, 256, 512])
+def test_plan_per_class(k):
+    """Per-class pools up to 512: a warp each, PER_CLASS_WARPS a CTA, the
+    picks' boxes, areas and indices and a chunk's 32 boxes and areas in
+    shared memory (above 48 KB only from max_det 486 on), the same for
+    every class count."""
+    for c in (1, 4, 20, 80):
+        for max_det in (0, 1, 20, 60, 1000):
+            p = plan_nms(c, k, max_det, shared=False)
+            assert p.variant == "per_class" and p.warps == PER_CLASS_WARPS == 4
+            assert 32 * p.npl >= k and (p.npl == 1 or k > 16 * p.npl)
+            assert p.smem == per_class_smem_bytes(k, max_det) == 4 * (24 * min(max_det, k)
+                                                                        + 640)
+            assert p.smem <= 51712 < SMEM_LIMIT
+            assert (p.smem > 48 * 1024) == (min(max_det, k) >= 486)

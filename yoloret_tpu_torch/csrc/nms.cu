@@ -49,17 +49,42 @@
 //   [C, M] scores do not fit beside the mask, they come in passes of
 //   `cs` classes.
 //
-// nms_kernel: per-class pools (boxes [B, C, K, 4], the TPU kernel's own
-// contract; not on the serving path; a mask per class would not fit in
-// shared memory). One warp per (image, class).
-//   What bounds it: the loop's operations (rounds x candidates x one
-//   IoU); its inputs are read once. Design: candidates strided over the
-//   32 lanes and held in registers for all rounds (scores, four
-//   coordinates, area); a round is a lane-local scan, a 5-step shuffle
-//   argmax over (score, -index), a shuffle broadcast of the pick's box and
-//   one IoU per candidate -- no shared memory, no barrier, no memory
-//   traffic inside the loop. A warp stops at the first round with nothing
-//   left to pick. Up to 512 candidates (16 a lane).
+// nms_kernel: per-class pools of up to 512 candidates (boxes [B, C, K, 4],
+// the TPU kernel's own contract: the zoom ensemble, the top-k table, the
+// exported operator given per-class boxes). One warp per (image, class),
+// WARPS warps a CTA.
+//   What bounds it: on the paths' pools, which per_class_candidates sorts
+//   by score, bytes -- every score once (the pool's order), the boxes up
+//   to the last pick, the outputs -- and the latency of that chain: the
+//   top-k table's 32 pools leave the card idle. On an unsorted pool, the
+//   rounds' operations (one kill test per active candidate per round).
+//   Design (the large-pool walk's, in one warp): the scores come in as
+//   16-byte groups, group lane + 32 u of each lane (coalesced), as
+//   order-preserving keys; the pool is sorted when no key is below its
+//   successor's (inside a group, and a group's last key against the next
+//   group's first: lane + 1's by a shuffle, lane 0's next group for lane
+//   31). The walk's first chunk of boxes is fetched while the scores
+//   arrive.
+//   Sorted (the paths): the active candidates are a prefix, and greedy's
+//   next pick is the first active one that no earlier pick kills. The warp
+//   walks them 32 at a time, a lane each, the next chunk's boxes in flight
+//   while this one is tested: each lane against the picks so far (boxes,
+//   areas in shared memory), then the chunk's own order: each survivor's
+//   kill bits against the earlier survivors, tested at once (the chunk's
+//   boxes staged in shared memory), then the picks lowest survivor first,
+//   a ballot each. It stops at the max_det-th pick or the end of the
+//   prefix: no box past the chunk in flight when it stops is read.
+//   Unsorted: the greedy rounds in the same warp, keys and boxes (of the
+//   active candidates) in registers. A round is an in-lane max tree,
+//   __reduce_max_sync, an in-lane min tree of the indices holding the top
+//   key and __reduce_min_sync (ties to the lowest index), the pick's box
+//   from the cache, one kill test per candidate.
+//   Every kill test is the margin test (kills): inter against thr * (1 +-
+//   2^-18) * union, the division only inside that margin or where the
+//   union is below MIN_AREA or not finite. The tests run without a branch
+//   (settles); the division runs in a branch the warp takes only when one
+//   of its lanes needs it. Picks collect in shared memory; the outputs are
+//   written at the end as contiguous runs (float4 boxes).
 //
 // nms_large: pools of any size above that (per-class pools, K up to
 // ~58k; a shared pool is the same with class stride 0). The exact-NMS
@@ -137,97 +162,6 @@ constexpr unsigned FULL = 0xffffffffu;
 // areas of 0 or at least MIN_AREA, a union is 0 or above MIN_AREA / 2, and
 // the margin test's products stay in float32's normal range.
 constexpr float MIN_AREA = 0x1p-58f;
-
-template <int NPL>  // candidates per lane
-__global__ void __launch_bounds__(WARPS * 32)
-    nms_kernel(const float* __restrict__ scores, const float* __restrict__ boxes,
-               float* __restrict__ out_boxes, float* __restrict__ out_scores, int B, int C,
-               int K, int D, long long box_bstride, long long box_cstride, float iou_thr,
-               float score_thr, float empty_score) {
-  const int warp = blockIdx.x * WARPS + (threadIdx.x >> 5);
-  const int lane = threadIdx.x & 31;
-  if (warp >= B * C) return;
-  const int b = warp / C, c = warp - b * C;
-  const float* sc = scores + size_t(warp) * K;
-  const float* bx = boxes + b * box_bstride + c * box_cstride;
-
-  float s[NPL], y0[NPL], x0[NPL], y1[NPL], x1[NPL], ar[NPL];
-#pragma unroll
-  for (int i = 0; i < NPL; ++i) {
-    const int k = lane + 32 * i;
-    s[i] = -INFINITY;
-    y0[i] = x0[i] = y1[i] = x1[i] = ar[i] = 0.f;
-    if (k < K) {
-      const float v = sc[k];
-      s[i] = v >= score_thr ? v : -INFINITY;
-      y0[i] = bx[4 * k + 0];
-      x0[i] = bx[4 * k + 1];
-      y1[i] = bx[4 * k + 2];
-      x1[i] = bx[4 * k + 3];
-      ar[i] = fmaxf(0.f, x1[i] - x0[i]) * fmaxf(0.f, y1[i] - y0[i]);
-    }
-  }
-
-  float* ob = out_boxes + size_t(warp) * D * 4;
-  float* os = out_scores + size_t(warp) * D;
-  int r = 0;
-  for (; r < D; ++r) {
-    float best = -INFINITY;
-    int bi = K;
-#pragma unroll
-    for (int i = 0; i < NPL; ++i)  // ascending index: strict > keeps the lowest
-      if (s[i] > best) {
-        best = s[i];
-        bi = lane + 32 * i;
-      }
-#pragma unroll
-    for (int off = 16; off > 0; off >>= 1) {
-      const float ob_ = __shfl_xor_sync(FULL, best, off);
-      const int oi = __shfl_xor_sync(FULL, bi, off);
-      if (ob_ > best || (ob_ == best && oi < bi)) {
-        best = ob_;
-        bi = oi;
-      }
-    }
-    if (!(best > -INFINITY)) break;  // nothing active is left
-
-    const int owner = bi & 31, slot = bi >> 5;
-    float py0 = 0.f, px0 = 0.f, py1 = 0.f, px1 = 0.f;
-#pragma unroll
-    for (int i = 0; i < NPL; ++i)
-      if (i == slot) {
-        py0 = y0[i];
-        px0 = x0[i];
-        py1 = y1[i];
-        px1 = x1[i];
-      }
-    py0 = __shfl_sync(FULL, py0, owner);
-    px0 = __shfl_sync(FULL, px0, owner);
-    py1 = __shfl_sync(FULL, py1, owner);
-    px1 = __shfl_sync(FULL, px1, owner);
-    if (lane == 0) {
-      os[r] = best;
-      ob[4 * r + 0] = py0;
-      ob[4 * r + 1] = px0;
-      ob[4 * r + 2] = py1;
-      ob[4 * r + 3] = px1;
-    }
-    const float pa = fmaxf(0.f, px1 - px0) * fmaxf(0.f, py1 - py0);
-#pragma unroll
-    for (int i = 0; i < NPL; ++i) {
-      const float iy = fmaxf(0.f, fminf(py1, y1[i]) - fmaxf(py0, y0[i]));
-      const float ix = fmaxf(0.f, fminf(px1, x1[i]) - fmaxf(px0, x0[i]));
-      const float inter = ix * iy;
-      const float uni = pa + ar[i] - inter;
-      const float iou = uni != 0.f ? inter / uni : 0.f;
-      if (iou > iou_thr || lane + 32 * i == bi) s[i] = -INFINITY;
-    }
-  }
-  for (int t = r + lane; t < D; t += 32) {
-    os[t] = empty_score;
-    ob[4 * t + 0] = ob[4 * t + 1] = ob[4 * t + 2] = ob[4 * t + 3] = 0.f;
-  }
-}
 
 // ---- shared-pool kernel ------------------------------------------------
 
@@ -449,6 +383,262 @@ __global__ void __launch_bounds__(MAX_SHARED_WARPS * 32)
   }
 }
 
+// ---- helpers of the walks and the rounds ------------------------------
+
+__device__ __forceinline__ uint32_t active_key(float v, float score_thr) {
+  return (v >= score_thr && v > -INFINITY) ? order_key(v) : 0u;
+}
+
+__device__ __forceinline__ float box_area(float4 q) {
+  return fmaxf(0.f, q.w - q.y) * fmaxf(0.f, q.z - q.x);
+}
+
+// Box k of a pool (16-byte loads where the pool is 16-byte aligned).
+__device__ __forceinline__ float4 load_box(const float* __restrict__ bx, int k, bool aligned) {
+  if (aligned) return __ldg(reinterpret_cast<const float4*>(bx) + k);
+  return make_float4(__ldg(bx + 4 * k), __ldg(bx + 4 * k + 1), __ldg(bx + 4 * k + 2),
+                     __ldg(bx + 4 * k + 3));
+}
+
+// iou(p, q) > thr as the plain version decides it (p the pick, pa and qa
+// the areas): inter against lo/hi * union where that settles it beyond
+// rounding and the union keeps the products normal, else the division.
+__device__ __forceinline__ bool kills(float4 p, float pa, float4 q, float qa, float iou_thr,
+                                      float lo, float hi) {
+  float inter, uni;
+  pair_terms(p, pa, q, qa, inter, uni);
+  if (uni >= MIN_AREA) {
+    if (inter > hi * uni) return true;
+    if (inter < lo * uni) return false;
+  }
+  return (uni != 0.f ? inter / uni : 0.f) > iou_thr;
+}
+
+__device__ __forceinline__ bool kills(float4 p, float pa, float4 q, float iou_thr, float lo,
+                                      float hi) {
+  return kills(p, pa, q, box_area(q), iou_thr, lo, hi);
+}
+
+// The margin test of kills alone, without a branch: true where it settles
+// the pair (kill: its decision); where it does not, kills decides.
+__device__ __forceinline__ bool settles(float4 p, float pa, float4 q, float qa, float lo,
+                                        float hi, bool& kill) {
+  float inter, uni;
+  pair_terms(p, pa, q, qa, inter, uni);
+  const bool big = uni >= MIN_AREA, above = inter > hi * uni, below = inter < lo * uni;
+  kill = big && above;
+  return big && (above || below);
+}
+
+// ---- per-class pools ---------------------------------------------------
+
+// Bytes of dynamic shared memory nms_kernel lays out: for each of its
+// WARPS warps, the picks, min(D, K) boxes (float4), areas and indices, and
+// a chunk's 32 boxes and areas (ops/nms_kernel.py::per_class_smem_bytes).
+long long per_class_smem_bytes(int K, int D) {
+  return WARPS * (24LL * (D < K ? D : K) + 20 * 32);
+}
+
+// Scores G g .. G g + G - 1 of a pool into v: one 4G-byte load where the
+// group lies in the pool and the pool is aligned for it, else scalars;
+// -inf past the pool's end.
+template <int G>
+__device__ __forceinline__ void load_group(const float* __restrict__ sc, int g, int K,
+                                           bool aligned, float (&v)[G]) {
+  const int k0 = G * g;
+  if (aligned && k0 + G <= K) {
+    if constexpr (G == 4) {
+      const float4 t = __ldg(reinterpret_cast<const float4*>(sc) + g);
+      v[0] = t.x;
+      v[1] = t.y;
+      v[2] = t.z;
+      v[3] = t.w;
+    } else if constexpr (G == 2) {
+      const float2 t = __ldg(reinterpret_cast<const float2*>(sc) + g);
+      v[0] = t.x;
+      v[1] = t.y;
+    } else {
+      v[0] = __ldg(sc + g);
+    }
+  } else {
+#pragma unroll
+    for (int j = 0; j < G; ++j) v[j] = k0 + j < K ? __ldg(sc + k0 + j) : -INFINITY;
+  }
+}
+
+template <int NPL>  // candidates per lane
+__global__ void __launch_bounds__(WARPS * 32)
+    nms_kernel(const float* __restrict__ scores, const float* __restrict__ boxes,
+               float* __restrict__ out_boxes, float* __restrict__ out_scores, int B, int C,
+               int K, int D, long long box_bstride, long long box_cstride, float iou_thr,
+               float thr_lo, float thr_hi, float score_thr, float empty_score) {
+  constexpr int G = NPL < 4 ? NPL : 4;  // scores a load
+  constexpr int U = NPL / G;            // groups a lane: group lane + 32 u
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int P = min(D, K);  // the most picks a pool can make
+  const int wib = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  float4* pbox = reinterpret_cast<float4*>(smem) + wib * P;                     // [P]
+  float* parea = reinterpret_cast<float*>(smem + 16 * WARPS * P) + wib * P;     // [P]
+  int* pidx = reinterpret_cast<int*>(smem + 20 * WARPS * P) + wib * P;          // [P]
+  float4* cbox = reinterpret_cast<float4*>(smem + 24 * WARPS * P) + wib * 32;   // [32]
+  float* carea = reinterpret_cast<float*>(smem + 24 * WARPS * P + 16 * WARPS * 32) + wib * 32;
+
+  const int bc = blockIdx.x * WARPS + wib;
+  if (bc >= B * C) return;
+  const int b = bc / C, c = bc - b * C;
+  const float* sc = scores + size_t(bc) * K;
+  const float* bx = boxes + b * box_bstride + c * box_cstride;
+  const bool aligned = (reinterpret_cast<uintptr_t>(bx) & 15) == 0;
+  const float4 zero = make_float4(0.f, 0.f, 0.f, 0.f);
+  // the walk's first chunk, fetched while the scores arrive
+  float4 q = lane < K ? load_box(bx, lane, aligned) : zero;
+
+  // Slot u G + j holds candidate G (lane + 32 u) + j; its key is 0 when
+  // inactive (and past the pool's end).
+  uint32_t key[NPL];
+  unsigned n_act = 0;
+  bool sorted = true;
+  const bool sc_aligned = (reinterpret_cast<uintptr_t>(sc) & (4 * G - 1)) == 0;
+#pragma unroll
+  for (int u = 0; u < U; ++u) {
+    float v[G];
+    load_group<G>(sc, lane + 32 * u, K, sc_aligned, v);
+#pragma unroll
+    for (int j = 0; j < G; ++j) {
+      key[u * G + j] = active_key(v[j], score_thr);
+      n_act += key[u * G + j] != 0u;
+      if (j > 0) sorted &= key[u * G + j - 1] >= key[u * G + j];
+    }
+  }
+#pragma unroll
+  for (int u = 0; u < U; ++u) {  // a group's last key against the next group's first
+    uint32_t next = __shfl_down_sync(FULL, key[u * G], 1);
+    const uint32_t wrap = u + 1 < U ? __shfl_sync(FULL, key[(u + 1) * G], 0) : 0u;
+    if (lane == 31) next = wrap;  // 0 past the last group
+    sorted &= key[u * G + G - 1] >= next;
+  }
+  sorted = __all_sync(FULL, sorted);
+  n_act = __reduce_add_sync(FULL, n_act);
+
+  int np = 0;
+  if (sorted) {
+    // The walk: the active candidates are [0, n_act), in greedy's order.
+    for (int base = 0; base < int(n_act) && np < D; base += 32) {
+      const int k = base + lane;
+      const float4 next = k + 32 < int(n_act) ? load_box(bx, k + 32, aligned) : zero;
+      const float qa = box_area(q);
+      bool alive = k < int(n_act), open = false;
+#pragma unroll 4
+      for (int j = 0; j < np; ++j) {  // against the picks so far
+        bool kill;
+        open |= !settles(pbox[j], parea[j], q, qa, thr_lo, thr_hi, kill);
+        alive &= !kill;
+      }
+      if (__any_sync(FULL, alive && open))  // pairs the margin leaves open: kills decides
+        for (int j = 0; j < np && alive && open; ++j)
+          alive = !kills(pbox[j], parea[j], q, qa, iou_thr, thr_lo, thr_hi);
+      unsigned surv = __ballot_sync(FULL, alive);
+      // The chunk's own order: bit j of km is set when survivor j < lane
+      // kills this lane's candidate, tested once for every survivor.
+      uint32_t km = 0u;
+      if (np + 1 < D && (surv & (surv - 1u)) != 0u) {
+        cbox[lane] = q;
+        carea[lane] = qa;
+        __syncwarp();
+        uint32_t m = surv, unsettled = 0u;
+        const int n = __popc(surv);
+#pragma unroll 4
+        for (int t = 0; t < n; ++t) {
+          const int j = __ffs(m) - 1;
+          m &= m - 1u;
+          bool kill;
+          unsettled |= uint32_t(!settles(cbox[j], carea[j], q, qa, thr_lo, thr_hi, kill)) << j;
+          km |= uint32_t(kill) << j;
+        }
+        const uint32_t before = alive ? (1u << lane) - 1u : 0u;
+        km &= before;
+        unsettled &= before;
+        if (__any_sync(FULL, unsettled != 0u))
+          for (uint32_t u = unsettled; u != 0u; u &= u - 1u) {
+            const int j = __ffs(u) - 1;
+            km = (km & ~(1u << j)) |
+                 (uint32_t(kills(cbox[j], carea[j], q, qa, iou_thr, thr_lo, thr_hi)) << j);
+          }
+      }
+      while (surv != 0u && np < D) {  // lowest survivor first
+        const int l = __ffs(surv) - 1;
+        if (lane == l) {
+          pbox[np] = q;
+          parea[np] = qa;
+          pidx[np] = k;
+        }
+        ++np;
+        alive = alive && lane > l && !((km >> l) & 1u);
+        surv = __ballot_sync(FULL, alive);
+      }
+      __syncwarp();  // the picks are visible to the next chunk's tests
+      q = next;
+    }
+  } else {
+    // The rounds: the active candidates' boxes in registers.
+    float4 qb[NPL];
+    float qa[NPL];
+#pragma unroll
+    for (int i = 0; i < NPL; ++i) {
+      const int k = G * (lane + 32 * (i / G)) + i % G;
+      qb[i] = key[i] != 0u ? load_box(bx, k, aligned) : zero;
+      qa[i] = box_area(qb[i]);
+    }
+    for (; np < D; ++np) {
+      uint32_t t[NPL];  // the lane's top key, then its lowest index holding the warp's
+#pragma unroll
+      for (int i = 0; i < NPL; ++i) t[i] = key[i];
+#pragma unroll
+      for (int w = 1; w < NPL; w *= 2)
+#pragma unroll
+        for (int i = 0; i + w < NPL; i += 2 * w) t[i] = max(t[i], t[i + w]);
+      const uint32_t top = __reduce_max_sync(FULL, t[0]);
+      if (top == 0u) break;  // nothing active is left
+#pragma unroll
+      for (int i = 0; i < NPL; ++i)
+        t[i] = key[i] == top ? unsigned(G * (lane + 32 * (i / G)) + i % G) : 0xffffffffu;
+#pragma unroll
+      for (int w = 1; w < NPL; w *= 2)
+#pragma unroll
+        for (int i = 0; i + w < NPL; i += 2 * w) t[i] = min(t[i], t[i + w]);
+      const int p = int(__reduce_min_sync(FULL, t[0]));  // ties to the lowest index
+      const float4 pb = load_box(bx, p, aligned);
+      const float pa = box_area(pb);
+      if (lane == 0) {
+        pbox[np] = pb;
+        parea[np] = pa;
+        pidx[np] = p;
+      }
+      uint32_t unsettled = 0u;  // slot i: the margin leaves an active candidate open
+#pragma unroll
+      for (int i = 0; i < NPL; ++i) {
+        const int k = G * (lane + 32 * (i / G)) + i % G;
+        bool kill;
+        const bool settled = settles(pb, pa, qb[i], qa[i], thr_lo, thr_hi, kill);
+        if (k == p || kill) key[i] = 0u;  // an inactive slot stays 0
+        unsettled |= uint32_t(!settled && key[i] != 0u) << i;
+      }
+      if (__any_sync(FULL, unsettled != 0u))  // kills decides those
+#pragma unroll
+        for (int i = 0; i < NPL; ++i)
+          if (((unsettled >> i) & 1u) && kills(pb, pa, qb[i], qa[i], iou_thr, thr_lo, thr_hi))
+            key[i] = 0u;
+    }
+    __syncwarp();
+  }
+  float4* ob = reinterpret_cast<float4*>(out_boxes) + size_t(bc) * D;
+  float* os = out_scores + size_t(bc) * D;
+  for (int t = lane; t < D; t += 32) {
+    os[t] = t < np ? __ldg(sc + pidx[t]) : empty_score;
+    ob[t] = t < np ? pbox[t] : zero;
+  }
+}
+
 // ---- large pools -------------------------------------------------------
 
 constexpr int WALK_WARPS = 4;    // warps per CTA of nms_large_walk
@@ -472,35 +662,6 @@ long long large_smem_bytes(int K) {
 // Bytes of dynamic shared memory nms_large_walk lays out: the picks'
 // boxes and scores [D] (ops/nms_kernel.py::walk_smem_bytes).
 long long walk_smem_bytes(int D) { return 20LL * D; }
-
-__device__ __forceinline__ uint32_t active_key(float v, float score_thr) {
-  return (v >= score_thr && v > -INFINITY) ? order_key(v) : 0u;
-}
-
-__device__ __forceinline__ float box_area(float4 q) {
-  return fmaxf(0.f, q.w - q.y) * fmaxf(0.f, q.z - q.x);
-}
-
-// Box k of a pool (16-byte loads where the pool is 16-byte aligned).
-__device__ __forceinline__ float4 load_box(const float* __restrict__ bx, int k, bool aligned) {
-  if (aligned) return __ldg(reinterpret_cast<const float4*>(bx) + k);
-  return make_float4(__ldg(bx + 4 * k), __ldg(bx + 4 * k + 1), __ldg(bx + 4 * k + 2),
-                     __ldg(bx + 4 * k + 3));
-}
-
-// iou(p, q) > thr as the plain version decides it (p the pick): inter
-// against lo/hi * union where that settles it beyond rounding and the
-// union keeps the products normal, else the division.
-__device__ __forceinline__ bool kills(float4 p, float pa, float4 q, float iou_thr, float lo,
-                                      float hi) {
-  float inter, uni;
-  pair_terms(p, pa, q, box_area(q), inter, uni);
-  if (uni >= MIN_AREA) {
-    if (inter > hi * uni) return true;
-    if (inter < lo * uni) return false;
-  }
-  return (uni != 0.f ? inter / uni : 0.f) > iou_thr;
-}
 
 __global__ void __launch_bounds__(WALK_WARPS * 32)
     nms_large_walk(const float* __restrict__ scores, const float* __restrict__ boxes,
@@ -698,12 +859,19 @@ cudaError_t launch(const void* scores, const void* boxes, void* out_boxes, void*
                    int B, int C, int K, int D, long long bstride, long long cstride,
                    float iou_thr, float score_thr, float empty_score, int variant, int warps,
                    int cs, int smem, cudaStream_t stream) {
+  float lo, hi;
+  margin_bounds(iou_thr, lo, hi);
   if (variant == VARIANT_PER_CLASS) {
+    static bool opted_in[MAX_DEVICES] = {};
+    if (smem > 48 * 1024) {  // max_det of 486 and more
+      const cudaError_t e = allow_smem(nms_kernel<NPL>, opted_in);
+      if (e != cudaSuccess) return e;
+    }
     const int blocks = (B * C + WARPS - 1) / WARPS;
-    nms_kernel<NPL><<<blocks, WARPS * 32, 0, stream>>>(
+    nms_kernel<NPL><<<blocks, WARPS * 32, smem, stream>>>(
         static_cast<const float*>(scores), static_cast<const float*>(boxes),
         static_cast<float*>(out_boxes), static_cast<float*>(out_scores), B, C, K, D, bstride,
-        cstride, iou_thr, score_thr, empty_score);
+        cstride, iou_thr, lo, hi, score_thr, empty_score);
     return cudaGetLastError();
   }
   static bool opted_in[MAX_DEVICES] = {};
@@ -711,8 +879,6 @@ cudaError_t launch(const void* scores, const void* boxes, void* out_boxes, void*
     const cudaError_t e = allow_smem(nms_shared<NPL>, opted_in);
     if (e != cudaSuccess) return e;
   }
-  float lo, hi;
-  margin_bounds(iou_thr, lo, hi);
   nms_shared<NPL><<<B, warps * 32, smem, stream>>>(
       static_cast<const float*>(scores), static_cast<const float*>(boxes),
       static_cast<float*>(out_boxes), static_cast<float*>(out_scores), C, K, D, bstride, cs,
@@ -788,7 +954,7 @@ extern "C" {
 // boxes + b * box_bstride + c * box_cstride + 4 * k (in floats);
 // out_boxes [B, C, D, 4], out_scores [B, C, D] float32; empty slots get a
 // zero box and empty_score. variant 0 runs the per-class kernel (K <= 512,
-// warps == 4, smem == 0); 1 the shared-pool kernel (K <= 512, box_cstride
+// warps == 4, smem == per_class_smem_bytes(K, D)); 1 the shared-pool kernel (K <= 512, box_cstride
 // 0) with that many warps per CTA, scores in passes of cs classes and smem
 // bytes of dynamic shared memory; 2 the large-pool kernels (any K whose
 // keys fit in shared memory): the walk, then the rounds with that many
@@ -814,7 +980,7 @@ int yrt_nms(const void* scores, const void* boxes, void* out_boxes, void* out_sc
   }
   if (K > MAX_NPL * 32) return int(cudaErrorInvalidValue);
   const int npl = K <= 32 ? 1 : K <= 64 ? 2 : K <= 128 ? 4 : K <= 256 ? 8 : 16;
-  if (variant == VARIANT_PER_CLASS && (warps != WARPS || smem != 0))
+  if (variant == VARIANT_PER_CLASS && (warps != WARPS || smem != per_class_smem_bytes(K, D)))
     return int(cudaErrorInvalidValue);
   if (variant == VARIANT_SHARED &&
       (box_cstride != 0 || warps < 1 || warps > MAX_SHARED_WARPS || cs < 1 || cs > C ||

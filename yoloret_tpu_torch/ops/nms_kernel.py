@@ -11,9 +11,16 @@ the class stride of the boxes:
   warps build the image's M x M suppression mask (IoU > threshold) once
   in shared memory, then one warp per class runs the greedy rounds on it:
   an argmax by warp reductions and one mask-row load per round, no IoU.
-- ``per_class`` (boxes [B, C, K, 4], the TPU kernel's own contract): one
-  warp per (image, class), candidates in registers, one IoU per
-  candidate per round.
+- ``per_class`` (boxes [B, C, K, 4], the TPU kernel's own contract: the
+  zoom ensemble, the top-k table): one warp per (image, class),
+  PER_CLASS_WARPS a CTA. The warp reads the class's scores once as
+  16-byte groups and tests their order; on a sorted pool (the paths'
+  pools) it walks the candidates in index order as the large-pool walk
+  does, up to the last pick, the next chunk's boxes in flight; an
+  unsorted pool gets the greedy rounds in the same warp, keys and boxes
+  in registers. Every kill is the margin test (the division only inside
+  it); the picks and a chunk's boxes sit in shared memory
+  (``per_class_smem_bytes``).
 - ``per_class_large`` (pools above 512 candidates, per-class or shared;
   the exact-NMS evaluation's whole-grid pools, sorted by score): two
   kernels. The walk, one CTA per (image, class), reads the class's scores
@@ -47,6 +54,7 @@ from yoloret_tpu_torch.ops.boxes import iou as box_iou
 MAX_CANDIDATES = 512  # of the register kernels: 16 per lane
 SMEM_LIMIT = 232448  # bytes of shared memory one block may use on sm_90
 MAX_WARPS = 32
+PER_CLASS_WARPS = 4  # csrc/nms.cu's per-class kernel: a warp per pool, 4 a CTA
 # csrc/nms.cu's large-pool kernels: the walk's warps, and the rounds' warps
 # with their boxes staged in shared memory or read from device memory
 WALK_WARPS = 4
@@ -83,6 +91,14 @@ def shared_smem_bytes(npl: int, k: int, classes_per_pass: int, warps: int, max_d
             + 4 * min(warps, classes_per_pass) * max_det)
 
 
+def per_class_smem_bytes(k: int, max_det: int) -> int:
+    """Dynamic shared memory of the per-class kernel: each warp's picks,
+    min(max_det, K) of them, as a float4 box, an area and an index, and a
+    chunk's 32 boxes and areas. ``csrc/nms.cu::per_class_smem_bytes``
+    computes the same."""
+    return PER_CLASS_WARPS * (24 * min(max_det, k) + 20 * 32)
+
+
 def large_staged_bytes(k: int) -> int:
     """Dynamic shared memory of the large-pool rounds with the boxes
     staged: boxes [K] (float4), keys [K] (16-byte rounded), two buffers of
@@ -115,7 +131,8 @@ def plan_nms(c: int, k: int, max_det: int, shared: bool) -> NMSPlan:
     tiles and one warp per class (8 to 32); its scores sit in shared
     memory in as few passes as fit. Per-class pools (and a shared pool
     whose pick buffers alone overflow shared memory, max_det in the tens
-    of thousands) take the warp-per-(image, class) kernel."""
+    of thousands) take the warp-per-(image, class) kernel, PER_CLASS_WARPS
+    a CTA, with ``per_class_smem_bytes`` (at most 51,712 B: K <= 512)."""
     if k < 1:
         raise ValueError(f"{k} candidates: the kernels take at least 1")
     if k > MAX_CANDIDATES:
@@ -129,7 +146,7 @@ def plan_nms(c: int, k: int, max_det: int, shared: bool) -> NMSPlan:
         warps = ROUNDS_WARPS if smem == large_staged_bytes(k) else ROUNDS_WARPS_GLOBAL
         return NMSPlan("per_class_large", -(-k // (32 * warps)), warps, c, smem)
     npl = next(n for n in (1, 2, 4, 8, 16) if 32 * n >= k)
-    per_class = NMSPlan("per_class", npl, 4, c, 0)
+    per_class = NMSPlan("per_class", npl, PER_CLASS_WARPS, c, per_class_smem_bytes(k, max_det))
     if not shared or c < 1:
         return per_class
     tiles = -(-k // 32)
